@@ -1,0 +1,385 @@
+"""HTSAT (Hierarchical Token-Semantic Audio Transformer), eval path.
+
+Port of ``audio_residual_tpu/models/htsat.py`` (no mel fusion, no taps, no
+training mode). Module attribute names give the reference LAION-CLAP
+``state_dict`` keys (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the
+layout ``audio_residual_tpu/models/convert.py`` writes.
+
+Kernel routing follows the JAX package's on HTSAT-tiny: every block of a
+layer with several windows per image runs ``fused_swin_block``; a layer whose
+window covers the whole image (one window per image, layer 3 of HTSAT-tiny)
+runs the split plan -- LN1, ``fused_window_attention``, then
+``fused_residual_ffn``. On the CPU each kernel wrapper takes its plain
+version.
+
+Shapes for HTSAT-tiny on a 10 s / 48 kHz clip: wav [B, 480000] -> logmel
+[B, 1001, 64] -> image [B, 256, 256, 1] -> tokens 4096@96 -> 1024@192 ->
+256@384 -> 64@768 -> embedding [B, 768].
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audio_residual_tpu_torch.ops import frontend, interpolate, windows
+from audio_residual_tpu_torch.ops.common import layer_norm
+from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
+from audio_residual_tpu_torch.ops.cuda.ln_mlp import fused_residual_ffn
+from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block
+from audio_residual_tpu_torch.ops.cuda.window_attention import fused_window_attention
+
+__all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img"]
+
+
+@dataclass(frozen=True)
+class HTSATConfig:
+    """Static architecture + DSP config (HTSAT-tiny defaults)."""
+
+    spec_size: int = 256
+    patch_size: int = 4
+    patch_stride: tuple[int, int] = (4, 4)
+    in_chans: int = 1
+    num_classes: int = 527
+    embed_dim: int = 96
+    depths: tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 8
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    patch_norm: bool = True
+    sample_rate: int = 48000
+    clip_samples: int = 480000
+    mel_bins: int = 64
+    fmin: float = 50.0
+    fmax: float = 14000.0
+    n_fft: int = 1024
+    hop_size: int = 480
+
+    @property
+    def freq_ratio(self) -> int:
+        return self.spec_size // self.mel_bins
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.depths)
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (self.num_layers - 1))
+
+    @property
+    def patches_resolution(self) -> tuple[int, int]:
+        g = self.spec_size // self.patch_stride[0]
+        return (g, g)
+
+    def layer_resolution(self, i: int) -> tuple[int, int]:
+        g = self.patches_resolution
+        return (g[0] // (2**i), g[1] // (2**i))
+
+    def layer_dim(self, i: int) -> int:
+        return int(self.embed_dim * 2**i)
+
+    @property
+    def frontend_config(self) -> frontend.FrontendConfig:
+        return frontend.FrontendConfig(
+            sample_rate=self.sample_rate, n_fft=self.n_fft, hop_length=self.hop_size,
+            win_length=self.n_fft, n_mels=self.mel_bins, fmin=self.fmin, fmax=self.fmax,
+        )
+
+    @property
+    def tscam_sf(self) -> int:
+        return (
+            self.spec_size // (2 ** (self.num_layers - 1)) // self.patch_stride[0] // self.freq_ratio
+        )
+
+
+HTSAT_VARIANTS = {
+    "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(4, 8, 16, 32)),
+    "base": dict(embed_dim=128, depths=(2, 2, 12, 2), num_heads=(4, 8, 16, 32)),
+    "large": dict(embed_dim=256, depths=(2, 2, 12, 2), num_heads=(4, 8, 16, 32)),
+}
+
+
+# ---------------------------------------------------------------------------
+# modules (parameters only; the forward is functional below)
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> None:
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+def _linear(d_in: int, d_out: int, gen: torch.Generator, bias: bool = True) -> nn.Linear:
+    m = nn.Linear(d_in, d_out, bias=bias)
+    with torch.no_grad():
+        _trunc_normal_(m.weight, gen)
+        if bias:
+            m.bias.zero_()
+    return m
+
+
+class BatchNormMel(nn.Module):
+    """``bn0``: eval-statistics BatchNorm over the mel axis. The reference's
+    ``num_batches_tracked`` buffer is not kept (the converter drops it)."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.register_buffer("running_mean", torch.zeros(n))
+        self.register_buffer("running_var", torch.ones(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return frontend.batch_norm_mel(x, self.weight, self.bias, self.running_mean,
+                                       self.running_var)
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cfg: HTSATConfig, gen: torch.Generator):
+        super().__init__()
+        k = cfg.patch_size
+        self.proj = nn.Conv2d(cfg.in_chans, cfg.embed_dim, k, stride=cfg.patch_stride)
+        fan_in = cfg.in_chans * k * k
+        with torch.no_grad():
+            nn.init.uniform_(self.proj.weight, -1.0, 1.0, generator=gen)
+            self.proj.weight.mul_(math.sqrt(1.0 / fan_in))
+            self.proj.bias.zero_()
+        self.norm = nn.LayerNorm(cfg.embed_dim) if cfg.patch_norm else None
+
+
+class WindowAttention(nn.Module):
+    def __init__(self, dim: int, nh: int, window: int, qkv_bias: bool, gen: torch.Generator):
+        super().__init__()
+        self.qkv = _linear(dim, 3 * dim, gen, bias=qkv_bias)
+        self.proj = _linear(dim, dim, gen)
+        self.relative_position_bias_table = nn.Parameter(torch.empty((2 * window - 1) ** 2, nh))
+        with torch.no_grad():
+            _trunc_normal_(self.relative_position_bias_table, gen)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, gen: torch.Generator):
+        super().__init__()
+        self.fc1 = _linear(dim, hidden, gen)
+        self.fc2 = _linear(hidden, dim, gen)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, nh: int, cfg: HTSATConfig, gen: torch.Generator):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = WindowAttention(dim, nh, cfg.window_size, cfg.qkv_bias, gen)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), gen)
+
+    def flat_params(self) -> tuple:
+        """The kernels' parameter tuple (``fused_swin_block`` order)."""
+        return (self.norm1.weight, self.norm1.bias, self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias, self.norm2.weight, self.norm2.bias,
+                self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                self.attn.relative_position_bias_table)
+
+
+class PatchMerging(nn.Module):
+    def __init__(self, dim: int, gen: torch.Generator):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim)
+        self.reduction = _linear(4 * dim, 2 * dim, gen, bias=False)
+
+
+class BasicLayer(nn.Module):
+    def __init__(self, i: int, cfg: HTSATConfig, gen: torch.Generator):
+        super().__init__()
+        dim = cfg.layer_dim(i)
+        self.blocks = nn.ModuleList(
+            [SwinBlock(dim, cfg.num_heads[i], cfg, gen) for _ in range(cfg.depths[i])]
+        )
+        self.downsample = PatchMerging(dim, gen) if i < cfg.num_layers - 1 else None
+
+
+class HTSAT(nn.Module):
+    """Parameters of the HTSAT audio branch, initialised as the JAX package
+    initialises them (trunc-normal linears, unit LN), from ``generator``.
+    The forward is :func:`htsat_apply`."""
+
+    def __init__(self, cfg: HTSATConfig = HTSATConfig(), generator: torch.Generator | None = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.bn0 = BatchNormMel(cfg.mel_bins)
+        self.patch_embed = PatchEmbed(cfg, gen)
+        self.layers = nn.ModuleList([BasicLayer(i, cfg, gen) for i in range(cfg.num_layers)])
+        self.norm = nn.LayerNorm(cfg.num_features)
+        self.tscam_conv = nn.Conv2d(cfg.num_features, cfg.num_classes,
+                                    kernel_size=(cfg.tscam_sf, 3), padding=(0, 1))
+        fan_in = cfg.num_features * cfg.tscam_sf * 3
+        with torch.no_grad():
+            nn.init.uniform_(self.tscam_conv.weight, -1.0, 1.0, generator=gen)
+            self.tscam_conv.weight.mul_(math.sqrt(1.0 / fan_in))
+            self.tscam_conv.bias.zero_()
+        self.head = _linear(cfg.num_classes, cfg.num_classes, gen)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, m.weight, m.bias)
+
+
+def reshape_wav2img(x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
+    """Log-mel ``[B, T, F]`` -> Swin image ``[B, spec_size, spec_size, 1]``:
+    bicubic stretch of T to ``spec_size * freq_ratio``, then time folded into
+    ``freq_ratio`` chunks stacked along the frequency axis, chunk-major."""
+    b = x.shape[0]
+    target_t = cfg.spec_size * cfg.freq_ratio
+    target_f = cfg.spec_size // cfg.freq_ratio
+    x = interpolate.resize_bicubic_align_corners(x, target_t, target_f)
+    x = x.transpose(1, 2).reshape(b, target_f, cfg.freq_ratio, target_t // cfg.freq_ratio)
+    x = x.permute(0, 2, 1, 3).reshape(b, cfg.freq_ratio * target_f, target_t // cfg.freq_ratio)
+    return x[..., None]
+
+
+def _proj_conv(conv: nn.Conv2d, x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
+    """The 4x4/4 patch conv as reshape + one GEMM (NHWC in and out)."""
+    ph, pw = cfg.patch_stride
+    b, h, w, cin = x.shape
+    if not (cfg.patch_size == ph == pw and h % ph == 0 and w % pw == 0):
+        raise NotImplementedError("overlapping patch embedding is not ported")
+    patches = (
+        x.reshape(b, h // ph, ph, w // pw, pw, cin)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(b * (h // ph) * (w // pw), ph * pw * cin)
+    )
+    kernel = conv.weight.permute(2, 3, 1, 0).reshape(ph * pw * cin, -1).to(x.dtype)
+    y = patches @ kernel + conv.bias
+    return y.reshape(b, h // ph, w // pw, -1)
+
+
+def _patch_embed(pe: PatchEmbed, x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
+    y = _proj_conv(pe.proj, x, cfg)
+    b, h, w, c = y.shape
+    y = y.reshape(b, h * w, c)
+    return _ln(pe.norm, y) if pe.norm is not None else y
+
+
+def _patch_merge(pm: PatchMerging, x: torch.Tensor, resolution) -> torch.Tensor:
+    """2x2 neighbourhood concat -> LN -> linear, computed in f32."""
+    h, w = resolution
+    b, _, c = x.shape
+    x = x.float().reshape(b, h, w, c)
+    x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], -1)
+    x = x.reshape(b, (h // 2) * (w // 2), 4 * c)
+    return F.linear(_ln(pm.norm, x), pm.reduction.weight)
+
+
+def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: int, shift: int,
+               residual_params: dict | None = None, double_ffn_compat: bool = True,
+               compute_dtype=None) -> torch.Tensor:
+    """One Swin block on tokens ``[B, H*W, C]``, with the ResiDual epilogue
+    when ``residual_params`` is given. A window at least the resolution means
+    shift 0 (the reference's rule)."""
+    h, w = resolution
+    b, n, c = x.shape
+    if min(h, w) <= window:
+        shift = 0
+        window = min(h, w)
+    y = x.reshape(b, h, w, c)
+    if shift > 0:
+        y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+    wins = windows.window_partition(y, window).contiguous()
+    nw_img = (h // window) * (w // window)
+    use_res = residual_params is not None
+    flat = blk.flat_params()
+    if nw_img > 1:
+        if use_res:
+            flat = flat + (residual_params["basis"], residual_params["mean"],
+                           residual_params["lam"])
+        out = fused_swin_block(wins, flat, nh, window, nw_img, shift, (h, w), use_res,
+                               double_ffn_compat, compute_dtype)
+    else:
+        # split plan: LN1 here, then the attention and FFN kernels
+        store = x.dtype if compute_dtype is not None else torch.float32
+        wins = wins.to(store)
+        y1 = layer_norm(wins.float(), blk.norm1.weight, blk.norm1.bias).to(store)
+        a = fused_window_attention(
+            y1, blk.attn.qkv.weight, blk.attn.qkv.bias, blk.attn.proj.weight,
+            blk.attn.proj.bias, blk.attn.relative_position_bias_table, nh, window, nw_img,
+            shift, (h, w), compute_dtype,
+        )
+        out = fused_residual_ffn(
+            wins.reshape(-1, c), a.reshape(-1, c), blk.norm2.weight, blk.norm2.bias,
+            blk.mlp.fc1.weight, blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
+            residual_params, double_ffn=double_ffn_compat and use_res, mxu_dtype=compute_dtype,
+        ).reshape(wins.shape)
+    y = windows.window_reverse(out, window, h, w)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), dims=(1, 2))
+    return y.reshape(b, n, c)
+
+
+def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None,
+                double_ffn_compat: bool = True, compute_dtype=None) -> dict:
+    """Full HTSAT forward on ``wav [B, T]``; returns ``framewise_output``,
+    ``clipwise_output``, ``fine_grained_embedding`` and ``embedding``.
+
+    ``residual``: ``{layer_idx: {"basis": [K, D], "mean": [D], "lam": [K]}}``,
+    applied in every block of the layer. ``compute_dtype=torch.bfloat16`` is
+    the AMP path: bf16 operands with f32 accumulate from the bn0 output on,
+    the frontend's DFT in bf16, LN/softmax/ResiDual in f32.
+    """
+    cfg = model.cfg
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+    # the frontend's DFT follows the AMP mode (single-pass bf16 under AMP)
+    dft = "bf16" if compute_dtype == torch.bfloat16 else "f32"
+    x = fused_logmel(wav.float().contiguous(), cfg.frontend_config, dft_mode=dft)
+    x = model.bn0(x)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    x = reshape_wav2img(x, cfg)
+    frames_num = x.shape[1]
+    x = _patch_embed(model.patch_embed, x, cfg)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+
+    for i, layer in enumerate(model.layers):
+        res_i = residual.get(i) if residual is not None else None
+        resolution = cfg.layer_resolution(i)
+        for j, blk in enumerate(layer.blocks):
+            x = swin_block(
+                blk, x, resolution=resolution, nh=cfg.num_heads[i], window=cfg.window_size,
+                shift=0 if j % 2 == 0 else cfg.window_size // 2, residual_params=res_i,
+                double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+            )
+        if layer.downsample is not None:
+            x = _patch_merge(layer.downsample, x, resolution)
+
+    x = _ln(model.norm, x.float())
+    b, _, c = x.shape
+    nl = cfg.num_layers
+    sf = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[0]
+    st = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[1]
+    c_freq_bin = sf // cfg.freq_ratio
+    # regroup the chunk-folded frequency axis back into (freq, time)
+    x = x.reshape(b, cfg.freq_ratio, c_freq_bin, st, c)
+    x = x.permute(0, 2, 1, 3, 4).reshape(b, c_freq_bin, cfg.freq_ratio * st, c)
+
+    fine_grained = interpolate.repeat_frames(x.mean(dim=1), 8 * cfg.patch_stride[1])
+    latent = x.mean(dim=(1, 2))
+    logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
+    logits_map = logits_map[:, :, 0].transpose(1, 2)  # [B, T', classes]
+    fpx = interpolate.repeat_frames(torch.sigmoid(logits_map), 8 * cfg.patch_stride[1])
+    return {
+        "framewise_output": fpx,
+        "clipwise_output": torch.sigmoid(logits_map.mean(dim=1)),
+        "fine_grained_embedding": fine_grained,
+        "embedding": latent,
+    }

@@ -1,0 +1,359 @@
+// Device building blocks shared by the Hopper ports of the Swin-block
+// TPU kernels (window_attention.cu, ln_mlp.cu, swin_block.cu):
+//
+//   * gemm_f32_kernel   C = epi(A @ W^T), f32 operands, f32 FMA (golden path)
+//   * gemm_bf16_kernel  the same with bf16 operands on the tensor cores
+//                       (nvcuda::wmma 16x16x16, f32 accumulate; AMP path)
+//   * add_layernorm_kernel  h = x (+ r); y = LN(h), f32 statistics
+//   * attention_core_kernel one block per (window, head): scores, relative
+//                       bias, SW-MSA mask, exact f32 softmax, @V
+//
+// Layouts: A [M, K] row-major, W [N, K] row-major (nn.Linear layout), C and
+// the residual operands [M, N] row-major, all contiguous. Activations and
+// residual operands may be f32 or bf16 (a runtime flag per pointer, uniform
+// across a launch); weights, biases and LN parameters are f32. In bf16 mode
+// the GEMM rounds A and W to bf16 as it stages them, so a plain f32 matmul
+// of bf16-rounded operands computes the same function.
+//
+// GEMM epilogue, in this order: v = acc; v += bias[n]; v *= col_scale[n];
+// v = gelu(v); v += r1[m, n]; v += r2[m, n]. A prologue may subtract a_sub[k]
+// from A's columns (the ResiDual centring). Each step is optional.
+//
+// Host-side helpers (launch_*) enqueue on the caller's stream and never
+// synchronise; the exported C functions return cudaGetLastError().
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stddef.h>
+
+namespace arpu {
+
+__device__ __forceinline__ float ld(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+              : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st(void* p, size_t i, float v, int bf16) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  } else {
+    reinterpret_cast<float*>(p)[i] = v;
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// exact (erf) GELU, torch nn.GELU() semantics
+__device__ __forceinline__ float gelu_erf(float v) {
+  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+struct GemmArgs {
+  const void* A;  // [M, K]
+  int a_bf16;
+  const float* W;  // [N, K]
+  void* C;         // [M, N]
+  int c_bf16;
+  int M, N, K;
+  const float* bias;       // [N] or null
+  const float* a_sub;      // [K] or null
+  const float* col_scale;  // [N] or null
+  int gelu;
+  const void* r1;  // [M, N] or null
+  int r1_bf16;
+  const void* r2;  // [M, N] or null
+  int r2_bf16;
+};
+
+__device__ __forceinline__ float load_a(const GemmArgs& g, int m, int k) {
+  if (m >= g.M || k >= g.K) return 0.0f;
+  float v = ld(g.A, (size_t)m * g.K + k, g.a_bf16);
+  if (g.a_sub) v -= g.a_sub[k];
+  return v;
+}
+
+__device__ __forceinline__ float load_w(const GemmArgs& g, int n, int k) {
+  return (n < g.N && k < g.K) ? g.W[(size_t)n * g.K + k] : 0.0f;
+}
+
+__device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n, float v) {
+  if (m >= g.M || n >= g.N) return;
+  if (g.bias) v += g.bias[n];
+  if (g.col_scale) v *= g.col_scale[n];
+  if (g.gelu) v = gelu_erf(v);
+  const size_t i = (size_t)m * g.N + n;
+  if (g.r1) v += ld(g.r1, i, g.r1_bf16);
+  if (g.r2) v += ld(g.r2, i, g.r2_bf16);
+  st(g.C, i, v, g.c_bf16);
+}
+
+// ---- f32 SIMT GEMM: 64x64 tile, 256 threads, 4x4 outputs a thread -------
+constexpr int F_BM = 64, F_BN = 64, F_BK = 16;
+
+__global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs g) {
+  __shared__ float As[F_BK][F_BM + 4];
+  __shared__ float Ws[F_BK][F_BN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < g.K; k0 += F_BK) {
+    for (int e = tid; e < F_BM * F_BK; e += 256) {
+      const int r = e / F_BK, kk = e % F_BK;
+      As[kk][r] = load_a(g, m0 + r, k0 + kk);
+      Ws[kk][r] = load_w(g, n0 + r, k0 + kk);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) epilogue(g, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
+}
+
+// ---- bf16 tensor-core GEMM: 64x64 tile, 4 warps of 32x32, K step 32 -----
+constexpr int T_BM = 64, T_BN = 64, T_BK = 32, T_LD = T_BK + 8, T_CLD = T_BN + 4;
+
+__global__ void __launch_bounds__(128) gemm_bf16_kernel(GemmArgs g) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 As[T_BM * T_LD];
+  __shared__ __align__(32) __nv_bfloat16 Ws[T_BN * T_LD];
+  __shared__ __align__(32) float Cs[T_BM * T_CLD];
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int k0 = 0; k0 < g.K; k0 += T_BK) {
+    for (int e = tid; e < T_BM * T_BK; e += 128) {
+      const int r = e / T_BK, kk = e % T_BK;
+      As[r * T_LD + kk] = __float2bfloat16(load_a(g, m0 + r, k0 + kk));
+      Ws[r * T_LD + kk] = __float2bfloat16(load_w(g, n0 + r, k0 + kk));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < T_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * T_LD + kk, T_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Ws + (wn + 16 * j) * T_LD + kk, T_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm + 16 * i) * T_CLD + wn + 16 * j, acc[i][j], T_CLD,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < T_BM * T_BN; e += 128) {
+    const int r = e / T_BN, c = e % T_BN;
+    epilogue(g, m0 + r, n0 + c, Cs[r * T_CLD + c]);
+  }
+}
+
+static inline void launch_gemm(const GemmArgs& g, int bf16_mma, cudaStream_t s) {
+  if (bf16_mma) {
+    dim3 grid((g.N + T_BN - 1) / T_BN, (g.M + T_BM - 1) / T_BM);
+    gemm_bf16_kernel<<<grid, 128, 0, s>>>(g);
+  } else {
+    dim3 grid((g.N + F_BN - 1) / F_BN, (g.M + F_BM - 1) / F_BM);
+    gemm_f32_kernel<<<grid, 256, 0, s>>>(g);
+  }
+}
+
+static inline GemmArgs gemm_args(const void* A, int a_bf16, const float* W, void* C, int c_bf16,
+                                 int M, int N, int K, const float* bias) {
+  GemmArgs g = {};
+  g.A = A;
+  g.a_bf16 = a_bf16;
+  g.W = W;
+  g.C = C;
+  g.c_bf16 = c_bf16;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.bias = bias;
+  return g;
+}
+
+// ---- row LayerNorm, one warp a row, f32 statistics ---------------------
+__global__ void __launch_bounds__(256) add_layernorm_kernel(
+    const void* x, int x_bf16, const void* r, int r_bf16, float* h_out, void* y, int y_bf16,
+    const float* gamma, const float* beta, int rows, int C, float eps) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const size_t base = (size_t)row * C;
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    float v = ld(x, base + c, x_bf16);
+    if (r) v += ld(r, base + c, r_bf16);
+    if (h_out) h_out[base + c] = v;
+    s += v;
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    float v = ld(x, base + c, x_bf16);
+    if (r) v += ld(r, base + c, r_bf16);
+    q += (v - mu) * (v - mu);
+  }
+  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+  for (int c = lane; c < C; c += 32) {
+    float v = ld(x, base + c, x_bf16);
+    if (r) v += ld(r, base + c, r_bf16);
+    st(y, base + c, (v - mu) * rstd * gamma[c] + beta[c], y_bf16);
+  }
+}
+
+static inline void launch_add_layernorm(const void* x, int x_bf16, const void* r, int r_bf16,
+                                        float* h_out, void* y, int y_bf16, const float* gamma,
+                                        const float* beta, int rows, int C, cudaStream_t s) {
+  add_layernorm_kernel<<<(rows + 7) / 8, 256, 0, s>>>(x, x_bf16, r, r_bf16, h_out, y, y_bf16,
+                                                      gamma, beta, rows, C, 1e-5f);
+}
+
+// ---- window attention core: one block per (window, head) ----------------
+// qkv [W*n, 3C] f32 -> out [W*n, C] f32 (this head's hd columns).
+// bias [nh, n, n]; mask [nW, n, n] or null (window w takes mask[w % nW]).
+// bf16: q*scale, k, probabilities and v are rounded to bf16 before their
+// products (f32 accumulate), the AMP contract of the TPU kernels.
+constexpr int ATT_THREADS = 256;
+
+__global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
+    const float* qkv, float* out, const float* bias, const float* mask, int n, int nh, int C,
+    int nW, float scale, int bf16) {
+  extern __shared__ float sm[];
+  const int hd = C / nh;
+  float* q = sm;                 // [n][hd]
+  float* k = q + n * hd;         // [n][hd + 1]
+  float* v = k + n * (hd + 1);   // [n][hd]
+  float* s = v + n * hd;         // [n][n + 1]
+  const int w = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const size_t row0 = (size_t)w * n;
+
+  for (int e = tid; e < n * hd; e += ATT_THREADS) {
+    const int t = e / hd, d = e % hd;
+    const float* src = qkv + (row0 + t) * 3 * C + h * hd + d;
+    float qv = src[0] * scale, kv = src[C], vv = src[2 * C];
+    if (bf16) {
+      qv = round_bf16(qv);
+      kv = round_bf16(kv);
+      vv = round_bf16(vv);
+    }
+    q[t * hd + d] = qv;
+    k[t * (hd + 1) + d] = kv;
+    v[t * hd + d] = vv;
+  }
+  __syncthreads();
+
+  const float* bh = bias + (size_t)h * n * n;
+  const float* mw = mask ? mask + (size_t)(w % nW) * n * n : nullptr;
+  for (int e = tid; e < n * n; e += ATT_THREADS) {
+    const int i = e / n, j = e % n;
+    float acc = 0.0f;
+    for (int d = 0; d < hd; ++d) acc = fmaf(q[i * hd + d], k[j * (hd + 1) + d], acc);
+    acc += bh[e];
+    if (mw) acc += mw[e];
+    s[i * (n + 1) + j] = acc;
+  }
+  __syncthreads();
+
+  for (int i = warp; i < n; i += ATT_THREADS / 32) {
+    float* row = s + i * (n + 1);
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < n; j += 32) {
+      const float ex = expf(row[j] - mx);
+      row[j] = ex;
+      sum += ex;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < n; j += 32) {
+      const float p = row[j] / sum;
+      row[j] = bf16 ? round_bf16(p) : p;
+    }
+  }
+  __syncthreads();
+
+  for (int e = tid; e < n * hd; e += ATT_THREADS) {
+    const int i = e / hd, d = e % hd;
+    float acc = 0.0f;
+    for (int j = 0; j < n; ++j) acc = fmaf(s[i * (n + 1) + j], v[j * hd + d], acc);
+    out[(row0 + i) * C + h * hd + d] = acc;
+  }
+}
+
+static inline size_t attention_smem_bytes(int n, int hd) {
+  return sizeof(float) * ((size_t)n * hd * 2 + (size_t)n * (hd + 1) + (size_t)n * (n + 1));
+}
+
+static inline void launch_attention_core(const float* qkv, float* out, const float* bias,
+                                         const float* mask, int windows, int n, int nh, int C,
+                                         int nW, int bf16, cudaStream_t s) {
+  const int hd = C / nh;
+  const size_t smem = attention_smem_bytes(n, hd);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(attention_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  // hd**-0.5 rounded once from double, as the plain version's scalar is
+  const float scale = (float)pow((double)hd, -0.5);
+  attention_core_kernel<<<dim3(windows, nh), ATT_THREADS, smem, s>>>(qkv, out, bias, mask, n,
+                                                                    nh, C, nW, scale, bf16);
+}
+
+}  // namespace arpu
+
+extern "C" const char* arpu_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,106 @@
+"""K4 ``fused_swin_block``: a whole Swin block in window space (``csrc/swin_block.cu``).
+
+Replaces ``audio_residual_tpu/ops/pallas/swin_block.py::fused_swin_block``.
+``x [B*nW, n, C]`` (block input, already rolled and partitioned) ->
+``y = h + MLP(LN2(h))`` with ``h = x + proj(attn(LN1(x)))``, the optional
+ResiDual epilogue on the attention output (f32) and, with ResiDual on, the
+double-FFN quirk. ``flat_params`` = (n1s, n1b, wqkv, bqkv, wproj, bproj,
+n2s, n2b, wfc1, bfc1, wfc2, bfc2, rel_bias_table[, rbasis, rmean, rlam]),
+weights in ``nn.Linear`` layout.
+
+On the card the kernel is LN1 -> window attention -> residual FFN, the plan
+the JAX package declares equivalent (``swin_block.py::_split_block``), with
+the attention output kept in f32 between the halves as in the monolithic
+TPU kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from audio_residual_tpu_torch.ops.common import layer_norm
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda.ln_mlp import residual_ffn_f32, residual_pointers
+from audio_residual_tpu_torch.ops.cuda.window_attention import (
+    attention_f32,
+    bias_and_mask,
+    check_window_shapes,
+    store_dtype,
+)
+
+__all__ = ["fused_swin_block", "swin_block_plain"]
+
+
+def _unpack(flat_params, use_residual: bool):
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     table, *res) = flat_params
+    rparams = None
+    if use_residual:
+        if len(res) != 3:
+            raise ValueError("use_residual needs (rbasis, rmean, rlam) in flat_params")
+        rparams = {"basis": res[0], "mean": res[1], "lam": res[2]}
+    return (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+            table), rparams
+
+
+def swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift, resolution,
+                     use_residual, double_ffn, mxu_dtype=None) -> torch.Tensor:
+    """Plain version of the kernel (``swin_block.py::_xla_twin`` semantics)."""
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     table), rparams = _unpack(flat_params, use_residual)
+    store = store_dtype(x, mxu_dtype)
+    wn, n, c = x.shape
+    bias, mask = bias_and_mask(table, window, shift, resolution)
+    y = layer_norm(x.float(), n1s, n1b)
+    a = attention_f32(y, wqkv, bqkv, wproj, bproj, bias, mask, nh, mxu_dtype)
+    out = residual_ffn_f32(x.reshape(-1, c), a.reshape(-1, c), n2s, n2b, wfc1, bfc1, wfc2,
+                           bfc2, rparams, double_ffn=double_ffn and use_residual,
+                           mxu_dtype=mxu_dtype)
+    return out.reshape(wn, n, c).to(store)
+
+
+def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image: int,
+                     shift: int, resolution, use_residual: bool, double_ffn: bool,
+                     mxu_dtype=None) -> torch.Tensor:
+    """``x [B*nW, n, C]`` pre-norm windows -> post-block windows, in the store
+    dtype. CPU tensors take :func:`swin_block_plain`."""
+    if x.device.type == "cpu":
+        return swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift,
+                                resolution, use_residual, double_ffn, mxu_dtype)
+    store = store_dtype(x, mxu_dtype)
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     table), rparams = _unpack(flat_params, use_residual)
+    check_window_shapes("fused_swin_block", x, nh, window, num_windows_per_image, table)
+    wn, n, c = x.shape
+    hidden = wfc1.shape[0]
+    if (tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c)
+            or tuple(wfc1.shape) != (hidden, c) or tuple(wfc2.shape) != (c, hidden)):
+        raise ValueError("fused_swin_block: weight shapes do not match C")
+    basis, basis_t, mean, lam, kr = residual_pointers(rparams, c)
+    weights = {"n1s": n1s, "n1b": n1b, "wqkv": wqkv, "bqkv": bqkv, "wproj": wproj,
+               "bproj": bproj, "n2s": n2s, "n2b": n2b, "wfc1": wfc1, "bfc1": bfc1,
+               "wfc2": wfc2, "bfc2": bfc2, "rel_bias_table": table, "basis": basis,
+               "basis_t": basis_t, "mean": mean, "lam": lam}
+    build.check_cuda_inputs("fused_swin_block", {"x": x, **weights}, float_only=tuple(weights))
+    bias, mask = bias_and_mask(table, window, shift, resolution)
+    r = wn * n
+    out = torch.empty(wn, n, c, device=x.device, dtype=store)
+    ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiii",
+                         restype=ctypes.c_size_t)(r, c, hidden, kr)
+    ws = torch.empty(ws_size, device=x.device, dtype=torch.float32)
+    fn = build.bind("swin_block", "arpu_swin_block",
+                    "pipi" "iiiiii" "pppppppppppp" "pp" "pppp" "iii" "pp")
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
+            int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, hidden,
+            n1s.data_ptr(), n1b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
+            wfc2.data_ptr(), bfc2.data_ptr(),
+            bias.data_ptr(), build.ptr(mask),
+            build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
+            kr, int(bool(double_ffn and use_residual)), int(mxu_dtype is not None),
+            ws.data_ptr(), build.stream_of(x))
+    build.check("swin_block", rc, "fused_swin_block")
+    launch_counts["fused_swin_block"] += 1
+    return out

@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/H100 port on one CUDA card.
+
+Run from the root of a checkout, on a machine with a card:
+
+    python3 chip_smoke.py
+
+Phases (each prints its results; any failure exits non-zero before the last
+line):
+  1. build   -- nvcc every kernel (in parallel), print the card's name and
+               power limit, turn TF32 off for the golden path.
+  2. kernels -- each of K1-K4 against its plain PyTorch version at the main
+               path's shapes (B=32), f32 and bf16, with times.
+  3. main    -- ESC-50 zero-shot + ResiDual (layer 0, K=96) through
+               HTSAT-tiny at full width, golden f32 and bf16 AMP: the bench
+               accuracy guard, the launch counts per forward, clips/s.
+  4. fixture -- the tiny JAX golden fixture (tests/data/torch_port_tiny.npz)
+               through the port's kernels.
+Then one JSON line of per-kernel numbers, the card line, and the final
+``{"ok": true, "device": ...}`` line. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+B = 32
+CLIP = 240000  # ESC-50: 5 s at 48 kHz
+N_CLASSES = 50
+EXPECTED_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 10, "fused_window_attention": 2,
+                     "fused_residual_ffn": 2}
+TOL = {"f32": 1e-4, "bf16": 2e-2}  # max |kernel - plain| / max |plain|
+HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / bf16 rates
+PEAK = {"f32": 67e12, "bf16": 989e12}
+
+
+def log(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
+
+
+class KernelStats:
+    """Phase 2's per-kernel numbers. The JSON line holds the bench's AMP mode
+    (bf16), summed over the launches of one main-path forward."""
+
+    JSON_MODE = "bf16"
+
+    def __init__(self, kernels: dict):
+        self.kernels = kernels
+        self.rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                bytes_ms=0.0, ops_ms=0.0, library_ms=None) for name in kernels}
+
+    def check(self, name, label, got, ref, mode) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        finite = bool(torch.isfinite(got.float()).all())
+        ok = finite and rel < TOL[mode] and got.dtype == ref.dtype and got.shape == ref.shape
+        log("kernels", check=f"{name} {label}", mode=mode, max_abs_err=err, max_rel_err=rel,
+            tol=TOL[mode], ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} {label} ({mode}) disagrees with its plain version")
+        if mode == self.JSON_MODE:
+            self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], err)
+
+    def time(self, name, label, mode, kernel_fn, plain_fn, nbytes, flops, launches=1,
+             library_fn=None) -> None:
+        """``nbytes``: each input read once, each output written once;
+        ``flops``: {peak type: operations} of one launch."""
+        ms = launches * time_ms(kernel_fn)
+        plain = launches * time_ms(plain_fn)
+        lib = launches * time_ms(library_fn) if library_fn is not None else None
+        b_ms = launches * 1e3 * nbytes / HBM_BYTES_S
+        o_ms = launches * 1e3 * sum(f / PEAK[t] for t, f in flops.items())
+        log("kernels", kernel=name, shape=label, mode=mode, launches=launches, ms=ms,
+            plain_ms=plain, bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=lib)
+        if mode == self.JSON_MODE:
+            r = self.rows[name]
+            r["ms"] += ms
+            r["plain_ms"] += plain
+            r["bound_ms"] += max(b_ms, o_ms)
+            r["bytes_ms"] += b_ms
+            r["ops_ms"] += o_ms
+            if lib is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    def json_line(self, launches: dict) -> str:
+        out = []
+        for name, (src, replaces) in self.kernels.items():
+            r = self.rows[name]
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"audio_residual_tpu_torch/ops/cuda/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches.get(name, 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+                "library_ms": r["library_ms"],
+            })
+        return json.dumps({"kernels": out})
+
+
+def phase_kernels(stats: KernelStats, dev) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from audio_residual_tpu_torch.ops.common import layer_norm
+    from audio_residual_tpu_torch.ops.cuda import frontend as k1
+    from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
+    from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+    from audio_residual_tpu_torch.ops.frontend import FrontendConfig, mel_active_bins
+
+    rng = np.random.default_rng(0)
+    modes = (("f32", None), ("bf16", torch.bfloat16))
+
+    def t(*shape, scale=1.0, offset=0.0):
+        a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    def nbytes_of(tensors):
+        return sum(x.numel() * x.element_size() for x in tensors)
+
+    def typed(mode, flops_by_type):
+        """The golden mode runs every product in f32."""
+        return {"f32": sum(flops_by_type.values())} if mode == "f32" else flops_by_type
+
+    # K1 at [32, 480000]
+    cfg = FrontendConfig()
+    wav = t(B, 480000, scale=0.1)
+    lo, hi = mel_active_bins(cfg)
+    nb, nf = hi - lo, cfg.num_frames(480000)
+    for mode, _ in modes:
+        stats.check("fused_logmel", "[32,480000]", k1.fused_logmel(wav, cfg, mode),
+                    k1.logmel_plain(wav, cfg, mode), mode)
+        nbytes = 4 * (wav.numel() + cfg.n_fft * 2 * nb + nb * cfg.n_mels + B * nf * cfg.n_mels)
+        flops = {"bf16": 2.0 * B * nf * cfg.n_fft * 2 * nb, "f32": 2.0 * B * nf * nb * cfg.n_mels}
+        stats.time("fused_logmel", "[32,480000]", mode, lambda: k1.fused_logmel(wav, cfg, mode),
+                   lambda: k1.logmel_plain(wav, cfg, mode), nbytes, typed(mode, flops))
+
+    def block(c, nh):
+        hidden = 4 * c
+        flat = (t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(3 * c, c, scale=0.02),
+                t(3 * c, scale=0.02), t(c, c, scale=0.02), t(c, scale=0.02),
+                t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(hidden, c, scale=0.02),
+                t(hidden, scale=0.02), t(c, hidden, scale=0.02), t(c, scale=0.02),
+                t(225, nh, scale=0.02))
+        q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+        res = (torch.from_numpy(q.astype(np.float32)).to(dev), t(c, scale=0.01),
+               t(c, scale=0.1, offset=1.0))
+        return flat, res
+
+    # K4 at layers 0-2: (C, heads, windows per clip, grid, main-path launches
+    # per shift, main path has ResiDual + double-FFN); shift 0 and 4; ResiDual
+    # off / on / on + double-FFN
+    for c, nh, nw, hw, per_shift, path_res in ((96, 4, 64, (64, 64), 1, True),
+                                                (192, 8, 16, (32, 32), 1, False),
+                                                (384, 16, 4, (16, 16), 3, False)):
+        flat, res = block(c, nh)
+        hidden, r = 4 * c, B * nw * 64
+        x32 = t(B * nw, 64, c, scale=0.5)
+        for mode, md in modes:
+            # AMP: layer 0 carries bf16 activations, layers 1-2 f32 (PatchMerging's)
+            x = x32.to(md) if (md is not None and c == 96) else x32
+            for shift in (0, 4):
+                for use_res, dffn in ((False, False), (True, False), (True, True)):
+                    args = (x, flat + (res if use_res else ()), nh, 8, nw, shift, hw, use_res,
+                            dffn, md)
+                    label = f"C={c} shift={shift} res={use_res} dffn={dffn}"
+                    stats.check("fused_swin_block", label, k4.fused_swin_block(*args),
+                                k4.swin_block_plain(*args), mode)
+                    if (use_res, dffn) != ((True, True) if path_res else (False, False)):
+                        continue
+                    passes = 2 if dffn else 1
+                    flops = {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c
+                             + passes * 4.0 * r * c * hidden}
+                    if use_res:
+                        flops["f32"] = 4.0 * r * c * c
+                    stats.time("fused_swin_block", label, mode,
+                               lambda: k4.fused_swin_block(*args),
+                               lambda: k4.swin_block_plain(*args),
+                               2 * nbytes_of([x]) + nbytes_of(args[1]), typed(mode, flops),
+                               launches=per_shift)
+
+    # K2 and K3 at layer 3 (C=768, 32 heads, one window per clip, shift 0);
+    # LN1 runs before them in plain PyTorch, as on the main path
+    c, nh = 768, 32
+    flat, res = block(c, nh)
+    hidden, r = 4 * c, B * 64
+    x = t(B, 64, c, scale=0.5)
+    y = layer_norm(x, flat[0], flat[1])
+    for mode, md in modes:
+        args = (y, *flat[2:6], flat[12], nh, 8, 1, 0, (8, 8), md)
+        a = k2.fused_window_attention(*args)
+        stats.check("fused_window_attention", "C=768", a, k2.window_attention_plain(*args), mode)
+        # yardstick: SDPA with the same float bias, on the attention core only
+        qkv = (y.reshape(-1, c) @ flat[2].t() + flat[3]).reshape(B, 64, 3, nh, c // nh)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).to(md or torch.float32).contiguous()
+                   for i in range(3))
+        bias = k2.bias_and_mask(flat[12], 8, 0, (8, 8))[0][None].to(q.dtype)
+        stats.time("fused_window_attention", "C=768", mode,
+                   lambda: k2.fused_window_attention(*args),
+                   lambda: k2.window_attention_plain(*args),
+                   2 * nbytes_of([y]) + nbytes_of(args[1:6]),
+                   typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
+                   library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        a = a.reshape(r, c)
+        for use_res, dffn in ((False, False), (True, False), (True, True)):
+            rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
+            fargs = (x.reshape(r, c), a, *flat[6:12], rp)
+            label = f"C=768 res={use_res} dffn={dffn}"
+            stats.check("fused_residual_ffn", label,
+                        k3.fused_residual_ffn(*fargs, double_ffn=dffn, mxu_dtype=md),
+                        k3.residual_ffn_plain(*fargs, double_ffn=dffn, mxu_dtype=md), mode)
+            if use_res:
+                continue  # the main path's layer 3 has no ResiDual
+            stats.time("fused_residual_ffn", label, mode,
+                       lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
+                       lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
+                       3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
+                       typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2)
+
+
+def phase_main(dev, card: str) -> dict:
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio, encode_audio
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu_torch.residual.module import init_residual_params
+
+    cfg = CLAPConfig()
+    t0 = time.perf_counter()
+    model = build_clap_audio(cfg, seed=0, device=dev)
+    # ResiDual at layer 0: orthonormal basis from a seeded QR, K = 96
+    rng = np.random.default_rng(1)
+    c = cfg.audio.embed_dim
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res0 = init_residual_params(q, rng.standard_normal(c) * 0.01, device=dev)
+    res0["lam"] = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(dev)
+    residual = {0: res0}
+    # 50 class-text embeddings and 32 clips, made as bench.py makes them
+    text = np.random.default_rng(7).standard_normal((1, CLIP)).astype(np.float32) * 0.1
+    text = torch.from_numpy(text[:, : N_CLASSES * 512].reshape(N_CLASSES, 512)).to(dev)
+    text = text / text.norm(dim=-1, keepdim=True)
+    wav = np.random.default_rng(123).standard_normal((B, CLIP)).astype(np.float32) * 0.1
+    wav = torch.from_numpy(wav).to(dev)
+    log("main", model="HTSAT-tiny (CLAPConfig defaults)", batch=B, clip_samples=CLIP,
+        setup_s=time.perf_counter() - t0)
+
+    def zero_shot(dtype):
+        batch = featurize_batch(quantize_roundtrip(wav), cfg.audio.clip_samples)
+        emb = encode_audio(model, batch, residual=residual, compute_dtype=dtype)["normalized"]
+        return emb, (emb @ text.t()).argmax(-1)
+
+    results, counts = {}, {}
+    for mode, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        launch_counts.clear()
+        emb, pred = zero_shot(dtype)
+        torch.cuda.synchronize()
+        counts[mode] = dict(launch_counts)
+        if counts[mode] != EXPECTED_LAUNCHES:
+            raise AssertionError(f"{mode} main path launched {counts[mode]}, "
+                                 f"expected {EXPECTED_LAUNCHES}")
+        if emb.shape != (B, cfg.joint_embed_shape) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"{mode} embeddings malformed: {tuple(emb.shape)}")
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            zero_shot(dtype)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        wall = statistics.median(walls[1:])
+        results[mode] = (emb, pred)
+        log("main", mode=mode, launches=json.dumps(counts[mode]), clips_per_s=B / wall,
+            forward_ms=1e3 * wall, card=card)
+    (e32, p32), (e16, p16) = results["f32"], results["bf16"]
+    cos = float((e16.float() * e32).sum(-1).min())
+    agree = float((p16 == p32).float().mean())
+    log("main", guard_min_embed_cos=cos, guard_argmax_agreement=agree)
+    if not (agree == 1.0 and cos > 0.999):
+        raise AssertionError(f"AMP guard failed: min cos {cos}, argmax agreement {agree}")
+    return counts["bf16"]
+
+
+def phase_fixture() -> None:
+    from tests import torch_port_fixture as fx
+
+    arrays = fx.load()
+    got = fx.run_port(arrays, "cuda")
+    for key in fx.OUTPUT_KEYS:
+        ref = arrays[f"out/{key}"]
+        err = float(np.abs(got[key] - ref).max())
+        ok = bool(np.allclose(got[key], ref, atol=2e-3, rtol=1e-3))
+        if key in ("embedding", "normalized"):
+            cos = (got[key] * ref).sum(-1) / (np.linalg.norm(got[key], axis=-1)
+                                              * np.linalg.norm(ref, axis=-1))
+            ok = ok and float(cos.min()) > 0.99999
+        log("fixture", output=key, max_abs_err=err, tol="atol=2e-3,rtol=1e-3", ok=ok)
+        if not ok:
+            raise AssertionError(f"tiny fixture {key} disagrees with the JAX package")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        from audio_residual_tpu_torch.ops.cuda import KERNELS, build
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log("build", seconds=time.perf_counter() - t0, per_source=json.dumps(built),
+        torch=torch.__version__, cuda=torch.version.cuda, card=card)
+
+    stats = KernelStats(KERNELS)
+    with torch.no_grad():
+        phase_kernels(stats, dev)
+        launches = phase_main(dev, card)
+    phase_fixture()
+
+    print(stats.json_line(launches), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version, and the wrappers' refusals. Skipped without a card.
+
+This file imports neither JAX nor the JAX package, so on a machine with a
+card and no JAX it runs alone, without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_residual_tpu_torch.ops import frontend as fe
+from audio_residual_tpu_torch.ops.cuda import launch_counts
+from audio_residual_tpu_torch.ops.cuda import frontend as k1
+from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
+from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, c=96, nh=4, g=4, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    h = 4 * c
+    flat = (t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(3 * c, c, scale=0.05),
+            t(3 * c, scale=0.02), t(c, c, scale=0.05), t(c, scale=0.02),
+            t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(h, c, scale=0.05), t(h, scale=0.02),
+            t(c, h, scale=0.05), t(c, scale=0.02), t(225, nh, scale=0.02))
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res = (torch.from_numpy(q.astype(np.float32)).to(dev), t(c, scale=0.01),
+           t(c, scale=0.1, offset=1.0))
+    return flat, res, t(2 * g, 64, c, scale=0.5), t(2, 48000, scale=0.1)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+@pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
+def test_kernels_match_plain_on_card(dev, mode, md, tol):
+    """max |kernel - plain| / max |plain| within 1e-4 (f32, sums in another
+    order) / 2e-2 (bf16: one bf16 ulp is 3.9e-3 of a value, and a flip of
+    one stored element reaches that)."""
+    flat, res, x, wav = _inputs(dev)
+    nh, g, c = 4, 4, x.shape[-1]
+    launch_counts.clear()
+    with torch.no_grad():
+        cfg = fe.FrontendConfig()
+        assert _rel(k1.fused_logmel(wav, cfg, mode), k1.logmel_plain(wav, cfg, mode)) < tol
+        args = (x, *flat[2:6], flat[12], nh, 8, g, 4, (16, 16), md)
+        assert _rel(k2.fused_window_attention(*args), k2.window_attention_plain(*args)) < tol
+        ffn = (x.reshape(-1, c), x.reshape(-1, c) * 0.1, *flat[6:12],
+               dict(zip(("basis", "mean", "lam"), res)))
+        assert _rel(k3.fused_residual_ffn(*ffn, double_ffn=True, mxu_dtype=md),
+                    k3.residual_ffn_plain(*ffn, double_ffn=True, mxu_dtype=md)) < tol
+        for xin in (x, x.to(md or torch.float32)):
+            blk = (xin, flat + res, nh, 8, g, 4, (16, 16), True, True, md)
+            out = k4.fused_swin_block(*blk)
+            assert out.dtype == (xin.dtype if md is not None else torch.float32)
+            assert _rel(out, k4.swin_block_plain(*blk)) < tol
+    assert dict(launch_counts) == {"fused_logmel": 1, "fused_window_attention": 1,
+                                   "fused_residual_ffn": 1, "fused_swin_block": 2}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    flat, res, x, wav = _inputs(dev, c=32, nh=2)
+    blk = (flat, 2, 8, 4, 0, (16, 16), False, False)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        k4.fused_swin_block(x.clone().requires_grad_(True), *blk)
+    with pytest.raises(ValueError, match="on cpu"):
+        k4.fused_swin_block(x, (flat[0].cpu(),) + flat[1:], *blk[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.fused_logmel(wav[:, ::2], fe.FrontendConfig())
+    with pytest.raises(TypeError, match="dtype"):
+        k1.fused_logmel(wav.double(), fe.FrontendConfig())
+    with pytest.raises(ValueError, match="windows of at most 64 tokens"):
+        k2.fused_window_attention(torch.zeros(4, 100, 32, device=dev), *flat[2:6],
+                                  torch.zeros(361, 2, device=dev), 2, 10, 1, 0, (10, 10))

@@ -1,0 +1,156 @@
+"""Tiny JAX golden fixture for the PyTorch port: ``tests/data/torch_port_tiny.npz``.
+
+Holds a depth-(2, 2) HTSAT config (so a shifted block, the SW-MSA mask and
+the shift-0 rule of the last layer all run), its JAX params as numpy, a
+2-clip input, a layer-0 ResiDual and the JAX f32 outputs of quantize ->
+featurize -> ``encode_audio`` (double-FFN on). ``chip_smoke.py`` runs the
+port's kernels on the card against it without importing JAX;
+``tests/test_torch_htsat.py`` regenerates it and compares with the
+committed file, so it cannot drift.
+
+Regenerate with ``python -m tests.torch_port_fixture`` from the repo root.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+from pathlib import Path
+
+import numpy as np
+
+PATH = Path(__file__).with_name("data") / "torch_port_tiny.npz"
+AUDIO_KW = dict(spec_size=64, mel_bins=16, embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+                clip_samples=24000, num_classes=17)
+CLAP_KW = dict(embed_dim=64, joint_embed_shape=32)
+OUTPUT_KEYS = ("embedding", "clipwise_output", "framewise_output", "fine_grained_embedding",
+               "normalized")
+
+
+def _flatten(tree, prefix: str, out: dict) -> dict:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}/{i}", out)
+    elif tree is not None:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def _unflatten(flat: dict[str, np.ndarray]) -> dict:
+    """Inverse of :func:`_flatten`: path keys back to nested dicts, digit
+    keys to lists."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def jax_config():
+    from audio_residual_tpu.models import clap
+    from audio_residual_tpu.models.htsat import HTSATConfig
+
+    from .tiny import TINY_TEXT
+
+    return clap.CLAPConfig(audio=HTSATConfig(**AUDIO_KW), text=TINY_TEXT, **CLAP_KW)
+
+
+@functools.lru_cache(maxsize=1)
+def jax_params() -> dict:
+    """The full JAX CLAP params of the fixture's config (text tower too)."""
+    import jax
+
+    from audio_residual_tpu.models import clap
+
+    return clap.init_clap_params(jax.random.PRNGKey(0), jax_config())
+
+
+def build() -> dict[str, np.ndarray]:
+    """The fixture's arrays: ``config``, ``wav``, ``residual/*``,
+    ``param/<pytree path>`` and ``out/<key>``."""
+    import jax
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.data.featurize import featurize_batch
+    from audio_residual_tpu.models import clap
+    from audio_residual_tpu.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu.residual.module import init_residual_params
+
+    cfg = jax_config()
+    params = jax_params()
+    audio = {"audio_branch": params["audio_branch"],
+             "audio_projection": params["audio_projection"]}
+    rng = np.random.default_rng(0)
+    wav = (rng.standard_normal((2, AUDIO_KW["clip_samples"] // 2)) * 0.1).astype(np.float32)
+    c = AUDIO_KW["embed_dim"]
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res = init_residual_params(q, rng.standard_normal(c).astype(np.float32) * 0.01)
+    res["lam"] = jnp.asarray((1 + 0.1 * rng.standard_normal(c)).astype(np.float32))
+    batch = featurize_batch(quantize_roundtrip(jnp.asarray(wav)), cfg.audio.clip_samples)
+    out = clap.encode_audio(params, batch, cfg, residual={0: res}, double_ffn_compat=True)
+    arrays = {
+        "config": np.asarray(json.dumps({"audio": AUDIO_KW, **CLAP_KW})),
+        "wav": wav,
+        **_flatten({k: np.asarray(v) for k, v in res.items()}, "residual", {}),
+        **_flatten(jax.tree.map(np.asarray, audio), "param", {}),
+    }
+    arrays.update({f"out/{k}": np.asarray(out[k]) for k in OUTPUT_KEYS})
+    return arrays
+
+
+def load(path: Path = PATH) -> dict[str, np.ndarray]:
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
+    """The port's outputs on the fixture's input: params loaded through the
+    weight bridge, quantize -> featurize -> ``encode_audio``. Imports torch
+    and the port only, so it runs where JAX is absent."""
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.models import clap, htsat
+    from audio_residual_tpu_torch.models.convert import load_jax_params
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+
+    cfg = json.loads(str(arrays["config"]))
+    audio = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.pop("audio").items()}
+    model = clap.build_clap_audio(clap.CLAPConfig(audio=htsat.HTSATConfig(**audio), **cfg),
+                                  device=device)
+    load_jax_params(model, _unflatten(
+        {k[len("param/"):]: v for k, v in arrays.items() if k.startswith("param/")}))
+    residual = {k[len("residual/"):]: torch.tensor(v).to(model.audio_branch.norm.weight.device)
+                for k, v in arrays.items() if k.startswith("residual/")}
+    wav = torch.tensor(arrays["wav"]).to(residual["basis"].device)
+    batch = featurize_batch(quantize_roundtrip(wav), model.cfg.audio.clip_samples)
+    out = clap.encode_audio(model, batch, residual={0: residual}, double_ffn_compat=True,
+                            compute_dtype=compute_dtype)
+    return {k: out[k].float().cpu().numpy() for k in OUTPUT_KEYS}
+
+
+def main() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")  # the tests' f32 CPU reference
+    PATH.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(PATH, **build())
+    print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    main()
