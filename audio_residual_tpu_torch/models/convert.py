@@ -1,6 +1,9 @@
-"""Weight bridge: the JAX package's param pytree -> the port's modules.
+"""Weights into the port's modules: reference checkpoints and the JAX bridge.
 
-The counterpart of the audio side of
+:func:`load_audio_checkpoint` loads the audio side of a reference torch
+checkpoint (the port's modules use its ``state_dict`` layout).
+
+:func:`load_jax_params` is the counterpart of the audio side of
 ``audio_residual_tpu/models/convert.py::clap_params_to_state_dict``, kept
 here so the port imports nothing of the JAX package. Input is the JAX CLAP
 param pytree as nested dicts/lists of numpy arrays (``audio_branch``,
@@ -13,7 +16,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["clap_audio_state_dict", "load_jax_params"]
+__all__ = ["clap_audio_state_dict", "load_jax_params", "load_torch_checkpoint",
+           "load_audio_checkpoint"]
+
+# keys of a reference checkpoint that the audio side does not load: the text
+# side, the training-only transform heads, and buffers the port derives (DSP
+# extractors, BatchNorm's step count, the Swin relative-position index and
+# shift masks)
+_NOT_AUDIO = ("text_branch.", "text_projection.", "logit_scale", "audio_transform.",
+              "text_transform.")
+_DERIVED = ("position_ids", "spectrogram_extractor.", "logmel_extractor.",
+            "num_batches_tracked", "relative_position_index", "attn_mask")
 
 
 def _lin(sd: dict, dst: str, p: dict) -> None:
@@ -75,4 +88,37 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> torch.nn.Module:
         for k, v in clap_audio_state_dict(params).items()
     }
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_torch_checkpoint(path) -> dict[str, torch.Tensor]:
+    """A reference checkpoint file -> ``{name: tensor}`` on the CPU: its
+    ``state_dict`` when it holds one, ``module.`` prefixes stripped
+    (``audio_residual_tpu/models/convert.py::load_torch_checkpoint``).
+    Read with ``weights_only=True``: tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.removeprefix("module."): v for k, v in state.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def load_audio_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load the audio side of a reference checkpoint into a
+    :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio`.
+
+    ``sed_model.`` (HTS-AT codebase) keys are read as ``audio_branch.``; the
+    text side, the transform heads and derived buffers are skipped; every
+    other key must match the model's, and every audio-branch key must be
+    there. A tower-only
+    checkpoint (no ``audio_projection.`` keys) leaves the projection as
+    built, as the JAX loader keeps its fresh one."""
+    sd = load_torch_checkpoint(path)
+    sd = {k.replace("sed_model.", "audio_branch."): v for k, v in sd.items()
+          if not k.startswith(_NOT_AUDIO) and not any(p in k for p in _DERIVED)}
+    tower_only = not any(k.startswith("audio_projection.") for k in sd)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not (tower_only and k.startswith("audio_projection."))]
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint {path} does not fit the model: missing {missing}, "
+                           f"unexpected {unexpected}")
     return model

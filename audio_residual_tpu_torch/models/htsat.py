@@ -5,12 +5,15 @@ training mode). Module attribute names give the reference LAION-CLAP
 ``state_dict`` keys (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the
 layout ``audio_residual_tpu/models/convert.py`` writes.
 
-Kernel routing follows the JAX package's on HTSAT-tiny: every block of a
-layer with several windows per image runs ``fused_swin_block``; a layer whose
-window covers the whole image (one window per image, layer 3 of HTSAT-tiny)
-runs the split plan -- LN1, ``fused_window_attention``, then
-``fused_residual_ffn``. On the CPU each kernel wrapper takes its plain
-version.
+Kernel routing: every block of a layer with several windows per image runs
+``fused_swin_block`` (K4); a layer whose window covers the whole image (one
+window per image: layer 3) runs the split plan -- LN1,
+``fused_window_attention``, then ``fused_residual_ffn`` (K3). Both
+attention entry points send C >= 1024 to K5 (``wide_window_attention``), as
+the JAX package sends those widths to its weight-streaming kernel: the two
+blocks of HTSAT-base layer 3 (C=1024) run LN1, K5, K3; HTSAT-large layer 2
+(C=1024, four windows) does the same inside ``fused_swin_block``. On the
+CPU each kernel wrapper takes its plain version.
 
 Shapes for HTSAT-tiny on a 10 s / 48 kHz clip: wav [B, 480000] -> logmel
 [B, 1001, 64] -> image [B, 256, 256, 1] -> tokens 4096@96 -> 1024@192 ->
@@ -29,9 +32,7 @@ from torch import nn
 from audio_residual_tpu_torch.ops import frontend, interpolate, windows
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
-from audio_residual_tpu_torch.ops.cuda.ln_mlp import fused_residual_ffn
-from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block
-from audio_residual_tpu_torch.ops.cuda.window_attention import fused_window_attention
+from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block, split_block
 
 __all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img"]
 
@@ -298,27 +299,14 @@ def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: 
     nw_img = (h // window) * (w // window)
     use_res = residual_params is not None
     flat = blk.flat_params()
+    if use_res:
+        flat = flat + (residual_params["basis"], residual_params["mean"], residual_params["lam"])
     if nw_img > 1:
-        if use_res:
-            flat = flat + (residual_params["basis"], residual_params["mean"],
-                           residual_params["lam"])
         out = fused_swin_block(wins, flat, nh, window, nw_img, shift, (h, w), use_res,
                                double_ffn_compat, compute_dtype)
     else:
-        # split plan: LN1 here, then the attention and FFN kernels
-        store = x.dtype if compute_dtype is not None else torch.float32
-        wins = wins.to(store)
-        y1 = layer_norm(wins.float(), blk.norm1.weight, blk.norm1.bias).to(store)
-        a = fused_window_attention(
-            y1, blk.attn.qkv.weight, blk.attn.qkv.bias, blk.attn.proj.weight,
-            blk.attn.proj.bias, blk.attn.relative_position_bias_table, nh, window, nw_img,
-            shift, (h, w), compute_dtype,
-        )
-        out = fused_residual_ffn(
-            wins.reshape(-1, c), a.reshape(-1, c), blk.norm2.weight, blk.norm2.bias,
-            blk.mlp.fc1.weight, blk.mlp.fc1.bias, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
-            residual_params, double_ffn=double_ffn_compat and use_res, mxu_dtype=compute_dtype,
-        ).reshape(wins.shape)
+        out = split_block(wins, flat, nh, window, nw_img, shift, (h, w), use_res,
+                          double_ffn_compat, compute_dtype)
     y = windows.window_reverse(out, window, h, w)
     if shift > 0:
         y = torch.roll(y, (shift, shift), dims=(1, 2))

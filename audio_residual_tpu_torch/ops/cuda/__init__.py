@@ -23,6 +23,8 @@ KERNELS = {
                                "audio_residual_tpu/ops/pallas/window_attention.py:285"),
     "fused_residual_ffn": ("ln_mlp", "audio_residual_tpu/ops/pallas/ln_mlp.py:106"),
     "fused_swin_block": ("swin_block", "audio_residual_tpu/ops/pallas/swin_block.py:208"),
+    "wide_window_attention": ("wide_attention",
+                              "audio_residual_tpu/ops/pallas/window_attention.py:234"),
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -7,7 +7,9 @@
 //   window attention = qkv GEMM -> attention core -> proj GEMM
 //   residual FFN     = [ResiDual GEMMs] -> add+LN2 -> fc1+GELU -> fc2 + h1
 //                      [-> double-FFN second pass]
-// Fusing a block into one kernel is later work (ROADMAP, Queue 2).
+// Fusing a block into one kernel is later work (ROADMAP, Queue 2). Wide
+// layers (C >= 1024) do not come here for their attention: K5
+// (wide_attention.cu) cuts the work at head boundaries and keeps qkv on chip.
 #pragma once
 
 #include "common.cuh"

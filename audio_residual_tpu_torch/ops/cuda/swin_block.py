@@ -12,6 +12,11 @@ On the card the kernel is LN1 -> window attention -> residual FFN, the plan
 the JAX package declares equivalent (``swin_block.py::_split_block``), with
 the attention output kept in f32 between the halves as in the monolithic
 TPU kernel.
+
+As in the JAX package, the public function dispatches: from C =
+``WIDE_MIN_C`` on (HTSAT-large layer 2) it runs :func:`split_block` --
+LN1, then the window attention (K5 at that width), then K3 -- the plan the
+JAX package takes where its block kernel does not fit.
 """
 
 from __future__ import annotations
@@ -22,15 +27,21 @@ import torch
 
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda.ln_mlp import residual_ffn_f32, residual_pointers
+from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
+    fused_residual_ffn,
+    residual_ffn_f32,
+    residual_pointers,
+)
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
+    WIDE_MIN_C,
     attention_f32,
     bias_and_mask,
     check_window_shapes,
+    fused_window_attention,
     store_dtype,
 )
 
-__all__ = ["fused_swin_block", "swin_block_plain"]
+__all__ = ["fused_swin_block", "swin_block_plain", "split_block"]
 
 
 def _unpack(flat_params, use_residual: bool):
@@ -61,11 +72,37 @@ def swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift, r
     return out.reshape(wn, n, c).to(store)
 
 
+def split_block(x, flat_params, nh: int, window: int, num_windows_per_image: int, shift: int,
+                resolution, use_residual: bool, double_ffn: bool,
+                mxu_dtype=None) -> torch.Tensor:
+    """The block as LN1 (plain PyTorch, f32 statistics), the window-attention
+    kernel (K2, or K5 from ``WIDE_MIN_C``), then the residual-FFN kernel
+    (K3): ``swin_block.py::_split_block``, the same function as the block
+    kernel. The attention output travels in the store dtype."""
+    (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+     table), rparams = _unpack(flat_params, use_residual)
+    store = store_dtype(x, mxu_dtype)
+    wn, n, c = x.shape
+    x = x.to(store)
+    y = layer_norm(x.float(), n1s, n1b).to(store)
+    a = fused_window_attention(y, wqkv, bqkv, wproj, bproj, table, nh, window,
+                               num_windows_per_image, shift, resolution, mxu_dtype)
+    # the double-FFN quirk exists only in the ResiDual-patched forward
+    out = fused_residual_ffn(x.reshape(-1, c), a.reshape(-1, c), n2s, n2b, wfc1, bfc1, wfc2,
+                             bfc2, rparams, double_ffn=double_ffn and use_residual,
+                             mxu_dtype=mxu_dtype)
+    return out.reshape(wn, n, c)
+
+
 def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image: int,
                      shift: int, resolution, use_residual: bool, double_ffn: bool,
                      mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` pre-norm windows -> post-block windows, in the store
-    dtype. CPU tensors take :func:`swin_block_plain`."""
+    dtype. C >= ``WIDE_MIN_C`` runs :func:`split_block`; other CPU tensors
+    take :func:`swin_block_plain`."""
+    if x.shape[-1] >= WIDE_MIN_C:
+        return split_block(x, flat_params, nh, window, num_windows_per_image, shift,
+                           resolution, use_residual, double_ffn, mxu_dtype)
     if x.device.type == "cpu":
         return swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift,
                                 resolution, use_residual, double_ffn, mxu_dtype)

@@ -1,8 +1,11 @@
 """K2 ``fused_window_attention``: Swin W-MSA on windows (``csrc/window_attention.cu``).
 
 Replaces ``audio_residual_tpu/ops/pallas/window_attention.py::
-fused_window_attention`` (standard path; the weight-streaming ``_wide_kernel``
-for C >= 1024 is not ported yet). ``x [B*nW, n, C] -> [B*nW, n, C]``:
+fused_window_attention``, standard path. As in the JAX package, the public
+function dispatches: from C = ``WIDE_MIN_C`` on it runs K5
+(:mod:`.wide_attention`, the port of the weight-streaming ``_wide_kernel``),
+the plan the JAX package takes wherever its standard kernel does not fit.
+``x [B*nW, n, C] -> [B*nW, n, C]``:
 qkv projection, per-head ``q k^T hd^-1/2`` + relative-position bias +
 SW-MSA mask, exact f32 softmax, ``@V``, output projection.
 
@@ -23,7 +26,12 @@ from audio_residual_tpu_torch.ops import windows as win_ops
 from audio_residual_tpu_torch.ops.common import attention_core, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 
-__all__ = ["fused_window_attention", "window_attention_plain"]
+__all__ = ["fused_window_attention", "window_attention_plain", "WIDE_MIN_C"]
+
+WIDE_MIN_C = 1024
+"""From this width a window attention runs K5: the port's explicit rule for
+where the JAX package's ``pick_group`` finds no plan (every shipped HTSAT
+layer with C >= 1024)."""
 
 
 def store_dtype(x: torch.Tensor, mxu_dtype) -> torch.dtype:
@@ -76,7 +84,14 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
                            num_windows_per_image: int, shift: int, resolution,
                            mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` -> attention output, same shape, in the store dtype.
-    CPU tensors take :func:`window_attention_plain`."""
+    C >= ``WIDE_MIN_C`` goes to K5; other CPU tensors take
+    :func:`window_attention_plain`."""
+    if x.shape[-1] >= WIDE_MIN_C:
+        # imported here: wide_attention builds on this module's helpers
+        from audio_residual_tpu_torch.ops.cuda.wide_attention import wide_window_attention
+
+        return wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                                     num_windows_per_image, shift, resolution, mxu_dtype)
     if x.device.type == "cpu":
         return window_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                       num_windows_per_image, shift, resolution, mxu_dtype)

@@ -9,19 +9,28 @@ Phases (each prints its results; any failure exits non-zero before the last
 line):
   1. build   -- nvcc every kernel (in parallel), print the card's name and
                power limit, turn TF32 off for the golden path.
-  2. kernels -- each of K1-K4 against its plain PyTorch version at the main
-               path's shapes (B=32), f32 and bf16, with times.
+  2. kernels -- each of K1-K5 against its plain PyTorch version at the main
+               paths' shapes (B=32), f32 and bf16, with times; K5 also at
+               HTSAT-large's wide layers.
   3. main    -- ESC-50 zero-shot + ResiDual (layer 0, K=96) through
                HTSAT-tiny at full width, golden f32 and bf16 AMP: the bench
                accuracy guard, the launch counts per forward, clips/s.
+  3b. main   -- the same program through HTSAT-base, built by name from the
+               model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
+               runs K5.
   4. fixture -- the tiny JAX golden fixture (tests/data/torch_port_tiny.npz)
                through the port's kernels.
-Then one JSON line of per-kernel numbers, the card line, and the final
-``{"ok": true, "device": ...}`` line. Imports nothing of JAX.
+  4b. fixture -- the wide JAX golden fixture (tests/data/torch_port_wide.npz),
+               whose C=1024 layer runs K5.
+Then one JSON line of per-kernel numbers (bf16, summed over one forward of
+each main path: ``launches`` is the sum of the two paths' counts), the card
+line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -37,6 +46,8 @@ CLIP = 240000  # ESC-50: 5 s at 48 kHz
 N_CLASSES = 50
 EXPECTED_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 10, "fused_window_attention": 2,
                      "fused_residual_ffn": 2}
+EXPECTED_BASE_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 16, "wide_window_attention": 2,
+                          "fused_residual_ffn": 2}
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # max |kernel - plain| / max |plain|
 HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / bf16 rates
 PEAK = {"f32": 67e12, "bf16": 989e12}
@@ -66,7 +77,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 class KernelStats:
     """Phase 2's per-kernel numbers. The JSON line holds the bench's AMP mode
-    (bf16), summed over the launches of one main-path forward."""
+    (bf16), summed over the launches of one forward of each main path."""
 
     JSON_MODE = "bf16"
 
@@ -136,6 +147,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
     from audio_residual_tpu_torch.ops.cuda import frontend as k1
     from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
     from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
     from audio_residual_tpu_torch.ops.cuda import window_attention as k2
     from audio_residual_tpu_torch.ops.frontend import FrontendConfig, mel_active_bins
 
@@ -153,7 +165,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         """The golden mode runs every product in f32."""
         return {"f32": sum(flops_by_type.values())} if mode == "f32" else flops_by_type
 
-    # K1 at [32, 480000]
+    # K1 at [32, 480000], one launch a forward of each main path
     cfg = FrontendConfig()
     wav = t(B, 480000, scale=0.1)
     lo, hi = mel_active_bins(cfg)
@@ -164,7 +176,8 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         nbytes = 4 * (wav.numel() + cfg.n_fft * 2 * nb + nb * cfg.n_mels + B * nf * cfg.n_mels)
         flops = {"bf16": 2.0 * B * nf * cfg.n_fft * 2 * nb, "f32": 2.0 * B * nf * nb * cfg.n_mels}
         stats.time("fused_logmel", "[32,480000]", mode, lambda: k1.fused_logmel(wav, cfg, mode),
-                   lambda: k1.logmel_plain(wav, cfg, mode), nbytes, typed(mode, flops))
+                   lambda: k1.logmel_plain(wav, cfg, mode), nbytes, typed(mode, flops),
+                   launches=2)
 
     def block(c, nh):
         hidden = 4 * c
@@ -178,18 +191,21 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                t(c, scale=0.1, offset=1.0))
         return flat, res
 
-    # K4 at layers 0-2: (C, heads, windows per clip, grid, main-path launches
-    # per shift, main path has ResiDual + double-FFN); shift 0 and 4; ResiDual
-    # off / on / on + double-FFN
+    # K4 at layers 0-2 of HTSAT-tiny, then HTSAT-base: (C, heads, windows per
+    # clip, grid, main-path launches per shift, main path has ResiDual +
+    # double-FFN: layer 0); shift 0 and 4; ResiDual off / on / on + double-FFN
     for c, nh, nw, hw, per_shift, path_res in ((96, 4, 64, (64, 64), 1, True),
                                                 (192, 8, 16, (32, 32), 1, False),
-                                                (384, 16, 4, (16, 16), 3, False)):
+                                                (384, 16, 4, (16, 16), 3, False),
+                                                (128, 4, 64, (64, 64), 1, True),
+                                                (256, 8, 16, (32, 32), 1, False),
+                                                (512, 16, 4, (16, 16), 6, False)):
         flat, res = block(c, nh)
         hidden, r = 4 * c, B * nw * 64
         x32 = t(B * nw, 64, c, scale=0.5)
         for mode, md in modes:
             # AMP: layer 0 carries bf16 activations, layers 1-2 f32 (PatchMerging's)
-            x = x32.to(md) if (md is not None and c == 96) else x32
+            x = x32.to(md) if (md is not None and path_res) else x32
             for shift in (0, 4):
                 for use_res, dffn in ((False, False), (True, False), (True, True)):
                     args = (x, flat + (res if use_res else ()), nh, 8, nw, shift, hw, use_res,
@@ -210,58 +226,81 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                                2 * nbytes_of([x]) + nbytes_of(args[1]), typed(mode, flops),
                                launches=per_shift)
 
-    # K2 and K3 at layer 3 (C=768, 32 heads, one window per clip, shift 0);
-    # LN1 runs before them in plain PyTorch, as on the main path
-    c, nh = 768, 32
-    flat, res = block(c, nh)
-    hidden, r = 4 * c, B * 64
-    x = t(B, 64, c, scale=0.5)
-    y = layer_norm(x, flat[0], flat[1])
-    for mode, md in modes:
-        args = (y, *flat[2:6], flat[12], nh, 8, 1, 0, (8, 8), md)
-        a = k2.fused_window_attention(*args)
-        stats.check("fused_window_attention", "C=768", a, k2.window_attention_plain(*args), mode)
-        # yardstick: SDPA with the same float bias, on the attention core only
-        qkv = (y.reshape(-1, c) @ flat[2].t() + flat[3]).reshape(B, 64, 3, nh, c // nh)
-        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).to(md or torch.float32).contiguous()
-                   for i in range(3))
-        bias = k2.bias_and_mask(flat[12], 8, 0, (8, 8))[0][None].to(q.dtype)
-        stats.time("fused_window_attention", "C=768", mode,
-                   lambda: k2.fused_window_attention(*args),
-                   lambda: k2.window_attention_plain(*args),
-                   2 * nbytes_of([y]) + nbytes_of(args[1:6]),
-                   typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
-                   library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
-        a = a.reshape(r, c)
-        for use_res, dffn in ((False, False), (True, False), (True, True)):
-            rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
-            fargs = (x.reshape(r, c), a, *flat[6:12], rp)
-            label = f"C=768 res={use_res} dffn={dffn}"
-            stats.check("fused_residual_ffn", label,
-                        k3.fused_residual_ffn(*fargs, double_ffn=dffn, mxu_dtype=md),
-                        k3.residual_ffn_plain(*fargs, double_ffn=dffn, mxu_dtype=md), mode)
-            if use_res:
-                continue  # the main path's layer 3 has no ResiDual
-            stats.time("fused_residual_ffn", label, mode,
-                       lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
-                       lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
-                       3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
-                       typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2)
+    # layer 3 (32 heads, one window per clip, shift 0): K2 and K3 at HTSAT-tiny's
+    # C=768, K5 and K3 at HTSAT-base's C=1024; LN1 runs before them in plain
+    # PyTorch, as on the main path. Under AMP K5 also takes bf16 input.
+    for c, name, kernel, plain in ((768, "fused_window_attention", k2.fused_window_attention,
+                                    k2.window_attention_plain),
+                                   (1024, "wide_window_attention", k5.wide_window_attention,
+                                    k5.wide_attention_plain)):
+        nh = 32
+        flat, res = block(c, nh)
+        hidden, r = 4 * c, B * 64
+        x = t(B, 64, c, scale=0.5)
+        y = layer_norm(x, flat[0], flat[1])
+        for mode, md in modes:
+            args = (y, *flat[2:6], flat[12], nh, 8, 1, 0, (8, 8), md)
+            a = kernel(*args)
+            stats.check(name, f"C={c}", a, plain(*args), mode)
+            if md is not None and name == "wide_window_attention":
+                bargs = (y.to(md), *args[1:])
+                stats.check(name, f"C={c} bf16 input", kernel(*bargs), plain(*bargs), mode)
+            # yardstick: SDPA with the same float bias, on the attention core only
+            qkv = (y.reshape(-1, c) @ flat[2].t() + flat[3]).reshape(B, 64, 3, nh, c // nh)
+            q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).to(md or torch.float32).contiguous()
+                       for i in range(3))
+            bias = k2.bias_and_mask(flat[12], 8, 0, (8, 8))[0][None].to(q.dtype)
+            stats.time(name, f"C={c}", mode, lambda: kernel(*args), lambda: plain(*args),
+                       2 * nbytes_of([y]) + nbytes_of(args[1:6]),
+                       typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
+                       library_fn=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=bias))
+            a = a.reshape(r, c)
+            for use_res, dffn in ((False, False), (True, False), (True, True)):
+                rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
+                fargs = (x.reshape(r, c), a, *flat[6:12], rp)
+                label = f"C={c} res={use_res} dffn={dffn}"
+                stats.check("fused_residual_ffn", label,
+                            k3.fused_residual_ffn(*fargs, double_ffn=dffn, mxu_dtype=md),
+                            k3.residual_ffn_plain(*fargs, double_ffn=dffn, mxu_dtype=md), mode)
+                if use_res:
+                    continue  # the main paths' layer 3 has no ResiDual
+                stats.time("fused_residual_ffn", label, mode,
+                           lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
+                           lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
+                           3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
+                           typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2)
+
+    # K5 at HTSAT-large's wide layers: layer 2 (C=1024, 16 heads, four windows
+    # a clip, shifts 0 and 4) and layer 3 (C=2048, 32 heads, one window)
+    for c, nh, nw, hw, shifts in ((1024, 16, 4, (16, 16), (0, 4)),
+                                  (2048, 32, 1, (8, 8), (0,))):
+        flat, _ = block(c, nh)
+        x = t(B * nw, 64, c, scale=0.5)
+        for mode, md in modes:
+            for xin in (x,) if md is None else (x, x.to(md)):
+                for shift in shifts:
+                    args = (xin, *flat[2:6], flat[12], nh, 8, nw, shift, hw, md)
+                    stats.check("wide_window_attention",
+                                f"C={c} nh={nh} nW={nw} shift={shift} x={xin.dtype}",
+                                k5.wide_window_attention(*args), k5.wide_attention_plain(*args),
+                                mode)
 
 
-def phase_main(dev, card: str) -> dict:
+def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
+    """ESC-50 zero-shot + ResiDual at layer 0 through ``build_model()`` ->
+    ``(model, cfg)``, golden and AMP; returns the AMP forward's launches."""
     import torch
 
     from audio_residual_tpu_torch.data.featurize import featurize_batch
-    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio, encode_audio
+    from audio_residual_tpu_torch.models.clap import encode_audio
     from audio_residual_tpu_torch.ops.cuda import launch_counts
     from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
     from audio_residual_tpu_torch.residual.module import init_residual_params
 
-    cfg = CLAPConfig()
     t0 = time.perf_counter()
-    model = build_clap_audio(cfg, seed=0, device=dev)
-    # ResiDual at layer 0: orthonormal basis from a seeded QR, K = 96
+    model, cfg = build_model()
+    # ResiDual at layer 0: orthonormal basis from a seeded QR, K = C
     rng = np.random.default_rng(1)
     c = cfg.audio.embed_dim
     q, _ = np.linalg.qr(rng.standard_normal((c, c)))
@@ -274,7 +313,7 @@ def phase_main(dev, card: str) -> dict:
     text = text / text.norm(dim=-1, keepdim=True)
     wav = np.random.default_rng(123).standard_normal((B, CLIP)).astype(np.float32) * 0.1
     wav = torch.from_numpy(wav).to(dev)
-    log("main", model="HTSAT-tiny (CLAPConfig defaults)", batch=B, clip_samples=CLIP,
+    log("main", model=label, batch=B, clip_samples=CLIP, residual_k=c,
         setup_s=time.perf_counter() - t0)
 
     def zero_shot(dtype):
@@ -288,11 +327,11 @@ def phase_main(dev, card: str) -> dict:
         emb, pred = zero_shot(dtype)
         torch.cuda.synchronize()
         counts[mode] = dict(launch_counts)
-        if counts[mode] != EXPECTED_LAUNCHES:
-            raise AssertionError(f"{mode} main path launched {counts[mode]}, "
-                                 f"expected {EXPECTED_LAUNCHES}")
+        if counts[mode] != expected:
+            raise AssertionError(f"{label} {mode} main path launched {counts[mode]}, "
+                                 f"expected {expected}")
         if emb.shape != (B, cfg.joint_embed_shape) or not bool(torch.isfinite(emb).all()):
-            raise AssertionError(f"{mode} embeddings malformed: {tuple(emb.shape)}")
+            raise AssertionError(f"{label} {mode} embeddings malformed: {tuple(emb.shape)}")
         walls = []
         for _ in range(6):
             torch.cuda.synchronize()
@@ -302,23 +341,31 @@ def phase_main(dev, card: str) -> dict:
             walls.append(time.perf_counter() - t1)
         wall = statistics.median(walls[1:])
         results[mode] = (emb, pred)
-        log("main", mode=mode, launches=json.dumps(counts[mode]), clips_per_s=B / wall,
-            forward_ms=1e3 * wall, card=card)
+        log("main", model=label, mode=mode, launches=json.dumps(counts[mode]),
+            clips_per_s=B / wall, forward_ms=1e3 * wall, card=card)
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())
-    log("main", guard_min_embed_cos=cos, guard_argmax_agreement=agree)
+    log("main", model=label, guard_min_embed_cos=cos, guard_argmax_agreement=agree)
     if not (agree == 1.0 and cos > 0.999):
-        raise AssertionError(f"AMP guard failed: min cos {cos}, argmax agreement {agree}")
+        raise AssertionError(f"{label} AMP guard failed: min cos {cos}, argmax agreement {agree}")
     return counts["bf16"]
 
 
-def phase_fixture() -> None:
+def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
+    """A JAX golden fixture through the port's kernels, golden f32;
+    ``expected``: launches the run must include."""
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
     from tests import torch_port_fixture as fx
 
-    arrays = fx.load()
+    arrays = fx.load(path)
+    launch_counts.clear()
     got = fx.run_port(arrays, "cuda")
-    for key in fx.OUTPUT_KEYS:
+    for name, n in (expected or {}).items():
+        if launch_counts[name] != n:
+            raise AssertionError(f"{phase}: {name} launched {launch_counts[name]} times, "
+                                 f"expected {n}")
+    for key in fx.output_keys(arrays):
         ref = arrays[f"out/{key}"]
         err = float(np.abs(got[key] - ref).max())
         ok = bool(np.allclose(got[key], ref, atol=2e-3, rtol=1e-3))
@@ -326,9 +373,9 @@ def phase_fixture() -> None:
             cos = (got[key] * ref).sum(-1) / (np.linalg.norm(got[key], axis=-1)
                                               * np.linalg.norm(ref, axis=-1))
             ok = ok and float(cos.min()) > 0.99999
-        log("fixture", output=key, max_abs_err=err, tol="atol=2e-3,rtol=1e-3", ok=ok)
+        log(phase, output=key, max_abs_err=err, tol="atol=2e-3,rtol=1e-3", ok=ok)
         if not ok:
-            raise AssertionError(f"tiny fixture {key} disagrees with the JAX package")
+            raise AssertionError(f"{phase} {key} disagrees with the JAX package")
 
 
 def main() -> int:
@@ -355,11 +402,28 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0, per_source=json.dumps(built),
         torch=torch.__version__, cuda=torch.version.cuda, card=card)
 
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio
+    from audio_residual_tpu_torch.models.factory import create_audio_model
+    from tests import torch_port_fixture as fx
+
+    def tiny():
+        cfg = CLAPConfig()
+        return build_clap_audio(cfg, seed=0, device=dev), cfg
+
+    def base():
+        model, cfg, _ = create_audio_model("HTSAT-base", seed=0, device=dev)
+        return model, cfg
+
     stats = KernelStats(KERNELS)
+    launches = collections.Counter()
     with torch.no_grad():
         phase_kernels(stats, dev)
-        launches = phase_main(dev, card)
-    phase_fixture()
+        launches.update(phase_main(dev, card, "HTSAT-tiny (CLAPConfig defaults)", tiny,
+                                   EXPECTED_LAUNCHES))
+        launches.update(phase_main(dev, card, "HTSAT-base (create_audio_model)", base,
+                                   EXPECTED_BASE_LAUNCHES))
+    phase_fixture(fx.PATH, "fixture")
+    phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

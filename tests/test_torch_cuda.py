@@ -16,6 +16,7 @@ from audio_residual_tpu_torch.ops.cuda import launch_counts
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
 from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +92,47 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="windows of at most 64 tokens"):
         k2.fused_window_attention(torch.zeros(4, 100, 32, device=dev), *flat[2:6],
                                   torch.zeros(361, 2, device=dev), 2, 10, 1, 0, (10, 10))
+
+
+def _wide_inputs(dev, c, nh, windows, seed=1):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    weights = (t(3 * c, c, scale=0.02), t(3 * c, scale=0.02), t(c, c, scale=0.02),
+               t(c, scale=0.02), t(225, nh, scale=0.02))
+    return weights, t(windows, 64, c, scale=0.5)
+
+
+@pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c,nh,nw,shift,res", [
+    (1024, 16, 4, 4, (16, 16)),  # HTSAT-large layer 2: hd 64, SW-MSA mask
+    (1024, 32, 1, 0, (8, 8)),    # HTSAT-base layer 3: hd 32, one window per clip
+])
+def test_wide_attention_matches_plain_on_card(dev, mode, md, tol, c, nh, nw, shift, res):
+    """K5 against its plain version, f32 and bf16 inputs; the K2 entry
+    point sends C >= 1024 to K5."""
+    weights, x = _wide_inputs(dev, c, nh, 2 * nw)
+    launch_counts.clear()
+    with torch.no_grad():
+        for xin in (x, x.to(md or torch.float32)):
+            args = (xin, *weights, nh, 8, nw, shift, res, md)
+            out = k5.wide_window_attention(*args)
+            assert out.dtype == (xin.dtype if md is not None else torch.float32)
+            assert _rel(out, k5.wide_attention_plain(*args)) < tol
+        assert _rel(k2.fused_window_attention(*args), k5.wide_attention_plain(*args)) < tol
+    assert dict(launch_counts) == {"wide_window_attention": 3}
+
+
+def test_wide_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    weights, x = _wide_inputs(dev, 1024, 16, 4)
+    rest = (16, 8, 4, 0, (16, 16))
+    with pytest.raises(ValueError, match="on cpu"):
+        k5.wide_window_attention(x, weights[0].cpu(), *weights[1:], *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.wide_window_attention(x.transpose(0, 1).contiguous().transpose(0, 1), *weights,
+                                 *rest)
+    with pytest.raises(ValueError, match="hd <= 64"):
+        k5.wide_window_attention(x, *weights[:4], torch.zeros(225, 8, device=dev), 8,
+                                 *rest[1:])

@@ -1,12 +1,21 @@
-"""Tiny JAX golden fixture for the PyTorch port: ``tests/data/torch_port_tiny.npz``.
+"""JAX golden fixtures for the PyTorch port.
 
-Holds a depth-(2, 2) HTSAT config (so a shifted block, the SW-MSA mask and
-the shift-0 rule of the last layer all run), its JAX params as numpy, a
-2-clip input, a layer-0 ResiDual and the JAX f32 outputs of quantize ->
-featurize -> ``encode_audio`` (double-FFN on). ``chip_smoke.py`` runs the
-port's kernels on the card against it without importing JAX;
-``tests/test_torch_htsat.py`` regenerates it and compares with the
-committed file, so it cannot drift.
+``tests/data/torch_port_tiny.npz`` holds a depth-(2, 2) HTSAT config (so a
+shifted block, the SW-MSA mask and the shift-0 rule of the last layer all
+run), its JAX params as numpy, a 2-clip input, a layer-0 ResiDual and the
+JAX f32 outputs of quantize -> featurize -> ``encode_audio`` (double-FFN on).
+
+``tests/data/torch_port_wide.npz`` holds a config with a C=1024 layer (layer
+2: 8x8 tokens, one window a clip, 16 heads of 64), so the port runs it
+through K5. It stores no weights: they are made from the config's ``seed``
+in the reference ``state_dict`` layout (:func:`seeded_state_dict`) and reach
+the JAX package through its ``convert_htsat_state_dict``. It holds the
+config, the input, a layer-0 ResiDual (K=64) and the JAX f32 outputs.
+
+``chip_smoke.py`` runs the port's kernels on the card against both without
+importing JAX; ``tests/test_torch_htsat.py`` and
+``tests/test_torch_wide_attention.py`` regenerate them and compare with the
+committed files, so they cannot drift.
 
 Regenerate with ``python -m tests.torch_port_fixture`` from the repo root.
 """
@@ -25,6 +34,15 @@ AUDIO_KW = dict(spec_size=64, mel_bins=16, embed_dim=32, depths=(2, 2), num_head
 CLAP_KW = dict(embed_dim=64, joint_embed_shape=32)
 OUTPUT_KEYS = ("embedding", "clipwise_output", "framewise_output", "fine_grained_embedding",
                "normalized")
+
+WIDE_PATH = PATH.with_name("torch_port_wide.npz")
+WIDE_AUDIO_KW = dict(spec_size=128, mel_bins=32, embed_dim=256, depths=(1, 1, 2),
+                     num_heads=(4, 8, 16), clip_samples=24000, num_classes=17)
+WIDE_CLAP_KW = dict(embed_dim=1024, joint_embed_shape=32)
+WIDE_SEED = 0
+WIDE_K = 64  # ResiDual components at layer 0 (C=256)
+# fine_grained_embedding ([2, 1024, 1024] here) is left out to keep the file small
+WIDE_OUTPUT_KEYS = ("embedding", "clipwise_output", "framewise_output", "normalized")
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -112,35 +130,124 @@ def build() -> dict[str, np.ndarray]:
     return arrays
 
 
+def seeded_state_dict(shapes: dict[str, tuple], seed: int) -> dict[str, np.ndarray]:
+    """Random weights in the reference ``state_dict`` layout, one array per
+    key in the order given: LN/BN scales near 1, running variances above 1,
+    biases and relative-position tables at 0.02, weight matrices and
+    convolutions at ``1/sqrt(fan_in)``."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        z = rng.standard_normal(shape)
+        if key.endswith("running_var"):
+            v = 1 + 0.1 * np.abs(z)
+        elif len(shape) == 1 and key.endswith(".weight"):
+            v = 1 + 0.1 * z
+        elif len(shape) == 1 or key.endswith("relative_position_bias_table"):
+            v = 0.02 * z
+        else:
+            v = z / np.sqrt(np.prod(shape[1:]))
+        sd[key] = v.astype(np.float32)
+    return sd
+
+
+def _config(arrays: dict) -> tuple[dict, dict, int | None]:
+    """``(audio kwargs, CLAP kwargs, weight seed or None)`` of a fixture."""
+    cfg = json.loads(str(arrays["config"]))
+    audio = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.pop("audio").items()}
+    seed = cfg.pop("seed", None)
+    return audio, cfg, seed
+
+
+def _port_model(audio_kw: dict, clap_kw: dict, device):
+    from audio_residual_tpu_torch.models import clap, htsat
+
+    return clap.build_clap_audio(clap.CLAPConfig(audio=htsat.HTSATConfig(**audio_kw), **clap_kw),
+                                 device=device)
+
+
+def _seeded_weights(model, seed: int) -> dict[str, np.ndarray]:
+    return seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()}, seed)
+
+
+def build_wide() -> dict[str, np.ndarray]:
+    """The wide fixture's arrays: ``config`` (with the weight ``seed``),
+    ``wav``, ``residual/*`` and ``out/<key>``."""
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.data.featurize import featurize_batch
+    from audio_residual_tpu.models import clap, convert
+    from audio_residual_tpu.models.htsat import HTSATConfig
+    from audio_residual_tpu.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu.residual.module import init_residual_params
+
+    from .tiny import TINY_TEXT
+
+    sd = _seeded_weights(_port_model(WIDE_AUDIO_KW, WIDE_CLAP_KW, "cpu"), WIDE_SEED)
+    params = {
+        "audio_branch": convert.convert_htsat_state_dict(sd, "audio_branch.",
+                                                         WIDE_AUDIO_KW["depths"]),
+        "audio_projection": {
+            f"fc{i}": {"kernel": sd[f"audio_projection.{j}.weight"].T,
+                       "bias": sd[f"audio_projection.{j}.bias"]}
+            for i, j in ((1, 0), (2, 2))
+        },
+    }
+    cfg = clap.CLAPConfig(audio=HTSATConfig(**WIDE_AUDIO_KW), text=TINY_TEXT, **WIDE_CLAP_KW)
+    rng = np.random.default_rng(WIDE_SEED)
+    wav = (rng.standard_normal((2, WIDE_AUDIO_KW["clip_samples"] // 2)) * 0.1).astype(np.float32)
+    c = WIDE_AUDIO_KW["embed_dim"]
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res = init_residual_params(q, rng.standard_normal(c).astype(np.float32) * 0.01, WIDE_K)
+    res["lam"] = jnp.asarray((1 + 0.1 * rng.standard_normal(WIDE_K)).astype(np.float32))
+    batch = featurize_batch(quantize_roundtrip(jnp.asarray(wav)), cfg.audio.clip_samples)
+    out = clap.encode_audio(params, batch, cfg, residual={0: res}, double_ffn_compat=True)
+    arrays = {
+        "config": np.asarray(json.dumps({"audio": WIDE_AUDIO_KW, **WIDE_CLAP_KW,
+                                         "seed": WIDE_SEED})),
+        "wav": wav,
+        **_flatten({k: np.asarray(v) for k, v in res.items()}, "residual", {}),
+    }
+    arrays.update({f"out/{k}": np.asarray(out[k]) for k in WIDE_OUTPUT_KEYS})
+    return arrays
+
+
 def load(path: Path = PATH) -> dict[str, np.ndarray]:
     with np.load(path) as d:
         return {k: d[k] for k in d.files}
 
 
+def output_keys(arrays: dict) -> list[str]:
+    return [k[len("out/"):] for k in arrays if k.startswith("out/")]
+
+
 def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
-    """The port's outputs on the fixture's input: params loaded through the
-    weight bridge, quantize -> featurize -> ``encode_audio``. Imports torch
-    and the port only, so it runs where JAX is absent."""
+    """The port's outputs on a fixture's input: params loaded through the
+    weight bridge (tiny) or made from the seed (wide), quantize ->
+    featurize -> ``encode_audio``. Imports torch and the port only, so it
+    runs where JAX is absent."""
     import torch
 
     from audio_residual_tpu_torch.data.featurize import featurize_batch
-    from audio_residual_tpu_torch.models import clap, htsat
+    from audio_residual_tpu_torch.models import clap
     from audio_residual_tpu_torch.models.convert import load_jax_params
     from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
 
-    cfg = json.loads(str(arrays["config"]))
-    audio = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.pop("audio").items()}
-    model = clap.build_clap_audio(clap.CLAPConfig(audio=htsat.HTSATConfig(**audio), **cfg),
-                                  device=device)
-    load_jax_params(model, _unflatten(
-        {k[len("param/"):]: v for k, v in arrays.items() if k.startswith("param/")}))
+    audio_kw, clap_kw, seed = _config(arrays)
+    model = _port_model(audio_kw, clap_kw, device)
+    if seed is None:
+        load_jax_params(model, _unflatten(
+            {k[len("param/"):]: v for k, v in arrays.items() if k.startswith("param/")}))
+    else:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in _seeded_weights(model, seed).items()})
     residual = {k[len("residual/"):]: torch.tensor(v).to(model.audio_branch.norm.weight.device)
                 for k, v in arrays.items() if k.startswith("residual/")}
     wav = torch.tensor(arrays["wav"]).to(residual["basis"].device)
     batch = featurize_batch(quantize_roundtrip(wav), model.cfg.audio.clip_samples)
     out = clap.encode_audio(model, batch, residual={0: residual}, double_ffn_compat=True,
                             compute_dtype=compute_dtype)
-    return {k: out[k].float().cpu().numpy() for k in OUTPUT_KEYS}
+    return {k: out[k].float().cpu().numpy() for k in output_keys(arrays)}
 
 
 def main() -> None:
@@ -148,8 +255,9 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")  # the tests' f32 CPU reference
     PATH.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(PATH, **build())
-    print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")
+    for path, make in ((PATH, build), (WIDE_PATH, build_wide)):
+        np.savez_compressed(path, **make())
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
