@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper, one module per TPU kernel.
+"""Hand-written CUDA kernels for Hopper, one module per TPU kernel, and
+``gemm``, the bf16 GEMM they share under AMP.
 
 Each kernel module holds the wrapper (checks, allocation, launch on the
 current stream), its plain PyTorch version, and nothing else. A wrapper runs

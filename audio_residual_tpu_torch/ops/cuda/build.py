@@ -1,7 +1,8 @@
 """Build the CUDA sources with ``nvcc`` at first use and bind them with ctypes.
 
 Each ``csrc/*.cu`` becomes its own shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds), compiled for ``sm_90a``.
+(no PyTorch headers, so a build takes seconds), compiled for ``sm_90a``;
+``csrc/*.cuh`` are the headers they share.
 All sources build in parallel, one ``nvcc`` each, into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``); a library is named by
 the hash of its sources and flags, so an unchanged source is not rebuilt.
@@ -20,8 +21,6 @@ import time
 from pathlib import Path
 
 import torch
-
-from audio_residual_tpu_torch.ops.cuda import KERNELS
 
 __all__ = ["build_all", "library", "bind", "check", "stream_of", "ptr",
            "check_cuda_inputs"]
@@ -58,7 +57,7 @@ def _target(name: str) -> Path:
 def build_all() -> dict[str, float]:
     """Compile every stale source, all ``nvcc`` processes started together.
     Returns seconds per built source; raises with the compiler's output."""
-    targets = {src: _target(src) for src, _ in KERNELS.values()}
+    targets = {src.stem: _target(src.stem) for src in sorted(CSRC.glob("*.cu"))}
     todo = {n: t for n, t in targets.items() if not t.exists()}
     if not todo:
         return {}

@@ -3,90 +3,167 @@
 // The TPU kernels keep a whole block (or half of one) resident in VMEM. On
 // Hopper a 64-token window's f32 qkv at C=384 alone is 288 KB, above the
 // 227 KB of shared memory a block may use, so each TPU kernel becomes a
-// fixed sequence of launches with f32 intermediates in device memory:
+// fixed sequence of launches with intermediates in device memory:
 //   window attention = qkv GEMM -> attention core -> proj GEMM
 //   residual FFN     = [ResiDual GEMMs] -> add+LN2 -> fc1+GELU -> fc2 + h1
 //                      [-> double-FFN second pass]
-// Fusing a block into one kernel is later work (ROADMAP, Queue 2). Wide
-// layers (C >= 1024) do not come here for their attention: K5
-// (wide_attention.cu) cuts the work at head boundaries and keeps qkv on chip.
+//
+// What bounds such a sequence on the H100 is the bytes of its intermediates,
+// not its operations: at HTSAT-tiny layer 0 (R = 131072 rows, C = 96) a
+// block writes and reads back qkv [R, 3C], hid [R, 4C] and several [R, C]
+// tensors, for ~72 operations a byte of its qkv GEMM against the bf16 ridge
+// of ~295. So under AMP (bf16 = 1) every intermediate whose only reader is a
+// GEMM or the attention core is stored in bf16 -- y = LN1(x), qkv (q
+// pre-scaled by hd^-1/2 in the qkv epilogue), the attention output, z =
+// LN2(h) and hid -- the rounding its reader applied anyway, so the function
+// is unchanged; the products run on the TMA + wgmma GEMM (gemm_sm90.cuh) with
+// bf16 weights cast once per weight version. What stays f32 (the AMP
+// contract): the proj output a that the ResiDual reads, h1, y2, the ResiDual
+// scratch, LN statistics and softmax. The golden path (bf16 = 0) keeps f32 everywhere
+// and the f32 GEMM. Fusing a block into one kernel is later work (ROADMAP,
+// Queue 2). Wide layers (C >= 1024) do not come here for their attention:
+// K5 (wide_attention.cu) cuts the work at head boundaries and keeps qkv on
+// chip.
+//
+// Weight pointers are const float* in the golden mode and const
+// __nv_bfloat16* under AMP.
 #pragma once
 
 #include "common.cuh"
 
 namespace arpu {
 
-// floats of run_window_attention scratch: qkv [R, 3C] + att [R, C]
-static inline size_t window_attention_ws(long R, long C) { return (size_t)R * 4 * C; }
+using bf16_t = __nv_bfloat16;
+
+// Scratch is carved from one byte buffer, every piece 256-byte aligned.
+static inline size_t span(size_t bytes) { return (bytes + 255) & ~(size_t)255; }
+
+struct Arena {
+  unsigned char* p;
+  template <typename T>
+  T* take(size_t count) {
+    T* r = reinterpret_cast<T*>(p);
+    p += span(count * sizeof(T));
+    return r;
+  }
+};
+
+static inline size_t elem_bytes(int bf16) { return bf16 ? 2 : 4; }
+
+// bytes of run_window_attention scratch: qkv [R, 3C] and att [R, C]
+static inline size_t window_attention_ws(long R, long C, int bf16) {
+  return span((size_t)R * 3 * C * elem_bytes(bf16)) + span((size_t)R * C * elem_bytes(bf16));
+}
 
 // y [R, C] -> out [R, C] = proj(attention(qkv(y))) (+ r1 in the proj
-// epilogue when r1 is given).
-static inline void run_window_attention(const void* y, int y_bf16, void* out, int out_bf16,
-                                        const void* r1, int r1_bf16, int R, int n, int C, int nh,
-                                        int nW, const float* wqkv, const float* bqkv,
-                                        const float* wproj, const float* bproj, const float* bias,
-                                        const float* mask, int bf16, float* ws, cudaStream_t s) {
-  float* qkv = ws;
-  float* att = ws + (size_t)R * 3 * C;
-  launch_gemm(gemm_args(y, y_bf16, wqkv, qkv, 0, R, 3 * C, C, bqkv), bf16, s);
-  launch_attention_core(qkv, att, bias, mask, R / n, n, nh, C, nW, bf16, s);
-  GemmArgs g = gemm_args(att, 0, wproj, out, out_bf16, R, C, C, bproj);
-  g.r1 = r1;
-  g.r1_bf16 = r1_bf16;
-  launch_gemm(g, bf16, s);
+// epilogue when r1 is given). AMP: y must be bf16; q_scale [3C] is hd^-1/2
+// on q's columns and 1 on k's and v's.
+static inline cudaError_t run_window_attention(const void* y, int y_bf16, void* out, int out_bf16,
+                                               const void* r1, int r1_bf16, int R, int n, int C,
+                                               int nh, int nW, const void* wqkv,
+                                               const float* bqkv, const void* wproj,
+                                               const float* bproj, const float* bias,
+                                               const float* mask, const float* q_scale, int bf16,
+                                               Arena ws, cudaStream_t s) {
+  if (!bf16) {
+    float* qkv = ws.take<float>((size_t)R * 3 * C);
+    float* att = ws.take<float>((size_t)R * C);
+    ARPU_TRY(launch_gemm_f32(
+        gemm_args(y, y_bf16, static_cast<const float*>(wqkv), qkv, 0, R, 3 * C, C, bqkv), s));
+    ARPU_TRY(launch_attention_core(qkv, att, bias, mask, R / n, n, nh, C, nW, s));
+    GemmArgs g = gemm_args(att, 0, static_cast<const float*>(wproj), out, out_bf16, R, C, C, bproj);
+    g.r1 = r1;
+    g.r1_bf16 = r1_bf16;
+    return launch_gemm_f32(g, s);
+  }
+  if (!y_bf16) return cudaErrorInvalidValue;
+  bf16_t* qkv = ws.take<bf16_t>((size_t)R * 3 * C);
+  bf16_t* att = ws.take<bf16_t>((size_t)R * C);
+  ARPU_TRY(gemm_bf16(static_cast<const bf16_t*>(y), static_cast<const bf16_t*>(wqkv), qkv, 1, R,
+                     3 * C, C, Epilogue{bqkv, q_scale, 0, nullptr, nullptr}, 0, 0, s));
+  ARPU_TRY(launch_attention_core(qkv, att, bias, mask, R / n, n, nh, C, nW, s));
+  return gemm_bf16(att, static_cast<const bf16_t*>(wproj), out, out_bf16, R, C, C,
+                   Epilogue{bproj, nullptr, 0, r1, nullptr}, r1_bf16, 0, s);
 }
 
 // ResiDual epilogue and the first residual add, always f32 (the method's
 // precision-sensitive core): h1 = x + ((a - mean) @ basis^T * lam) @ basis.
 // basis [kr, C]; basis_t [C, kr]; proj scratch [R, kr].
-static inline void run_residual_epilogue(const void* a, int a_bf16, const void* x, int x_bf16,
-                                         float* h1, int R, int C, int kr, const float* basis,
-                                         const float* basis_t, const float* mean,
-                                         const float* lam, float* proj, cudaStream_t s) {
+static inline cudaError_t run_residual_epilogue(const void* a, int a_bf16, const void* x,
+                                                int x_bf16, float* h1, int R, int C, int kr,
+                                                const float* basis, const float* basis_t,
+                                                const float* mean, const float* lam, float* proj,
+                                                cudaStream_t s) {
   GemmArgs p = gemm_args(a, a_bf16, basis, proj, 0, R, kr, C, nullptr);
   p.a_sub = mean;
   p.col_scale = lam;
-  launch_gemm(p, 0, s);
+  ARPU_TRY(launch_gemm_f32(p, s));
   GemmArgs q = gemm_args(proj, 0, basis_t, h1, 0, R, C, kr, nullptr);
   q.r1 = x;
   q.r1_bf16 = x_bf16;
-  launch_gemm(q, 0, s);
+  return launch_gemm_f32(q, s);
 }
 
-// floats of run_ffn scratch: z [R, C] + hid [R, hidden] + y2 [R, C]
-static inline size_t ffn_ws(long R, long C, long hidden) { return (size_t)R * (2 * C + hidden); }
+// run_ffn scratch: z [R, C] and hid [R, hidden] (bf16 under AMP), y2 [R, C] f32
+struct FfnScratch {
+  void* z;
+  void* hid;
+  float* y2;
+};
+
+static inline size_t ffn_ws(long R, long C, long hidden, int bf16) {
+  return span((size_t)R * C * elem_bytes(bf16)) + span((size_t)R * hidden * elem_bytes(bf16)) +
+         span((size_t)R * C * 4);
+}
+
+static inline FfnScratch take_ffn(Arena& ws, long R, long C, long hidden, int bf16) {
+  FfnScratch f;
+  f.z = ws.take<unsigned char>((size_t)R * C * elem_bytes(bf16));
+  f.hid = ws.take<unsigned char>((size_t)R * hidden * elem_bytes(bf16));
+  f.y2 = ws.take<float>((size_t)R * C);
+  return f;
+}
 
 // h1 [R, C] f32 -> out = h1 + fc2(GELU(fc1(LN2(h1)))). With double_ffn
 // (the reference's patched-forward quirk): y2 = x + that, out = y2 + FFN(y2).
-// z_ready: LN2(h1) is already in the z slot of ws.
-static inline void run_ffn(const void* x, int x_bf16, const float* h1, void* out, int out_bf16,
-                           int R, int C, int hidden, const float* n2s, const float* n2b,
-                           const float* wfc1, const float* bfc1, const float* wfc2,
-                           const float* bfc2, int double_ffn, int bf16, int z_ready, float* ws,
-                           cudaStream_t s) {
-  float* z = ws;
-  float* hid = z + (size_t)R * C;
-  float* y2 = hid + (size_t)R * hidden;
-  if (!z_ready) launch_add_layernorm(h1, 0, nullptr, 0, nullptr, z, 0, n2s, n2b, R, C, s);
-  GemmArgs fc1 = gemm_args(z, 0, wfc1, hid, 0, R, hidden, C, bfc1);
-  fc1.gelu = 1;
-  launch_gemm(fc1, bf16, s);
-  GemmArgs fc2 = gemm_args(hid, 0, wfc2, out, out_bf16, R, C, hidden, bfc2);
-  fc2.r1 = h1;
-  if (!double_ffn) {
-    launch_gemm(fc2, bf16, s);
-    return;
+// z_ready: LN2(h1) is already in f.z.
+static inline cudaError_t run_ffn(const void* x, int x_bf16, const float* h1, void* out,
+                                  int out_bf16, int R, int C, int hidden, const float* n2s,
+                                  const float* n2b, const void* wfc1, const float* bfc1,
+                                  const void* wfc2, const float* bfc2, int double_ffn, int bf16,
+                                  int z_ready, const FfnScratch& f, cudaStream_t s) {
+  // hid = GELU(z @ wfc1^T + bfc1)
+  auto fc1 = [&]() -> cudaError_t {
+    if (!bf16) {
+      GemmArgs g = gemm_args(f.z, 0, static_cast<const float*>(wfc1), f.hid, 0, R, hidden, C, bfc1);
+      g.gelu = 1;
+      return launch_gemm_f32(g, s);
+    }
+    return gemm_bf16(static_cast<const bf16_t*>(f.z), static_cast<const bf16_t*>(wfc1), f.hid, 1,
+                     R, hidden, C, Epilogue{bfc1, nullptr, 1, nullptr, nullptr}, 0, 0, s);
+  };
+  // dst = ((hid @ wfc2^T + bfc2) + res) [+ x2]
+  auto fc2 = [&](void* dst, int dst_bf16, const float* res, const void* x2) -> cudaError_t {
+    if (!bf16) {
+      GemmArgs g = gemm_args(f.hid, 0, static_cast<const float*>(wfc2), dst, dst_bf16, R, C,
+                             hidden, bfc2);
+      g.r1 = res;
+      g.r2 = x2;
+      g.r2_bf16 = x_bf16;
+      return launch_gemm_f32(g, s);
+    }
+    return gemm_bf16(static_cast<const bf16_t*>(f.hid), static_cast<const bf16_t*>(wfc2), dst,
+                     dst_bf16, R, C, hidden, Epilogue{bfc2, nullptr, 0, res, x2}, 0, x_bf16, s);
+  };
+  if (!z_ready) {
+    ARPU_TRY(launch_add_layernorm(h1, 0, nullptr, 0, nullptr, f.z, bf16, n2s, n2b, R, C, s));
   }
-  fc2.C = y2;  // y2 = ((fc2 + b) + h1) + x
-  fc2.c_bf16 = 0;
-  fc2.r2 = x;
-  fc2.r2_bf16 = x_bf16;
-  launch_gemm(fc2, bf16, s);
-  launch_add_layernorm(y2, 0, nullptr, 0, nullptr, z, 0, n2s, n2b, R, C, s);
-  launch_gemm(fc1, bf16, s);
-  GemmArgs last = gemm_args(hid, 0, wfc2, out, out_bf16, R, C, hidden, bfc2);
-  last.r1 = y2;
-  launch_gemm(last, bf16, s);
+  ARPU_TRY(fc1());
+  if (!double_ffn) return fc2(out, out_bf16, h1, nullptr);
+  ARPU_TRY(fc2(f.y2, 0, h1, x));  // y2 = ((fc2 + b) + h1) + x
+  ARPU_TRY(launch_add_layernorm(f.y2, 0, nullptr, 0, nullptr, f.z, bf16, n2s, n2b, R, C, s));
+  ARPU_TRY(fc1());
+  return fc2(out, out_bf16, f.y2, nullptr);
 }
 
 }  // namespace arpu

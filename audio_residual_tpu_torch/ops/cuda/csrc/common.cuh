@@ -1,33 +1,44 @@
 // Device building blocks shared by the Hopper ports of the Swin-block
-// TPU kernels (window_attention.cu, ln_mlp.cu, swin_block.cu):
+// TPU kernels (window_attention.cu, ln_mlp.cu, swin_block.cu,
+// wide_attention.cu):
 //
-//   * gemm_f32_kernel   C = epi(A @ W^T), f32 operands, f32 FMA (golden path)
-//   * gemm_bf16_kernel  the same with bf16 operands on the tensor cores
-//                       (nvcuda::wmma 16x16x16, f32 accumulate; AMP path)
+//   * gemm_f32_kernel   C = epi(A @ W^T), f32 operands, f32 FMA: the golden
+//                       path and the ResiDual GEMMs (always f32)
+//   * gemm_bf16         (gemm_sm90.cuh) the AMP GEMM: bf16 operands, TMA +
+//                       wgmma, f32 accumulate
 //   * add_layernorm_kernel  h = x (+ r); y = LN(h), f32 statistics
 //   * attention_core_kernel one block per (window, head): scores, relative
 //                       bias, SW-MSA mask, exact f32 softmax, @V
 //
 // Layouts: A [M, K] row-major, W [N, K] row-major (nn.Linear layout), C and
-// the residual operands [M, N] row-major, all contiguous. Activations and
-// residual operands may be f32 or bf16 (a runtime flag per pointer, uniform
-// across a launch); weights, biases and LN parameters are f32. In bf16 mode
-// the GEMM rounds A and W to bf16 as it stages them, so a plain f32 matmul
-// of bf16-rounded operands computes the same function.
+// the residual operands [M, N] row-major, all contiguous. The f32 GEMM reads
+// activations and residuals as f32 or bf16 (a runtime flag per pointer) and
+// f32 weights. Under AMP every intermediate that only a GEMM or the
+// attention core reads is stored in bf16, the rounding its reader applies
+// anyway, so the launch sequences move about half the bytes.
 //
 // GEMM epilogue, in this order: v = acc; v += bias[n]; v *= col_scale[n];
-// v = gelu(v); v += r1[m, n]; v += r2[m, n]. A prologue may subtract a_sub[k]
-// from A's columns (the ResiDual centring). Each step is optional.
+// v = gelu(v); v += r1[m, n]; v += r2[m, n]. The f32 GEMM's prologue may
+// subtract a_sub[k] from A's columns (the ResiDual centring). Each step is
+// optional.
 //
 // Host-side helpers (launch_*) enqueue on the caller's stream and never
-// synchronise; the exported C functions return cudaGetLastError().
+// synchronise; the exported C functions return the first CUDA error.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
+
+#include "gemm_sm90.cuh"
+
+// variadic: a template call's commas stay inside the argument
+#define ARPU_TRY(...)                                 \
+  do {                                                \
+    const cudaError_t arpu_err_ = (__VA_ARGS__);      \
+    if (arpu_err_ != cudaSuccess) return arpu_err_;   \
+  } while (0)
 
 namespace arpu {
 
@@ -46,11 +57,6 @@ __device__ __forceinline__ void st(void* p, size_t i, float v, int bf16) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// exact (erf) GELU, torch nn.GELU() semantics
-__device__ __forceinline__ float gelu_erf(float v) {
-  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -145,67 +151,10 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs g) {
     for (int j = 0; j < 4; ++j) epilogue(g, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// ---- bf16 tensor-core GEMM: 64x64 tile, 4 warps of 32x32, K step 32 -----
-constexpr int T_BM = 64, T_BN = 64, T_BK = 32, T_LD = T_BK + 8, T_CLD = T_BN + 4;
-
-__global__ void __launch_bounds__(128) gemm_bf16_kernel(GemmArgs g) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[T_BM * T_LD];
-  __shared__ __align__(32) __nv_bfloat16 Ws[T_BN * T_LD];
-  __shared__ __align__(32) float Cs[T_BM * T_CLD];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < g.K; k0 += T_BK) {
-    for (int e = tid; e < T_BM * T_BK; e += 128) {
-      const int r = e / T_BK, kk = e % T_BK;
-      As[r * T_LD + kk] = __float2bfloat16(load_a(g, m0 + r, k0 + kk));
-      Ws[r * T_LD + kk] = __float2bfloat16(load_w(g, n0 + r, k0 + kk));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < T_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * T_LD + kk, T_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Ws + (wn + 16 * j) * T_LD + kk, T_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * T_CLD + wn + 16 * j, acc[i][j], T_CLD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < T_BM * T_BN; e += 128) {
-    const int r = e / T_BN, c = e % T_BN;
-    epilogue(g, m0 + r, n0 + c, Cs[r * T_CLD + c]);
-  }
-}
-
-static inline void launch_gemm(const GemmArgs& g, int bf16_mma, cudaStream_t s) {
-  if (bf16_mma) {
-    dim3 grid((g.N + T_BN - 1) / T_BN, (g.M + T_BM - 1) / T_BM);
-    gemm_bf16_kernel<<<grid, 128, 0, s>>>(g);
-  } else {
-    dim3 grid((g.N + F_BN - 1) / F_BN, (g.M + F_BM - 1) / F_BM);
-    gemm_f32_kernel<<<grid, 256, 0, s>>>(g);
-  }
+static inline cudaError_t launch_gemm_f32(const GemmArgs& g, cudaStream_t s) {
+  dim3 grid((g.N + F_BN - 1) / F_BN, (g.M + F_BM - 1) / F_BM);
+  gemm_f32_kernel<<<grid, 256, 0, s>>>(g);
+  return cudaGetLastError();
 }
 
 static inline GemmArgs gemm_args(const void* A, int a_bf16, const float* W, void* C, int c_bf16,
@@ -252,23 +201,34 @@ __global__ void __launch_bounds__(256) add_layernorm_kernel(
   }
 }
 
-static inline void launch_add_layernorm(const void* x, int x_bf16, const void* r, int r_bf16,
-                                        float* h_out, void* y, int y_bf16, const float* gamma,
-                                        const float* beta, int rows, int C, cudaStream_t s) {
+static inline cudaError_t launch_add_layernorm(const void* x, int x_bf16, const void* r,
+                                               int r_bf16, float* h_out, void* y, int y_bf16,
+                                               const float* gamma, const float* beta, int rows,
+                                               int C, cudaStream_t s) {
   add_layernorm_kernel<<<(rows + 7) / 8, 256, 0, s>>>(x, x_bf16, r, r_bf16, h_out, y, y_bf16,
                                                       gamma, beta, rows, C, 1e-5f);
+  return cudaGetLastError();
 }
 
 // ---- window attention core: one block per (window, head) ----------------
-// qkv [W*n, 3C] f32 -> out [W*n, C] f32 (this head's hd columns).
+// qkv [W*n, 3C] -> out [W*n, C] (this head's hd columns), both of type T.
 // bias [nh, n, n]; mask [nW, n, n] or null (window w takes mask[w % nW]).
-// bf16: q*scale, k, probabilities and v are rounded to bf16 before their
-// products (f32 accumulate), the AMP contract of the TPU kernels.
+// T = float (golden): q is scaled by hd^-1/2 here. T = bf16 (AMP): the qkv
+// GEMM stored bf16(q * hd^-1/2), k and v in bf16, and the probabilities are
+// rounded to bf16 before @V (f32 accumulate), the AMP contract of the TPU
+// kernels.
 constexpr int ATT_THREADS = 256;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
-    const float* qkv, float* out, const float* bias, const float* mask, int n, int nh, int C,
-    int nW, float scale, int bf16) {
+    const T* qkv, T* out, const float* bias, const float* mask, int n, int nh, int C, int nW,
+    float scale) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ float sm[];
   const int hd = C / nh;
   float* q = sm;                 // [n][hd]
@@ -281,16 +241,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
 
   for (int e = tid; e < n * hd; e += ATT_THREADS) {
     const int t = e / hd, d = e % hd;
-    const float* src = qkv + (row0 + t) * 3 * C + h * hd + d;
-    float qv = src[0] * scale, kv = src[C], vv = src[2 * C];
-    if (bf16) {
-      qv = round_bf16(qv);
-      kv = round_bf16(kv);
-      vv = round_bf16(vv);
-    }
-    q[t * hd + d] = qv;
-    k[t * (hd + 1) + d] = kv;
-    v[t * hd + d] = vv;
+    const T* src = qkv + (row0 + t) * 3 * C + h * hd + d;
+    q[t * hd + d] = kBf16 ? to_f32(src[0]) : to_f32(src[0]) * scale;
+    k[t * (hd + 1) + d] = to_f32(src[C]);
+    v[t * hd + d] = to_f32(src[2 * C]);
   }
   __syncthreads();
 
@@ -320,7 +274,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
     sum = warp_sum(sum);
     for (int j = lane; j < n; j += 32) {
       const float p = row[j] / sum;
-      row[j] = bf16 ? round_bf16(p) : p;
+      row[j] = kBf16 ? round_bf16(p) : p;
     }
   }
   __syncthreads();
@@ -329,7 +283,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
     const int i = e / hd, d = e % hd;
     float acc = 0.0f;
     for (int j = 0; j < n; ++j) acc = fmaf(s[i * (n + 1) + j], v[j * hd + d], acc);
-    out[(row0 + i) * C + h * hd + d] = acc;
+    store_as(out + (row0 + i) * C + h * hd + d, acc);
   }
 }
 
@@ -337,19 +291,21 @@ static inline size_t attention_smem_bytes(int n, int hd) {
   return sizeof(float) * ((size_t)n * hd * 2 + (size_t)n * (hd + 1) + (size_t)n * (n + 1));
 }
 
-static inline void launch_attention_core(const float* qkv, float* out, const float* bias,
+template <typename T>
+static cudaError_t launch_attention_core(const T* qkv, T* out, const float* bias,
                                          const float* mask, int windows, int n, int nh, int C,
-                                         int nW, int bf16, cudaStream_t s) {
+                                         int nW, cudaStream_t s) {
   const int hd = C / nh;
   const size_t smem = attention_smem_bytes(n, hd);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(attention_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    ARPU_TRY(cudaFuncSetAttribute(attention_core_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   }
   // hd**-0.5 rounded once from double, as the plain version's scalar is
   const float scale = (float)pow((double)hd, -0.5);
-  attention_core_kernel<<<dim3(windows, nh), ATT_THREADS, smem, s>>>(qkv, out, bias, mask, n,
-                                                                    nh, C, nW, scale, bf16);
+  attention_core_kernel<T><<<dim3(windows, nh), ATT_THREADS, smem, s>>>(qkv, out, bias, mask, n,
+                                                                       nh, C, nW, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace arpu

@@ -1,0 +1,570 @@
+// bf16 tensor-core GEMM for Hopper (sm_90a): C = epi(A @ W^T), the AMP GEMM
+// of the Swin-block kernels (K2-K5). A [M, K] bf16 row-major, W [N, K] bf16
+// (nn.Linear layout, K-major as wgmma wants it), f32 accumulate, C [M, N]
+// f32 or bf16. Epilogue, in this order: v += bias[n]; v *= col_scale[n];
+// v = gelu(v); v += r1[m, n]; v += r2[m, n] (r1, r2 f32 or bf16), each step
+// optional.
+//
+// What bounds it on the H100: bytes, at most shapes of the main paths. The
+// K4 GEMMs at HTSAT-tiny/base layers 0-2 have K = C or 4C with C <= 512:
+// the qkv product at C=96 is ~72 operations a byte against the card's bf16
+// ridge of ~295, so the work is to stream A in and C out.
+//
+// Design:
+//   * one block an SM (persistent grid) walks (M tile, N tile) pairs, N
+//     fastest, so the blocks working at one time share their A tile in L2;
+//   * warpgroup 0 is the producer: one thread keeps TMA loads of A [128, 64]
+//     and W [BN, 64] tiles (128-byte swizzle) in flight through a ring of
+//     stages, completion counted by mbarriers; the ragged M, N and K edges
+//     arrive zero-filled;
+//   * warpgroups 1-2 are consumers, 64 rows of the tile each: wgmma
+//     m64nBNk16 from shared memory into f32 registers, one group in flight
+//     while the next k-tile is issued; then the epilogue, while the producer
+//     already loads the next tile: the accumulator fragment goes to a
+//     per-warpgroup staging buffer in shared memory and comes back 8
+//     consecutive columns a thread, consecutive threads along a row, so
+//     bias, residuals and the output move in coalesced 16-byte vectors;
+//   * BN (96, 128 or 192) is picked per launch to divide N and fill the card;
+//     the output and residual types are template parameters. BN = 192 pays
+//     at HTSAT-tiny's qkv and fc1 shapes with N = 576 ... 3072: 3-12% less
+//     device time than the 96 or 128 they take without it; at HTSAT-base's
+//     (N = 384, 768, 1536) it ties (PERF.md).
+// Weights arrive in bf16, cast by the wrappers once per weight version,
+// never per tile.
+//
+// Tried on the H100 while this design was made and not kept, for none was
+// faster at HTSAT-tiny's layer-0 shapes: stores straight from the fragment,
+// a TMA store of the finished tile, the per-column steps in the fragment
+// pass, ping-pong consumers (each warpgroup its own 64-row tiles, product
+// loops taking turns) and contiguous tile runs per block. At those shapes
+// it takes 1.6-2.6x the device time of torch.matmul on the same operands,
+// furthest where the epilogue does most (GELU, bf16 output; PERF.md).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace arpu {
+
+// exact (erf) GELU, torch nn.GELU() semantics
+__device__ __forceinline__ float gelu_erf(float v) {
+  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+struct Epilogue {
+  const float* bias;       // [N] or null
+  const float* col_scale;  // [N] or null
+  int gelu;
+  const void* r1;  // [M, N] or null
+  const void* r2;  // [M, N] or null
+};
+
+namespace sm90 {
+
+constexpr int BM = 128;  // two consumer warpgroups of 64 rows
+constexpr int BK = 64;   // 64 bf16 = 128 bytes: one row of the 128-byte swizzle
+constexpr int THREADS = 384;
+constexpr int SMEM_LIMIT = 232448;  // what a block may use on the H100
+
+template <int BN>
+struct Tiles {
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int W_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+  // epilogue staging, per consumer warpgroup: [64, BN] f32, rows padded by 8
+  // floats so that the fragment's float2 stores take two wavefronts
+  static constexpr int LDS = BN + 8;
+  static constexpr int STAGING_BYTES = 2 * 64 * LDS * 4;
+  // the ring takes what is left after 1 KB of alignment slack, the staging
+  // and the barriers
+  static constexpr int FREE = SMEM_LIMIT - 1024 - STAGING_BYTES - 256;
+  static constexpr int STAGES = FREE / STAGE_BYTES > 8 ? 8 : FREE / STAGE_BYTES;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + STAGING_BYTES + 2 * STAGES * 8;
+  static_assert(STAGES >= 2, "the ring needs two stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: box {BK columns from c0, rows from c1} of `map` into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4)          // start address
+         | (uint64_t(1) << 16)            // leading byte offset (unused when swizzled)
+         | (uint64_t(1024 >> 4) << 32)    // stride byte offset: one 8-row atom
+         | (uint64_t(1) << 62);           // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// barrier of one warpgroup (named barrier `id`, 128 threads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across the wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, both operands K-major in
+// shared memory. acc = 0 overwrites d (the first product of a tile).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+// ---- epilogue: 8 consecutive columns of one row, in 16-byte vectors -----
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void add8(const void* base, size_t i, float (&v)[8]) {
+  float r[8];
+  load8(reinterpret_cast<const T*>(base) + i, r);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] += r[c];
+}
+
+// The consumer warpgroup's [64, BN] accumulator to C, through its staging
+// buffer in shared memory. Fragment layout of wgmma m64nNk16 (f32): lane l
+// of warp w holds d[4j + 2h + e] at row 16w + l/4 + 8h, column
+// 8j + 2(l%4) + e. Written as is, then read back 8 consecutive columns a
+// thread, consecutive threads along a row, so bias, residuals and the
+// output move in coalesced 16-byte vectors.
+template <int BN, typename OutT, typename R1T, typename R2T>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], float* stage, OutT* C,
+                                           int M, int N, int m0, int n0, const Epilogue& e,
+                                           int barrier) {
+  constexpr int LDS = Tiles<BN>::LDS, CHUNKS = BN / 8;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = 16 * (t / 32) + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    *reinterpret_cast<float2*>(stage + r * LDS + 8 * j + c) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(stage + (r + 8) * LDS + 8 * j + c) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  warpgroup_sync(barrier);
+#pragma unroll 4
+  for (int i = t; i < 64 * CHUNKS; i += 128) {
+    const int row = i / CHUNKS, col = 8 * (i % CHUNKS);
+    const int m = m0 + row, n = n0 + col;
+    if (m >= M || n >= N) continue;  // N % 8 == 0: a chunk lies wholly inside or outside
+    float v[8];
+    load8(stage + row * LDS + col, v);
+    if (e.bias) {
+      float b[8];
+      load8(e.bias + n, b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] += b[k];
+    }
+    if (e.col_scale) {
+      float sc[8];
+      load8(e.col_scale + n, sc);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] *= sc[k];
+    }
+    if (e.gelu) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = gelu_erf(v[k]);
+    }
+    const size_t at = (size_t)m * N + n;
+    if (e.r1) add8<R1T>(e.r1, at, v);
+    if (e.r2) add8<R2T>(e.r2, at, v);
+    store8(C + at, v);
+  }
+  warpgroup_sync(barrier);  // the buffer is free for the next tile
+}
+
+template <int BN, typename OutT, typename R1T, typename R2T>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_w, OutT* __restrict__ C, int M, int N,
+                int K, Epilogue e) {
+  using T = Tiles<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* a_ring = smem;
+  unsigned char* w_ring = smem + T::STAGES * T::A_BYTES;
+  float* staging = reinterpret_cast<float*>(w_ring + T::STAGES * T::W_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * 64 * T::LDS);
+  uint64_t* empty = full + T::STAGES;
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles, k_tiles = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], T::STAGE_BYTES);
+        tma_load(a_ring + stage * T::A_BYTES, &tma_a, &full[stage], kt * BK, m0);
+        tma_load(w_ring + stage * T::W_BYTES, &tma_w, &full[stage], kt * BK, n0);
+        if (++stage == T::STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes rows 64 (wg - 1) .. of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  const int a_off = (wg - 1) * 64 * BK * 2;
+  const bool signals = threadIdx.x % 32 == 0;  // lane 0 releases a stage for its warp
+  float* stage_out = staging + (wg - 1) * 64 * T::LDS;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+    int reading = -1;  // the stage the wgmma group in flight reads
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      mbar_wait(&full[stage], phase);
+      const uint64_t da = smem_desc(a_ring + stage * T::A_BYTES + a_off);
+      const uint64_t dw = smem_desc(w_ring + stage * T::W_BYTES);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) {
+        // +32 bytes along K per k16 step (the descriptor counts 16-byte units);
+        // the tile's first product overwrites the accumulator
+        Wgmma<BN>::mma(acc, da + 2 * k, dw + 2 * k, (kt | k) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-tile's products are done: release its stage
+      fence_regs(acc);
+      if (reading >= 0 && signals) mbar_arrive(&empty[reading]);
+      reading = stage;
+      if (++stage == T::STAGES) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (signals) mbar_arrive(&empty[reading]);
+    store_tile<BN, OutT, R1T, R2T>(acc, stage_out, C, M, N, m0 + 64 * (wg - 1), n0, e, wg);
+  }
+}
+
+// ---- host side -----------------------------------------------------------
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                         const cuuint32_t*, CUtensorMapInterleave,
+                                         CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                         CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the process has loaded (no -lcuda)
+static inline TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib ? reinterpret_cast<TensorMapEncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [rows, cols] row-major, boxes of [box_rows, box_cols]; out-of-bounds
+// elements read as zero and are not written
+static inline bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                              int box_cols, int bf16, CUtensorMapSwizzle swizzle) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (bf16 ? 2 : 4)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The largest BN that divides N and still gives every SM a tile; else the
+// dividing one with the most tiles; 128 (masked edge) when none divides.
+static inline int pick_bn(int M, int N, int sms) {
+  int best = 0, best_tiles = 0;
+  const int candidates[3] = {192, 128, 96};
+  for (int bn : candidates) {
+    if (N % bn) continue;
+    const int tiles = ((M + BM - 1) / BM) * (N / bn);
+    if (tiles >= sms) return bn;
+    if (tiles > best_tiles) best = bn, best_tiles = tiles;
+  }
+  return best ? best : 128;
+}
+
+// Per-device facts asked of the runtime once, not at every launch: a launch
+// of the Swin-block sequence is a few tens of microseconds of device time.
+constexpr int MAX_DEVICES = 64;
+
+static inline cudaError_t sm_count(int dev, int* sms) {
+  static std::atomic<int> counts[MAX_DEVICES];
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    const cudaError_t err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
+template <int BN, typename OutT, typename R1T, typename R2T>
+static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, void* C, int M, int N,
+                          int K, const Epilogue& e, int dev, int sms, cudaStream_t s) {
+  constexpr int smem = Tiles<BN>::SMEM;
+  const auto kernel = gemm_kernel<BN, OutT, R1T, R2T>;
+  static std::atomic<bool> smem_set[MAX_DEVICES];  // per instantiation
+  if (!smem_set[dev].load(std::memory_order_relaxed)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev].store(true, std::memory_order_relaxed);
+  }
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(ta, tw, static_cast<OutT*>(C), M, N,
+                                                          K, e);
+  return cudaGetLastError();
+}
+
+template <int BN, typename OutT>
+static cudaError_t launch_typed(const CUtensorMap& ta, const CUtensorMap& tw, void* C, int M,
+                                int N, int K, const Epilogue& e, int r1_bf16, int r2_bf16,
+                                int dev, int sms, cudaStream_t s) {
+  using B = __nv_bfloat16;
+  if (r1_bf16) {
+    return r2_bf16 ? launch<BN, OutT, B, B>(ta, tw, C, M, N, K, e, dev, sms, s)
+                   : launch<BN, OutT, B, float>(ta, tw, C, M, N, K, e, dev, sms, s);
+  }
+  return r2_bf16 ? launch<BN, OutT, float, B>(ta, tw, C, M, N, K, e, dev, sms, s)
+                 : launch<BN, OutT, float, float>(ta, tw, C, M, N, K, e, dev, sms, s);
+}
+
+template <int BN>
+static cudaError_t launch_bn(const CUtensorMap& ta, const CUtensorMap& tw, void* C, int c_bf16,
+                             int M, int N, int K, const Epilogue& e, int r1_bf16, int r2_bf16,
+                             int dev, int sms, cudaStream_t s) {
+  return c_bf16 ? launch_typed<BN, __nv_bfloat16>(ta, tw, C, M, N, K, e, r1_bf16, r2_bf16, dev,
+                                                  sms, s)
+                : launch_typed<BN, float>(ta, tw, C, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+}
+
+}  // namespace sm90
+
+// C [M, N] (bf16 if c_bf16, else f32) = epi(A [M, K] @ W [N, K]^T), bf16
+// operands. K and N multiples of 8, pointers 16-byte aligned. Enqueues on `s`.
+static inline cudaError_t gemm_bf16(const __nv_bfloat16* A, const __nv_bfloat16* W, void* C,
+                                    int c_bf16, int M, int N, int K, const Epilogue& e,
+                                    int r1_bf16, int r2_bf16, cudaStream_t s) {
+  using namespace sm90;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8) return cudaErrorInvalidValue;
+  const void* pointers[7] = {A, W, C, e.bias, e.col_scale, e.r1, e.r2};
+  for (const void* p : pointers) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return err;
+  const int bn = pick_bn(M, N, sms);
+  CUtensorMap ta, tw;
+  if (!encode_map(&ta, A, M, K, BM, BK, 1, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&tw, W, N, K, bn, BK, 1, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (bn) {
+    case 96:
+      return launch_bn<96>(ta, tw, C, c_bf16, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+    case 192:
+      return launch_bn<192>(ta, tw, C, c_bf16, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+    default:
+      return launch_bn<128>(ta, tw, C, c_bf16, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+  }
+}
+
+}  // namespace arpu

@@ -4,56 +4,84 @@
 // ResiDual epilogue ((a - mean) B^T * lam) B in f32, + x, LN2, fc1, exact
 // GELU, fc2, + h, and the double-FFN quirk when ResiDual is on.
 //
-// What bounds it on the H100: operations. At HTSAT-tiny layers 0-2 and
-// B=32 one launch is 30-56 GFLOP (layer 0 with ResiDual and the double FFN
-// is the most) against 25-100 MB of activations in and out: operations
-// dominate at both the f32 rate and the bf16 tensor-core rate.
+// What bounds it on the H100: bytes. The TPU kernel keeps the block in
+// VMEM; a 64-token window's f32 qkv at C=384 alone (288 KB) exceeds Hopper's
+// 227 KB of shared memory, so this is LN1 -> window attention -> residual
+// FFN in window space as a sequence of launches (blocks.cuh), the plan the
+// JAX package declares equivalent (swin_block.py::_split_block), and such a
+// sequence is bound by the bytes of its intermediates: at HTSAT-tiny layer 0
+// and B=32 (R = 131072 rows, C = 96, ResiDual and the double FFN) about
+// 2.2 GB a launch with f32 intermediates against 46 GFLOP of products.
 //
-// Design: the TPU kernel keeps the block in VMEM; a 64-token window's f32
-// qkv at C=384 alone (288 KB) exceeds Hopper's 227 KB of shared memory, so
-// this is LN1 -> window attention -> residual FFN in window space, the same
-// plan the JAX package declares equivalent (swin_block.py::_split_block),
-// with a kept in f32 between the halves as in the monolithic kernel. With no
-// ResiDual the first residual add rides the proj GEMM's epilogue.
+// Design: under AMP every intermediate that only a GEMM or the attention
+// core reads is stored in bf16 (blocks.cuh), about 1.4 GB a launch at that
+// layer, and every bf16 product runs on the TMA + wgmma GEMM
+// (gemm_sm90.cuh) with bf16 weights the wrapper keeps per weight version.
+// The attention output a stays f32 between the halves, as in the monolithic
+// kernel; with no ResiDual the first residual add rides the proj GEMM's
+// epilogue.
 #include "blocks.cuh"
 
-extern "C" size_t arpu_swin_block_workspace(int R, int C, int hidden, int kr) {
-  return (size_t)R * C * 3 + arpu::window_attention_ws(R, C) + arpu::ffn_ws(R, C, hidden) +
-         (size_t)R * kr;
+static size_t swin_block_ws(int R, int C, int hidden, int kr, int bf16) {
+  const size_t rc = (size_t)R * C;
+  return arpu::span(rc * arpu::elem_bytes(bf16)) + 2 * arpu::span(rc * 4) +
+         arpu::window_attention_ws(R, C, bf16) + arpu::ffn_ws(R, C, hidden, bf16) +
+         arpu::span((size_t)R * kr * 4);
+}
+
+// bytes of scratch
+extern "C" size_t arpu_swin_block_workspace(int R, int C, int hidden, int kr, int bf16) {
+  return swin_block_ws(R, C, hidden, kr, bf16);
+}
+
+static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16, int R, int n,
+                              int C, int nh, int nW, int hidden, const float* n1s,
+                              const float* n1b, const void* wqkv, const float* bqkv,
+                              const void* wproj, const float* bproj, const float* n2s,
+                              const float* n2b, const void* wfc1, const float* bfc1,
+                              const void* wfc2, const float* bfc2, const float* bias,
+                              const float* mask, const float* q_scale, const float* rbasis,
+                              const float* rbasis_t, const float* rmean, const float* rlam, int kr,
+                              int double_ffn, int bf16, void* ws, cudaStream_t s) {
+  const size_t rc = (size_t)R * C;
+  arpu::Arena ar{static_cast<unsigned char*>(ws)};
+  void* y = ar.take<unsigned char>(rc * arpu::elem_bytes(bf16));  // LN1(x), bf16 under AMP
+  float* a = ar.take<float>(rc);
+  float* h1 = ar.take<float>(rc);
+  const arpu::Arena attn_scratch = ar;
+  ar.p += arpu::window_attention_ws(R, C, bf16);
+  const arpu::FfnScratch ffn_scratch = arpu::take_ffn(ar, R, C, hidden, bf16);
+  float* proj = ar.take<float>((size_t)R * kr);
+
+  ARPU_TRY(arpu::launch_add_layernorm(x, x_bf16, nullptr, 0, nullptr, y, bf16, n1s, n1b, R, C, s));
+  if (rbasis) {
+    ARPU_TRY(arpu::run_window_attention(y, bf16, a, 0, nullptr, 0, R, n, C, nh, nW, wqkv, bqkv,
+                                        wproj, bproj, bias, mask, q_scale, bf16, attn_scratch, s));
+    ARPU_TRY(arpu::run_residual_epilogue(a, 0, x, x_bf16, h1, R, C, kr, rbasis, rbasis_t, rmean,
+                                         rlam, proj, s));
+  } else {
+    // h1 = x + proj(attention): the residual add rides the proj epilogue
+    ARPU_TRY(arpu::run_window_attention(y, bf16, h1, 0, x, x_bf16, R, n, C, nh, nW, wqkv, bqkv,
+                                        wproj, bproj, bias, mask, q_scale, bf16, attn_scratch, s));
+  }
+  return arpu::run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2,
+                       bfc2, double_ffn, bf16, 0, ffn_scratch, s);
 }
 
 // x, out [R, C] windows (already rolled and partitioned), R = windows * n.
-// Weights in nn.Linear layout [out, in]; rbasis / rbasis_t null without ResiDual.
+// Weights in nn.Linear layout [out, in], f32 (bf16 = 0) or bf16 (AMP);
+// q_scale [3C] (AMP only); rbasis / rbasis_t null without ResiDual.
 extern "C" int arpu_swin_block(const void* x, int x_bf16, void* out, int out_bf16, int R, int n,
                                int C, int nh, int nW, int hidden, const float* n1s,
-                               const float* n1b, const float* wqkv, const float* bqkv,
-                               const float* wproj, const float* bproj, const float* n2s,
-                               const float* n2b, const float* wfc1, const float* bfc1,
-                               const float* wfc2, const float* bfc2, const float* bias,
-                               const float* mask, const float* rbasis, const float* rbasis_t,
-                               const float* rmean, const float* rlam, int kr, int double_ffn,
-                               int bf16, float* ws, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t rc = (size_t)R * C;
-  float* y = ws;
-  float* a = y + rc;
-  float* h1 = a + rc;
-  float* attn_scratch = h1 + rc;
-  float* ffn_scratch = attn_scratch + arpu::window_attention_ws(R, C);
-  float* proj = ffn_scratch + arpu::ffn_ws(R, C, hidden);
-
-  arpu::launch_add_layernorm(x, x_bf16, nullptr, 0, nullptr, y, 0, n1s, n1b, R, C, s);
-  if (rbasis) {
-    arpu::run_window_attention(y, 0, a, 0, nullptr, 0, R, n, C, nh, nW, wqkv, bqkv, wproj, bproj,
-                               bias, mask, bf16, attn_scratch, s);
-    arpu::run_residual_epilogue(a, 0, x, x_bf16, h1, R, C, kr, rbasis, rbasis_t, rmean, rlam,
-                                proj, s);
-  } else {
-    // h1 = x + proj(attention): the residual add rides the proj epilogue
-    arpu::run_window_attention(y, 0, h1, 0, x, x_bf16, R, n, C, nh, nW, wqkv, bqkv, wproj, bproj,
-                               bias, mask, bf16, attn_scratch, s);
-  }
-  arpu::run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-                double_ffn, bf16, 0, ffn_scratch, s);
-  return static_cast<int>(cudaGetLastError());
+                               const float* n1b, const void* wqkv, const float* bqkv,
+                               const void* wproj, const float* bproj, const float* n2s,
+                               const float* n2b, const void* wfc1, const float* bfc1,
+                               const void* wfc2, const float* bfc2, const float* bias,
+                               const float* mask, const float* q_scale, const float* rbasis,
+                               const float* rbasis_t, const float* rmean, const float* rlam,
+                               int kr, int double_ffn, int bf16, void* ws, void* stream) {
+  return static_cast<int>(swin_block(x, x_bf16, out, out_bf16, R, n, C, nh, nW, hidden, n1s, n1b,
+                                     wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+                                     bias, mask, q_scale, rbasis, rbasis_t, rmean, rlam, kr,
+                                     double_ffn, bf16, ws, static_cast<cudaStream_t>(stream)));
 }

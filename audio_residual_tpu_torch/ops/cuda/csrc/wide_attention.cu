@@ -19,17 +19,24 @@
 //       the window's rows of x and the head's three hd-row slices of wqkv
 //       through shared memory in K-chunks of 32, accumulates q|k|v
 //       [64, 3*hd] on chip (f32 FMA, or bf16 wmma 16x16x16 with f32
-//       accumulate under AMP), adds the bias and hd^-1/2, then computes the
-//       scores, bias, mask, softmax and @V in shared memory, and writes the
-//       head's [n, hd] columns of the f32 attention output [R, C] (the TPU
-//       kernel's a_scr) -- the only intermediate in device memory.
-//   (B) the proj GEMM over that buffer, weight-streaming 64x64 tiles with
-//       the bias in the epilogue, stored in the output dtype.
+//       accumulate under AMP, from the bf16 wqkv the wrapper keeps per
+//       weight version), adds the bias and hd^-1/2, then computes the scores, bias,
+//       mask, softmax and @V in shared memory, and writes the head's [n, hd]
+//       columns of the attention output [R, C] (the TPU kernel's a_scr;
+//       bf16 under AMP, where its only reader is the proj GEMM) -- the only
+//       intermediate in device memory.
+//   (B) the proj GEMM over that buffer with the bias in the epilogue,
+//       stored in the output dtype: the f32 GEMM, or under AMP the TMA +
+//       wgmma bf16 GEMM (gemm_sm90.cuh).
 // Cost of (A): every window re-reads its heads' wqkv slices, so wqkv
-// (12.6 MB f32 at C=1024) is read once per window, B*nW times a launch,
-// from the 50 MB L2 rather than HBM. Making it fast (TMA, wgmma, bf16
-// weights cast once, several windows a block or cluster multicast of the
-// weight slice) is later work.
+// (12.6 MB f32, 6.3 MB bf16 at C=1024) is read once per window, B*nW times
+// a launch, from the 50 MB L2 rather than HBM. Making it fast (TMA, wgmma,
+// several windows a block or cluster multicast of the weight slice) is
+// later work.
+#include <mma.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace arpu {
@@ -110,7 +117,7 @@ __device__ void qkv_tile_f32(const void* x, int x_bf16, const float* wqkv, float
 // The same product with bf16 operands on the tensor cores (f32 accumulate):
 // 8 warps, warp w takes row tile w % 4 and half of the NQ/16 column tiles.
 template <int HD>
-__device__ void qkv_tile_bf16(const void* x, int x_bf16, const float* wqkv, float* qkv_s,
+__device__ void qkv_tile_bf16(const void* x, int x_bf16, const __nv_bfloat16* wqkv, float* qkv_s,
                               float* stage, size_t row0, int n, int h, int C) {
   using namespace nvcuda;
   using T = WideTile<HD>;
@@ -131,7 +138,7 @@ __device__ void qkv_tile_bf16(const void* x, int x_bf16, const float* wqkv, floa
     }
     for (int e = tid; e < T::NQ * WA_BK; e += WA_THREADS) {
       const int r = e / WA_BK, kk = e % WA_BK;
-      Wb[r * T::B_LD + kk] = __float2bfloat16(wqkv[wqkv_row<HD>(r, h, C) * C + k0 + kk]);
+      Wb[r * T::B_LD + kk] = wqkv[wqkv_row<HD>(r, h, C) * C + k0 + kk];
     }
     __syncthreads();
 #pragma unroll
@@ -153,12 +160,14 @@ __device__ void qkv_tile_bf16(const void* x, int x_bf16, const float* wqkv, floa
                             wmma::mem_row_major);
 }
 
-// (A): grid (windows, nh). x [R, C] (f32 or bf16), att [R, C] f32.
-// bias [nh, n, n]; mask [nW, n, n] or null (window w takes mask[w % nW]).
+// (A): grid (windows, nh). x [R, C] (f32 or bf16); wqkv and att [R, C] f32,
+// or bf16 under AMP (BF16 = 1). bias [nh, n, n]; mask [nW, n, n] or null
+// (window w takes mask[w % nW]).
 template <int HD, int BF16>
 __global__ void __launch_bounds__(WA_THREADS) wide_qkv_attention_kernel(
-    const void* x, int x_bf16, const float* wqkv, const float* bqkv, const float* bias,
-    const float* mask, float* att, int n, int C, int nW, float scale) {
+    const void* x, int x_bf16, const void* wqkv, const float* bqkv, const float* bias,
+    const float* mask, void* att, int n, int C, int nW, float scale) {
+  using AttT = typename std::conditional<BF16 != 0, __nv_bfloat16, float>::type;
   using T = WideTile<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qkv_s = reinterpret_cast<float*>(smem);                     // [WA_ROWS][LDR]
@@ -168,9 +177,10 @@ __global__ void __launch_bounds__(WA_THREADS) wide_qkv_attention_kernel(
   const size_t row0 = (size_t)w * n;
 
   if constexpr (BF16 != 0) {
-    qkv_tile_bf16<HD>(x, x_bf16, wqkv, qkv_s, scratch, row0, n, h, C);
+    qkv_tile_bf16<HD>(x, x_bf16, static_cast<const __nv_bfloat16*>(wqkv), qkv_s, scratch, row0,
+                      n, h, C);
   } else {
-    qkv_tile_f32<HD>(x, x_bf16, wqkv, qkv_s, scratch, row0, n, h, C);
+    qkv_tile_f32<HD>(x, x_bf16, static_cast<const float*>(wqkv), qkv_s, scratch, row0, n, h, C);
   }
   __syncthreads();
 
@@ -223,14 +233,14 @@ __global__ void __launch_bounds__(WA_THREADS) wide_qkv_attention_kernel(
     const int i = e / HD, d = e % HD;
     float acc = 0.0f;
     for (int j = 0; j < n; ++j) acc = fmaf(s[i * T::LDS + j], v[j * T::LDR + d], acc);
-    att[(row0 + i) * C + h * HD + d] = acc;
+    store_as(static_cast<AttT*>(att) + (row0 + i) * C + h * HD + d, acc);
   }
 }
 
 template <int HD, int BF16>
-static cudaError_t launch_wide_qkv_attention(const void* x, int x_bf16, const float* wqkv,
+static cudaError_t launch_wide_qkv_attention(const void* x, int x_bf16, const void* wqkv,
                                              const float* bqkv, const float* bias,
-                                             const float* mask, float* att, int windows, int n,
+                                             const float* mask, void* att, int windows, int n,
                                              int C, int nh, int nW, cudaStream_t s) {
   constexpr size_t smem = WideTile<HD>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(wide_qkv_attention_kernel<HD, BF16>,
@@ -245,35 +255,50 @@ static cudaError_t launch_wide_qkv_attention(const void* x, int x_bf16, const fl
 
 }  // namespace arpu
 
-// floats of scratch: the f32 attention output [R, C]
-extern "C" size_t arpu_wide_attention_workspace(int R, int C) { return (size_t)R * C; }
+// bytes of scratch: the attention output [R, C], bf16 under AMP
+extern "C" size_t arpu_wide_attention_workspace(int R, int C, int bf16) {
+  return (size_t)R * C * (bf16 ? 2 : 4);
+}
 
-// x, out [R, C] with R = windows * n, n <= 64; hd = C / nh is 32 or 64.
-// Weights in nn.Linear layout: wqkv [3C, C], wproj [C, C]. bias [nh, n, n];
-// mask [nW, n, n] or null. Returns the first CUDA error of the two launches.
-extern "C" int arpu_wide_attention(const void* x, int x_bf16, void* out, int out_bf16, int R,
-                                   int n, int C, int nh, int nW, const float* wqkv,
-                                   const float* bqkv, const float* wproj, const float* bproj,
-                                   const float* bias, const float* mask, int bf16, float* ws,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+static cudaError_t wide_attention(const void* x, int x_bf16, void* out, int out_bf16, int R, int n,
+                                  int C, int nh, int nW, const void* wqkv, const float* bqkv,
+                                  const void* wproj, const float* bproj, const float* bias,
+                                  const float* mask, int bf16, void* ws, cudaStream_t s) {
   const int hd = C / nh, windows = R / n;
   if (n > arpu::WA_ROWS || (hd != 32 && hd != 64) || C % arpu::WA_BK) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   }
-  cudaError_t err;
   if (hd == 32) {
-    err = bf16 ? arpu::launch_wide_qkv_attention<32, 1>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
-                                                        windows, n, C, nh, nW, s)
-               : arpu::launch_wide_qkv_attention<32, 0>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
-                                                        windows, n, C, nh, nW, s);
+    ARPU_TRY(bf16 ? arpu::launch_wide_qkv_attention<32, 1>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
+                                                           windows, n, C, nh, nW, s)
+                  : arpu::launch_wide_qkv_attention<32, 0>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
+                                                           windows, n, C, nh, nW, s));
   } else {
-    err = bf16 ? arpu::launch_wide_qkv_attention<64, 1>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
-                                                        windows, n, C, nh, nW, s)
-               : arpu::launch_wide_qkv_attention<64, 0>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
-                                                        windows, n, C, nh, nW, s);
+    ARPU_TRY(bf16 ? arpu::launch_wide_qkv_attention<64, 1>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
+                                                           windows, n, C, nh, nW, s)
+                  : arpu::launch_wide_qkv_attention<64, 0>(x, x_bf16, wqkv, bqkv, bias, mask, ws,
+                                                           windows, n, C, nh, nW, s));
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  arpu::launch_gemm(arpu::gemm_args(ws, 0, wproj, out, out_bf16, R, C, C, bproj), bf16, s);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16) {
+    return arpu::gemm_bf16(static_cast<const __nv_bfloat16*>(ws),
+                           static_cast<const __nv_bfloat16*>(wproj), out, out_bf16, R, C, C,
+                           arpu::Epilogue{bproj, nullptr, 0, nullptr, nullptr}, 0, 0, s);
+  }
+  return arpu::launch_gemm_f32(arpu::gemm_args(ws, 0, static_cast<const float*>(wproj), out,
+                                               out_bf16, R, C, C, bproj),
+                               s);
+}
+
+// x, out [R, C] with R = windows * n, n <= 64; hd = C / nh is 32 or 64.
+// Weights in nn.Linear layout, f32 (bf16 = 0) or bf16 (AMP): wqkv [3C, C],
+// wproj [C, C]. bias [nh, n, n]; mask [nW, n, n] or null. Returns the first
+// CUDA error of the two launches.
+extern "C" int arpu_wide_attention(const void* x, int x_bf16, void* out, int out_bf16, int R,
+                                   int n, int C, int nh, int nW, const void* wqkv,
+                                   const float* bqkv, const void* wproj, const float* bproj,
+                                   const float* bias, const float* mask, int bf16, void* ws,
+                                   void* stream) {
+  return static_cast<int>(wide_attention(x, x_bf16, out, out_bf16, R, n, C, nh, nW, wqkv, bqkv,
+                                         wproj, bproj, bias, mask, bf16, ws,
+                                         static_cast<cudaStream_t>(stream)));
 }

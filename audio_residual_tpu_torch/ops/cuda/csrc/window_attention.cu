@@ -3,31 +3,34 @@
 // 64-token windows -- qkv projection, per-head q k^T * hd^-1/2 + relative
 // position bias + SW-MSA mask, exact softmax, @V, output projection.
 //
-// What bounds it on the H100: operations. At HTSAT-tiny layer 3 and B=32
-// one launch is ~10 GFLOP of products (qkv, proj, scores, @V) against 22 MB
-// of traffic (the 9.4 MB of f32 qkv/proj weights and the activations):
-// 0.15 ms at the f32 rate, 10 us at the bf16 tensor-core rate, 7 us of
-// bytes. This first version also writes qkv and the attention output to
+// What bounds it on the H100: operations, narrowly. At HTSAT-tiny layer 3
+// and B=32 one launch is ~10 GFLOP of products (qkv, proj, scores, @V),
+// 10 us at the bf16 tensor-core rate, against 22 MB of f32 weights and
+// activations, 7 us of bytes; qkv and the attention output also go through
 // device memory between its three launches.
 //
-// Design: GEMMs are tiled through shared memory (f32 FMA, or bf16 wmma with
-// f32 accumulate); the attention core runs one block per (window, head)
-// with q, k, v and the [64, 64] score tile resident in shared memory, so
-// scores and probabilities never reach device memory.
+// Design: the GEMMs are the shared f32 GEMM (golden) or the TMA + wgmma
+// bf16 GEMM on bf16 weights (AMP, gemm_sm90.cuh); the attention core runs
+// one block per (window, head) with q, k, v and the [64, 64] score tile
+// resident in shared memory, so scores and probabilities never reach device
+// memory. Under AMP qkv (q pre-scaled) and the attention output are stored
+// in bf16 (blocks.cuh).
 #include "blocks.cuh"
 
-extern "C" size_t arpu_window_attention_workspace(int R, int C) {
-  return arpu::window_attention_ws(R, C);
+// bytes of scratch
+extern "C" size_t arpu_window_attention_workspace(int R, int C, int bf16) {
+  return arpu::window_attention_ws(R, C, bf16);
 }
 
-// x, out [R, C] with R = windows * n. bias [nh, n, n]; mask [nW, n, n] or null.
+// x, out [R, C] with R = windows * n (x bf16 under AMP). bias [nh, n, n];
+// mask [nW, n, n] or null; q_scale [3C] (AMP only).
 extern "C" int arpu_window_attention(const void* x, int x_bf16, void* out, int out_bf16, int R,
-                                     int n, int C, int nh, int nW, const float* wqkv,
-                                     const float* bqkv, const float* wproj, const float* bproj,
-                                     const float* bias, const float* mask, int bf16, float* ws,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  arpu::run_window_attention(x, x_bf16, out, out_bf16, nullptr, 0, R, n, C, nh, nW, wqkv, bqkv,
-                             wproj, bproj, bias, mask, bf16, ws, s);
-  return static_cast<int>(cudaGetLastError());
+                                     int n, int C, int nh, int nW, const void* wqkv,
+                                     const float* bqkv, const void* wproj, const float* bproj,
+                                     const float* bias, const float* mask, const float* q_scale,
+                                     int bf16, void* ws, void* stream) {
+  return static_cast<int>(arpu::run_window_attention(
+      x, x_bf16, out, out_bf16, nullptr, 0, R, n, C, nh, nW, wqkv, bqkv, wproj, bproj, bias, mask,
+      q_scale, bf16, arpu::Arena{static_cast<unsigned char*>(ws)},
+      static_cast<cudaStream_t>(stream)));
 }

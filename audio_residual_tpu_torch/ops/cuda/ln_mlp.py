@@ -5,7 +5,8 @@ flattened rows ``x, a [R, C]`` (block input and attention output): the
 optional ResiDual epilogue on ``a`` (f32), ``h = x + a``,
 ``y = h + fc2(GELU(fc1(LN2(h))))``, and with ``double_ffn`` the reference's
 patched-forward quirk, a second pass from ``x + y``. Weights in
-``nn.Linear`` layout. Output in the store dtype (the caller's under AMP).
+``nn.Linear`` layout (the kernel takes bf16 copies under AMP). Output in
+the store dtype (the caller's under AMP).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda.window_attention import store_dtype
+from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights, store_dtype
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["fused_residual_ffn", "residual_ffn_plain"]
@@ -81,10 +82,12 @@ def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | N
                "basis": basis, "basis_t": basis_t, "mean": mean, "lam": lam}
     build.check_cuda_inputs("fused_residual_ffn", {"x": x, "a": a, **weights},
                             float_only=tuple(weights))
+    amp = mxu_dtype is not None
+    wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)
     out = torch.empty(r, c, device=x.device, dtype=store)
-    ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiii",
-                         restype=ctypes.c_size_t)(r, c, hidden, kr)
-    ws = torch.empty(ws_size, device=x.device, dtype=torch.float32)
+    ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiiii",
+                         restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
+    ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("ln_mlp", "arpu_residual_ffn", "pipipi" "iii" "pppppp" "pppp" "iii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
             int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
@@ -92,7 +95,7 @@ def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | N
             n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(), wfc2.data_ptr(),
             bfc2.data_ptr(),
             build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
-            kr, int(bool(double_ffn)), int(mxu_dtype is not None),
+            kr, int(bool(double_ffn)), int(amp),
             ws.data_ptr(), build.stream_of(x))
     build.check("ln_mlp", rc, "fused_residual_ffn")
     launch_counts["fused_residual_ffn"] += 1

@@ -11,7 +11,9 @@ weights in ``nn.Linear`` layout.
 On the card the kernel is LN1 -> window attention -> residual FFN, the plan
 the JAX package declares equivalent (``swin_block.py::_split_block``), with
 the attention output kept in f32 between the halves as in the monolithic
-TPU kernel.
+TPU kernel. Under AMP the wrapper hands it bf16 copies of the four weight
+matrices, and it stores the intermediates that only a GEMM or the
+attention core reads in bf16 (``csrc/blocks.cuh``).
 
 As in the JAX package, the public function dispatches: from C =
 ``WIDE_MIN_C`` on (HTSAT-large layer 2) it runs :func:`split_block` --
@@ -38,6 +40,8 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     bias_and_mask,
     check_window_shapes,
     fused_window_attention,
+    mxu_weights,
+    q_scale,
     store_dtype,
 )
 
@@ -84,6 +88,9 @@ def split_block(x, flat_params, nh: int, window: int, num_windows_per_image: int
     store = store_dtype(x, mxu_dtype)
     wn, n, c = x.shape
     x = x.to(store)
+    # in the store dtype, so that the attention output stays f32 for K3 when
+    # the block input is f32 (layer 3 under AMP: PatchMerging's output); K2
+    # and K5 round y to bf16 for their GEMMs themselves
     y = layer_norm(x.float(), n1s, n1b).to(store)
     a = fused_window_attention(y, wqkv, bqkv, wproj, bproj, table, nh, window,
                                num_windows_per_image, shift, resolution, mxu_dtype)
@@ -122,21 +129,24 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
                "basis_t": basis_t, "mean": mean, "lam": lam}
     build.check_cuda_inputs("fused_swin_block", {"x": x, **weights}, float_only=tuple(weights))
     bias, mask = bias_and_mask(table, window, shift, resolution)
+    amp = mxu_dtype is not None
+    wqkv, wproj, wfc1, wfc2 = mxu_weights(mxu_dtype, wqkv, wproj, wfc1, wfc2)
+    qs = q_scale(c, nh, x.device) if amp else None
     r = wn * n
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
-    ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiii",
-                         restype=ctypes.c_size_t)(r, c, hidden, kr)
-    ws = torch.empty(ws_size, device=x.device, dtype=torch.float32)
+    ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiiii",
+                         restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
+    ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("swin_block", "arpu_swin_block",
-                    "pipi" "iiiiii" "pppppppppppp" "pp" "pppp" "iii" "pp")
+                    "pipi" "iiiiii" "pppppppppppp" "ppp" "pppp" "iii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, hidden,
             n1s.data_ptr(), n1b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
             bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
             wfc2.data_ptr(), bfc2.data_ptr(),
-            bias.data_ptr(), build.ptr(mask),
+            bias.data_ptr(), build.ptr(mask), build.ptr(qs),
             build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
-            kr, int(bool(double_ffn and use_residual)), int(mxu_dtype is not None),
+            kr, int(bool(double_ffn and use_residual)), int(amp),
             ws.data_ptr(), build.stream_of(x))
     build.check("swin_block", rc, "fused_swin_block")
     launch_counts["fused_swin_block"] += 1

@@ -13,7 +13,8 @@ call here.
 
 Weights in ``nn.Linear`` layout. ``mxu_dtype=torch.bfloat16`` is the AMP
 contract (bf16 GEMM and attention operands, f32 accumulate and softmax,
-output in the caller's dtype); without it the output is f32.
+output in the caller's dtype); without it the output is f32. Under AMP the
+kernel takes bf16 copies of the weights.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
     bias_and_mask,
     check_window_shapes,
+    mxu_weights,
     store_dtype,
     window_attention_plain,
 )
@@ -65,17 +67,18 @@ def wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int, 
     if tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c):
         raise ValueError("wide_window_attention: weights must be [3C, C] and [C, C]")
     bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
+    amp = mxu_dtype is not None
+    wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
     r = wn * n
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
-    ws_size = build.bind("wide_attention", "arpu_wide_attention_workspace", "ii",
-                         restype=ctypes.c_size_t)(r, c)
-    ws = torch.empty(ws_size, device=x.device, dtype=torch.float32)
+    ws_size = build.bind("wide_attention", "arpu_wide_attention_workspace", "iii",
+                         restype=ctypes.c_size_t)(r, c, int(amp))
+    ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("wide_attention", "arpu_wide_attention", "pipiiiiii" "pppppp" "ipp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image,
             wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            bias.data_ptr(), build.ptr(mask), int(mxu_dtype is not None), ws.data_ptr(),
-            build.stream_of(x))
+            bias.data_ptr(), build.ptr(mask), int(amp), ws.data_ptr(), build.stream_of(x))
     build.check("wide_attention", rc, "wide_window_attention")
     launch_counts["wide_window_attention"] += 1
     return out

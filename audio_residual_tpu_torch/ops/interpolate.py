@@ -55,12 +55,16 @@ def resize_bicubic_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> tor
     and returns bf16, an f32 input stays f32."""
     h, w = x.shape[-2], x.shape[-1]
     if h != out_h:
-        m = torch.from_numpy(bicubic_matrix(h, out_h)).to(device=x.device, dtype=x.dtype)
-        x = torch.matmul(m, x)
+        x = torch.matmul(_device_matrix(h, out_h, x.device, x.dtype), x)
     if w != out_w:
-        m = torch.from_numpy(bicubic_matrix(w, out_w)).to(device=x.device, dtype=x.dtype)
-        x = torch.matmul(x, m.t())
+        x = torch.matmul(x, _device_matrix(w, out_w, x.device, x.dtype).t())
     return x
+
+
+@functools.lru_cache(maxsize=16)
+def _device_matrix(n_in: int, n_out: int, device: torch.device, dtype) -> torch.Tensor:
+    # made once per device: a copy from pageable host memory synchronises the stream
+    return torch.from_numpy(bicubic_matrix(n_in, n_out)).to(device=device, dtype=dtype)
 
 
 def repeat_frames(x: torch.Tensor, ratio: int) -> torch.Tensor:

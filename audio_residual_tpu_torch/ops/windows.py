@@ -69,8 +69,15 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     return rel.sum(-1)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_index(wh: int, ww: int, device: torch.device) -> torch.Tensor:
+    # made once per device: a copy from pageable host memory synchronises the
+    # stream, which would stall every Swin block of a forward
+    return torch.from_numpy(relative_position_index(wh, ww).reshape(-1)).to(device)
+
+
 def gather_relative_bias(table: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
     """``table [(2wh-1)*(2ww-1), nH] -> bias [nH, wh*ww, wh*ww]`` (contiguous)."""
-    idx = torch.from_numpy(relative_position_index(wh, ww).reshape(-1)).to(table.device)
+    idx = _device_index(wh, ww, table.device)
     n = wh * ww
     return table.index_select(0, idx).reshape(n, n, -1).permute(2, 0, 1).contiguous()

@@ -11,10 +11,21 @@ line):
                power limit, turn TF32 off for the golden path.
   2. kernels -- each of K1-K5 against its plain PyTorch version at the main
                paths' shapes (B=32), f32 and bf16, with times; K5 also at
-               HTSAT-large's wide layers.
+               HTSAT-large's wide layers; K4's device time split by CUDA
+               kernel (torch.profiler) at its main-path shapes.
+  2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
+               against its plain version at every GEMM shape of the main
+               paths, timed beside its bound and torch.matmul on the same
+               bf16 operands (a yardstick the port never calls), by CUDA
+               events and by device time. It replaces no TPU kernel by
+               itself, so it prints [gemm] lines and has no entry in the
+               JSON line.
   3. main    -- ESC-50 zero-shot + ResiDual (layer 0, K=96) through
                HTSAT-tiny at full width, golden f32 and bf16 AMP: the bench
-               accuracy guard, the launch counts per forward, clips/s.
+               accuracy guard, the launch counts per forward, clips/s, what
+               casting the weights to bf16 costs once, and one
+               torch.profiler window over an AMP forward (device time by
+               CUDA kernel, the device's idle share).
   3b. main   -- the same program through HTSAT-base, built by name from the
                model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
                runs K5.
@@ -191,6 +202,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                t(c, scale=0.1, offset=1.0))
         return flat, res
 
+    k4_main = []  # the main paths' AMP K4 calls, with their launches a forward
     # K4 at layers 0-2 of HTSAT-tiny, then HTSAT-base: (C, heads, windows per
     # clip, grid, main-path launches per shift, main path has ResiDual +
     # double-FFN: layer 0); shift 0 and 4; ResiDual off / on / on + double-FFN
@@ -215,6 +227,8 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                                 k4.swin_block_plain(*args), mode)
                     if (use_res, dffn) != ((True, True) if path_res else (False, False)):
                         continue
+                    if md is not None:
+                        k4_main.append((lambda a=args: k4.fused_swin_block(*a), per_shift))
                     passes = 2 if dffn else 1
                     flops = {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c
                              + passes * 4.0 * r * c * hidden}
@@ -225,6 +239,15 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                                lambda: k4.swin_block_plain(*args),
                                2 * nbytes_of([x]) + nbytes_of(args[1]), typed(mode, flops),
                                launches=per_shift)
+
+    # K4's device time by CUDA kernel, summed over one forward of each main path
+    def k4_forwards():
+        for fn, launches in k4_main:
+            for _ in range(launches):
+                fn()
+
+    k4_main[0][0]()  # warm
+    log_profile("kernels", "K4 bf16, one forward of each main path", device_profile(k4_forwards))
 
     # layer 3 (32 heads, one window per clip, shift 0): K2 and K3 at HTSAT-tiny's
     # C=768, K5 and K3 at HTSAT-base's C=1024; LN1 runs before them in plain
@@ -287,6 +310,164 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                                 mode)
 
 
+def kernel_group(name: str) -> str:
+    """The port's kernels by role; everything else is PyTorch's."""
+    for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
+                       ("gemm_f32_kernel", "f32 GEMM (golden, ResiDual)"),
+                       ("attention_core_kernel", "attention core"),
+                       ("add_layernorm_kernel", "LayerNorm"),
+                       ("wide_qkv_attention", "K5 qkv + attention"),
+                       ("logmel", "K1 log-mel")):
+        if key in name:
+            return group
+    return "PyTorch (glue, casts)"
+
+
+def device_profile(fn):
+    """One ``torch.profiler`` window over ``fn()``: ({kernel group: device
+    ms}, {kernel name: device ms}, busy ms, span ms), or None when the trace
+    holds no device time. Busy is the union of kernel intervals, span the
+    first kernel start to the last kernel end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    groups, names = collections.Counter(), collections.Counter()
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        groups[kernel_group(name)] += (end - start) / 1e3
+        names[name] += (end - start) / 1e3
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    return groups, names, busy / 1e3, (cur_end - spans[0][0]) / 1e3
+
+
+def device_busy_ms(fn, reps: int = 5) -> float | None:
+    """Device time of one ``fn()``, the mean of ``reps`` in one profiler
+    window; None when the trace holds no device time."""
+    fn()
+    for _ in range(3):  # a window now and then comes back without device events
+        prof = device_profile(lambda: [fn() for _ in range(reps)])
+        if prof is not None:
+            return prof[2] / reps
+    return None
+
+
+def log_profile(phase: str, label: str, prof) -> None:
+    if prof is None:
+        log(phase, profile=label, device_time="not measured")
+        return
+    groups, names, busy, span = prof
+    log(phase, profile=label, span_ms=span, busy_ms=busy, idle_share=1 - busy / span,
+        by_group=json.dumps({k: round(v, 4) for k, v in groups.most_common()}))
+    for name, ms in names.most_common(8):
+        log(phase, profile=label, kernel=name[:110], device_ms=ms)
+
+
+def gemm_specs():
+    """``(label, M, N, K, epilogue, launches per forward)`` of every AMP GEMM
+    on the two main paths at B=32. Epilogue keys: bias, col_scale, gelu,
+    r1/r2 (their dtype), out (the output dtype)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = []
+    # K4 at layers 0-2: (model, C, rows, launches, ResiDual + double FFN: layer 0, whose
+    # activations are bf16 under AMP; layers 1-2 carry PatchMerging's f32)
+    for model, c, r, n, res in (("tiny", 96, 131072, 2, True), ("tiny", 192, 32768, 2, False),
+                                ("tiny", 384, 8192, 6, False), ("base", 128, 131072, 2, True),
+                                ("base", 256, 32768, 2, False), ("base", 512, 8192, 12, False)):
+        tag = f"{model} K4 C={c}"
+        specs.append((f"{tag} qkv", r, 3 * c, c, dict(bias=True, col_scale=True, out=bf16), n))
+        if res:
+            specs += [(f"{tag} proj", r, c, c, dict(bias=True, out=f32), n),
+                      (f"{tag} fc1", r, 4 * c, c, dict(bias=True, gelu=True, out=bf16), 2 * n),
+                      (f"{tag} fc2+h1+x", r, c, 4 * c,
+                       dict(bias=True, r1=f32, r2=bf16, out=f32), n),
+                      (f"{tag} fc2+y2", r, c, 4 * c, dict(bias=True, r1=f32, out=bf16), n)]
+        else:
+            specs += [(f"{tag} proj+x", r, c, c, dict(bias=True, r1=f32, out=f32), n),
+                      (f"{tag} fc1", r, 4 * c, c, dict(bias=True, gelu=True, out=bf16), n),
+                      (f"{tag} fc2+h1", r, c, 4 * c, dict(bias=True, r1=f32, out=f32), n)]
+    # layer 3 (2048 rows, f32 activations): K2 at tiny's C=768, K5's proj at base's
+    # C=1024, K3 at both
+    specs += [("tiny K2 C=768 qkv", 2048, 2304, 768, dict(bias=True, col_scale=True, out=bf16), 2),
+              ("tiny K2 C=768 proj", 2048, 768, 768, dict(bias=True, out=f32), 2),
+              ("base K5 C=1024 proj", 2048, 1024, 1024, dict(bias=True, out=f32), 2)]
+    for model, c in (("tiny", 768), ("base", 1024)):
+        specs += [(f"{model} K3 C={c} fc1", 2048, 4 * c, c,
+                   dict(bias=True, gelu=True, out=bf16), 2),
+                  (f"{model} K3 C={c} fc2+h1", 2048, c, 4 * c, dict(bias=True, r1=f32, out=f32), 2)]
+    return specs
+
+
+def phase_gemm(dev) -> None:
+    """The AMP GEMM alone at each main-path shape: against its plain version,
+    timed beside its bound and one torch.matmul of the same bf16 operands."""
+    import torch
+
+    from audio_residual_tpu_torch.ops.cuda import gemm as kg
+
+    rng = np.random.default_rng(3)
+    total = collections.Counter()
+    for label, m, n, k, e, launches in gemm_specs():
+        def t(*shape, scale=1.0):
+            a = (scale * rng.standard_normal(shape)).astype(np.float32)
+            return torch.from_numpy(a).to(dev)
+
+        a, w = t(m, k, scale=0.5).bfloat16(), t(n, k, scale=k ** -0.5).bfloat16()
+        args = dict(bias=t(n, scale=0.02),
+                    col_scale=(1 + t(n, scale=0.1)) if e.get("col_scale") else None,
+                    gelu=e.get("gelu", False), out_dtype=e["out"],
+                    r1=t(m, n).to(e["r1"]) if "r1" in e else None,
+                    r2=t(m, n).to(e["r2"]) if "r2" in e else None)
+        got, ref = kg.gemm(a, w, **args), kg.gemm_plain(a, w, **args)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        tol = TOL["bf16"] if e["out"] == torch.bfloat16 else TOL["f32"]
+        ok = bool(torch.isfinite(got.float()).all()) and rel < tol and got.dtype == ref.dtype
+        nbytes = sum(x.numel() * x.element_size() for x in (a, w, got, *args.values())
+                     if isinstance(x, torch.Tensor))
+        b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_S, 1e3 * 2.0 * m * n * k / PEAK["bf16"]
+        ms = time_ms(lambda: kg.gemm(a, w, **args))
+        plain = time_ms(lambda: kg.gemm_plain(a, w, **args))
+        lib = time_ms(lambda: torch.matmul(a, w.t()))
+        # device time alone: the events above also hold each call's host work
+        dev_ms, lib_dev_ms = (device_busy_ms(f) for f in (lambda: kg.gemm(a, w, **args),
+                                                          lambda: torch.matmul(a, w.t())))
+        log("gemm", shape=f"{label} [{m}x{k}]@[{n}x{k}]^T", launches=launches, max_abs_err=err,
+            max_rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain, bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations", matmul_ms=lib,
+            device_ms=dev_ms, matmul_device_ms=lib_dev_ms,
+            tb_s=nbytes / dev_ms / 1e9 if dev_ms else None)
+        if not ok:
+            raise AssertionError(f"gemm {label} disagrees with its plain version")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", max(b_ms, o_ms)),
+                       ("matmul_ms", lib)):
+            total[key] += launches * v
+        if dev_ms is not None and lib_dev_ms is not None:
+            total["device_ms"] += launches * dev_ms
+            total["matmul_device_ms"] += launches * lib_dev_ms
+        else:
+            total["shapes_without_device_time"] += 1
+        total["launches"] += launches
+    log("gemm", total="summed over one AMP forward of each main path",
+        **{k: total[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "matmul_ms",
+                                 "device_ms", "matmul_device_ms",
+                                 "shapes_without_device_time")})
+
+
 def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     """ESC-50 zero-shot + ResiDual at layer 0 through ``build_model()`` ->
     ``(model, cfg)``, golden and AMP; returns the AMP forward's launches."""
@@ -343,6 +524,17 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
         results[mode] = (emb, pred)
         log("main", model=label, mode=mode, launches=json.dumps(counts[mode]),
             clips_per_s=B / wall, forward_ms=1e3 * wall, card=card)
+    # what casting the Swin weight matrices to bf16 costs; the wrappers keep
+    # the copies per weight version, so a forward pays it only after an update
+    from audio_residual_tpu_torch.models.htsat import SwinBlock
+
+    mats = [p for blk in model.modules() if isinstance(blk, SwinBlock)
+            for i, p in enumerate(blk.flat_params()) if i in (2, 4, 8, 10)]
+    log("main", model=label,
+        weight_cast_once_ms=time_ms(lambda: [w.to(torch.bfloat16) for w in mats]),
+        weight_mats=len(mats), weight_mb=sum(w.numel() for w in mats) * 4 / 1e6)
+    log_profile("main", f"{label} bf16 forward",
+                device_profile(lambda: zero_shot(torch.bfloat16)))
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())
@@ -418,6 +610,7 @@ def main() -> int:
     launches = collections.Counter()
     with torch.no_grad():
         phase_kernels(stats, dev)
+        phase_gemm(dev)
         launches.update(phase_main(dev, card, "HTSAT-tiny (CLAPConfig defaults)", tiny,
                                    EXPECTED_LAUNCHES))
         launches.update(phase_main(dev, card, "HTSAT-base (create_audio_model)", base,

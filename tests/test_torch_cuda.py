@@ -14,6 +14,7 @@ import torch
 from audio_residual_tpu_torch.ops import frontend as fe
 from audio_residual_tpu_torch.ops.cuda import launch_counts
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
+from audio_residual_tpu_torch.ops.cuda import gemm as kg
 from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
@@ -136,3 +137,73 @@ def test_wide_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="hd <= 64"):
         k5.wide_window_attention(x, *weights[:4], torch.zeros(225, 8, device=dev), 8,
                                  *rest[1:])
+
+
+# (M, N, K) of the AMP GEMMs on the main paths at B=2 (M ragged against the
+# 128-row tile where the path's R is a multiple of it): K4 qkv/proj/fc1/fc2
+# at HTSAT-tiny C=96 and HTSAT-base C=128, 384 and 512; K2 qkv at C=768; K3
+# fc1/fc2 at C=768 and 1024; K5's proj at 1024.
+GEMM_SHAPES = [(8192 - 64, 288, 96), (8192 - 64, 96, 96), (8192 - 64, 384, 96),
+               (8192 - 64, 96, 384), (8192 - 64, 128, 128), (2048 + 64, 1536, 384),
+               (2048 + 64, 384, 1536), (512 + 64, 512, 512), (128 + 64, 2304, 768),
+               (128, 3072, 768), (128, 768, 3072), (128, 1024, 1024), (128, 4096, 1024),
+               (128, 1024, 4096)]
+EPILOGUES = {"qkv": dict(bias=True, col_scale=True, out=torch.bfloat16),
+             "fc1": dict(bias=True, gelu=True, out=torch.bfloat16),
+             "proj+x": dict(bias=True, r1=torch.bfloat16, out=torch.float32),
+             "fc2+h1+x": dict(bias=True, r1=torch.float32, r2=torch.bfloat16,
+                              out=torch.float32),
+             "fc2+h1 bf16 out": dict(bias=True, r1=torch.float32, out=torch.bfloat16)}
+
+
+@pytest.mark.parametrize("epilogue", list(EPILOGUES))
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_matches_plain_on_card(dev, m, n, k, epilogue):
+    """The TMA + wgmma GEMM against ``gemm_plain`` (f32 matmul of the same
+    bf16 operands): max |kernel - plain| / max |plain| within 1e-2 for a
+    bf16 output (one bf16 ulp is 3.9e-3 of a value) and 1e-4 for f32 (sums
+    in another order)."""
+    e = EPILOGUES[epilogue]
+    rng = np.random.default_rng(m + n + k)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    args = dict(bias=t(n, scale=0.1), col_scale=(1 + t(n, scale=0.2)) if "col_scale" in e else None,
+                gelu=e.get("gelu", False),
+                r1=t(m, n).to(e["r1"]) if "r1" in e else None,
+                r2=t(m, n).to(e["r2"]) if "r2" in e else None, out_dtype=e["out"])
+    a, w = t(m, k).bfloat16(), t(n, k, scale=k ** -0.5).bfloat16()
+    launch_counts.clear()
+    with torch.no_grad():
+        got = kg.gemm(a, w, **args)
+        torch.cuda.synchronize()
+    ref = kg.gemm_plain(a, w, **args)
+    assert got.dtype == e["out"] and got.shape == (m, n)
+    assert _rel(got, ref) < (1e-2 if e["out"] == torch.bfloat16 else 1e-4)
+    assert dict(launch_counts) == {"gemm": 1}
+
+
+def test_gemm_refuses_what_it_does_not_take(dev):
+    a = torch.zeros(64, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        kg.gemm(a.float(), a)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kg.gemm(a[:, :90].contiguous(), a[:, :90].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.gemm(a.t().contiguous().t(), a)
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+def test_swin_block_amp_matches_plain_on_card(dev, shift):
+    """K4 under AMP (bf16 intermediates, TMA + wgmma GEMM) at HTSAT-tiny's
+    layer-0 width with ResiDual and the double FFN, bf16 and f32 input."""
+    flat, res, x, _ = _inputs(dev)
+    launch_counts.clear()
+    with torch.no_grad():
+        for xin in (x.bfloat16(), x):
+            blk = (xin, flat + res, 4, 8, 4, shift, (16, 16), True, True, torch.bfloat16)
+            out = k4.fused_swin_block(*blk)
+            assert out.dtype == xin.dtype
+            assert _rel(out, k4.swin_block_plain(*blk)) < 2e-2
+    assert dict(launch_counts) == {"fused_swin_block": 2}
