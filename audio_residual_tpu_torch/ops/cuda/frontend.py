@@ -5,7 +5,10 @@ reflect pad stays in PyTorch (it stays in XLA on the TPU); the kernel frames
 the padded signal itself and never writes frames or power to memory.
 
 ``dft_mode``: ``"f32"`` (golden, the default) or ``"bf16"`` (AMP: frames and
-DFT basis rounded to bf16, f32 accumulate, f32 mel product). The TPU-only
+DFT basis rounded to bf16, f32 accumulate, f32 power and mel product). The
+two modes run two kernels: ``"f32"`` the f32 CUDA-core ``logmel_kernel``,
+``"bf16"`` the tensor-core ``logmel_wgmma_kernel``, which takes the signal
+in bf16 and the basis as :func:`tc_constants` lays it out. The TPU-only
 ``"bf16x3"`` split dot is not carried over.
 """
 
@@ -15,14 +18,18 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops import frontend as fe
 from audio_residual_tpu_torch.ops.common import mxu_round
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 
-__all__ = ["fused_logmel", "logmel_plain"]
+__all__ = ["fused_logmel", "logmel_plain", "check_tc_config", "tc_constants", "bf16_signal"]
 
 DFT_MODES = {"f32": None, "bf16": torch.bfloat16}
+TC_TILE_N = 128  # basis rows (64 bins, cos|sin interleaved) per tile of the AMP kernel
+TC_MELS = 64  # width of the AMP kernel's mel accumulator
+TC_MAX_FFT = 1536  # the AMP kernel takes at most 24 K steps of 64 samples
 
 
 @functools.lru_cache(maxsize=8)
@@ -56,6 +63,45 @@ def _device_constants(cfg: fe.FrontendConfig, device: torch.device):
     return tuple(torch.from_numpy(c).to(device) for c in _constants(cfg))
 
 
+def check_tc_config(cfg: fe.FrontendConfig) -> None:
+    """The AMP kernel's rule, else ``ValueError``: frame ``f`` starts at
+    sample ``f * hop`` of the bf16 signal and the kernel loads it in rows of
+    64 samples from 16-byte boundaries, so ``hop`` must be a multiple of 8
+    samples and ``n_fft`` one of 64, at most 1536; at most 64 mel bands."""
+    if cfg.hop_length % 8 or cfg.n_fft % 64 or cfg.n_fft > TC_MAX_FFT or cfg.n_mels > TC_MELS:
+        raise ValueError(
+            f"fused_logmel bf16: hop_length={cfg.hop_length} must be a multiple of 8, "
+            f"n_fft={cfg.n_fft} a multiple of 64 and at most {TC_MAX_FFT}, "
+            f"n_mels={cfg.n_mels} at most {TC_MELS}")
+
+
+@functools.lru_cache(maxsize=8)
+def tc_constants(cfg: fe.FrontendConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The AMP kernel's constants: ``basis [n_pad, n_fft]`` bf16, K-major,
+    row ``2j`` the windowed cos and ``2j + 1`` the sin of mel-active bin
+    ``j``, zero rows up to ``n_pad`` (a multiple of 128); ``melw
+    [n_pad / 2, 64]`` f32, zero beyond the active bins and ``n_mels``."""
+    basis, melw = _constants(cfg)
+    nbins = melw.shape[0]
+    n_pad = -(-2 * nbins // TC_TILE_N) * TC_TILE_N
+    bt = np.zeros((n_pad, cfg.n_fft), np.float32)
+    bt[0 : 2 * nbins : 2] = basis[:, :nbins].T
+    bt[1 : 2 * nbins : 2] = basis[:, nbins:].T
+    mw = np.zeros((n_pad // 2, TC_MELS), np.float32)
+    mw[:nbins, : cfg.n_mels] = melw
+    return torch.from_numpy(bt).to(device, torch.bfloat16), torch.from_numpy(mw).to(device)
+
+
+def bf16_signal(wav: torch.Tensor, cfg: fe.FrontendConfig) -> torch.Tensor:
+    """``[B, T]`` -> ``[B, row]`` bf16: cast, then the reflect pad of
+    ``n_fft // 2`` (the pad commutes with the cast, so this is the padded
+    signal rounded to bf16, at half the bytes), then zeros to a multiple of
+    8 samples a row."""
+    x = fe.reflect_pad(wav.to(torch.bfloat16), cfg.n_fft // 2)
+    tail = -x.shape[1] % 8
+    return F.pad(x, (0, tail)) if tail else x
+
+
 def fused_logmel(wav: torch.Tensor, cfg: fe.FrontendConfig, dft_mode: str | None = None) -> torch.Tensor:
     """``[B, T]`` f32 -> ``[B, frames, n_mels]`` f32 (``top_db`` unsupported:
     HTSAT uses None). CPU tensors take :func:`logmel_plain`."""
@@ -72,14 +118,23 @@ def fused_logmel(wav: torch.Tensor, cfg: fe.FrontendConfig, dft_mode: str | None
     if cfg.n_mels > 64:
         raise ValueError("fused_logmel: the kernel takes at most 64 mel bands")
     b = wav.shape[0]
-    xp = fe.reflect_pad(wav, cfg.n_fft // 2).contiguous()
-    nf = (xp.shape[1] - cfg.n_fft) // cfg.hop_length + 1
-    basis, melw = _device_constants(cfg, wav.device)
+    nf = cfg.num_frames(wav.shape[1])
     out = torch.empty(b, nf, cfg.n_mels, device=wav.device, dtype=torch.float32)
-    fn = build.bind("logmel", "arpu_fused_logmel", "ppiiiiipipiffip")
-    rc = fn(xp.data_ptr(), out.data_ptr(), b, xp.shape[1], nf, cfg.n_fft, cfg.hop_length,
-            basis.data_ptr(), melw.shape[0], melw.data_ptr(), cfg.n_mels, cfg.amin,
-            _db_offset(cfg), int(mode == "bf16"), build.stream_of(wav))
+    if mode == "bf16":
+        check_tc_config(cfg)
+        xp = bf16_signal(wav, cfg)
+        basis, melw = tc_constants(cfg, wav.device)
+        fn = build.bind("logmel", "arpu_fused_logmel_bf16", "ppiiiiipipiffp")
+        rc = fn(xp.data_ptr(), out.data_ptr(), b, xp.shape[1], nf, cfg.n_fft, cfg.hop_length,
+                basis.data_ptr(), basis.shape[0], melw.data_ptr(), cfg.n_mels, cfg.amin,
+                _db_offset(cfg), build.stream_of(wav))
+    else:
+        xp = fe.reflect_pad(wav, cfg.n_fft // 2).contiguous()
+        basis, melw = _device_constants(cfg, wav.device)
+        fn = build.bind("logmel", "arpu_fused_logmel", "ppiiiiipipiffp")
+        rc = fn(xp.data_ptr(), out.data_ptr(), b, xp.shape[1], nf, cfg.n_fft, cfg.hop_length,
+                basis.data_ptr(), melw.shape[0], melw.data_ptr(), cfg.n_mels, cfg.amin,
+                _db_offset(cfg), build.stream_of(wav))
     build.check("logmel", rc, "fused_logmel")
     launch_counts["fused_logmel"] += 1
     return out

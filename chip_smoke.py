@@ -10,9 +10,12 @@ line):
   1. build   -- nvcc every kernel (in parallel), print the card's name and
                power limit, turn TF32 off for the golden path.
   2. kernels -- each of K1-K5 against its plain PyTorch version at the main
-               paths' shapes (B=32), f32 and bf16, with times; K5 also at
-               HTSAT-large's wide layers; K4's device time split by CUDA
-               kernel (torch.profiler) at its main-path shapes.
+               paths' shapes (B=32), f32 and bf16, with times; K1's AMP
+               (wgmma) route also at ragged clip lengths, B=1 and 3, on
+               silence and with the n_fft=1536 frontend, each within
+               0.05 dB; K5 also at HTSAT-large's wide layers; K4's device
+               time split by CUDA kernel (torch.profiler) at its main-path
+               shapes.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -60,6 +63,7 @@ EXPECTED_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 10, "fused_window_at
 EXPECTED_BASE_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 16, "wide_window_attention": 2,
                           "fused_residual_ffn": 2}
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # max |kernel - plain| / max |plain|
+K1_AMP_DB = 0.05  # K1 bf16 against its plain version, dB: the JAX kernel's AMP error
 HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / bf16 rates
 PEAK = {"f32": 67e12, "bf16": 989e12}
 
@@ -113,17 +117,19 @@ class KernelStats:
             self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], err)
 
     def time(self, name, label, mode, kernel_fn, plain_fn, nbytes, flops, launches=1,
-             library_fn=None) -> None:
+             library_fn=None, library_what=None) -> None:
         """``nbytes``: each input read once, each output written once;
-        ``flops``: {peak type: operations} of one launch."""
+        ``flops``: {peak type: operations} of one launch; ``library_what``
+        says what ``library_fn`` computes when it is not the same function."""
         ms = launches * time_ms(kernel_fn)
         plain = launches * time_ms(plain_fn)
         lib = launches * time_ms(library_fn) if library_fn is not None else None
         b_ms = launches * 1e3 * nbytes / HBM_BYTES_S
         o_ms = launches * 1e3 * sum(f / PEAK[t] for t, f in flops.items())
+        extra = {"library": repr(library_what)} if library_what else {}
         log("kernels", kernel=name, shape=label, mode=mode, launches=launches, ms=ms,
             plain_ms=plain, bound_ms=max(b_ms, o_ms),
-            bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=lib)
+            bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=lib, **extra)
         if mode == self.JSON_MODE:
             r = self.rows[name]
             r["ms"] += ms
@@ -150,10 +156,46 @@ class KernelStats:
         return json.dumps({"kernels": out})
 
 
+def audio_frontend(name: str):
+    """The frontend of a registered HTSAT model config."""
+    from audio_residual_tpu_torch.models.factory import get_model_config
+    from audio_residual_tpu_torch.ops.frontend import FrontendConfig
+
+    a = get_model_config(name)["audio_cfg"]
+    return FrontendConfig(sample_rate=a["sample_rate"], n_fft=a["window_size"],
+                          hop_length=a["hop_size"], win_length=a["window_size"],
+                          n_mels=a["mel_bins"], fmin=a["fmin"], fmax=a["fmax"])
+
+
+def check_logmel(stats: KernelStats, label: str, wav, cfg, mode: str,
+                 silence: bool = False) -> None:
+    """K1 against its plain version: ``TOL`` and, under AMP, at most
+    ``K1_AMP_DB`` dB apart; on silence both give the amin floor exactly."""
+    import torch
+
+    from audio_residual_tpu_torch.ops.cuda import frontend as k1
+
+    got, ref = k1.fused_logmel(wav, cfg, mode), k1.logmel_plain(wav, cfg, mode)
+    stats.check("fused_logmel", label, got, ref, mode)
+    if mode != "bf16":
+        return
+    err = float((got - ref).abs().max())
+    extra = {}
+    if silence:
+        floor = 10.0 * torch.log10(torch.tensor(cfg.amin, device=got.device)) - k1._db_offset(cfg)
+        extra["amin_floor_exact"] = bool((got == floor).all()) and bool((ref == floor).all())
+    ok = err <= K1_AMP_DB and extra.get("amin_floor_exact", True)
+    log("kernels", check=f"fused_logmel {label} dB", max_abs_err_db=err, limit_db=K1_AMP_DB,
+        n_fft=cfg.n_fft, **extra, ok=ok)
+    if not ok:
+        raise AssertionError(f"fused_logmel {label}: {err} dB from its plain version")
+
+
 def phase_kernels(stats: KernelStats, dev) -> None:
     import torch
     import torch.nn.functional as F
 
+    from audio_residual_tpu_torch.ops import frontend as fe
     from audio_residual_tpu_torch.ops.common import layer_norm
     from audio_residual_tpu_torch.ops.cuda import frontend as k1
     from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
@@ -176,19 +218,52 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         """The golden mode runs every product in f32."""
         return {"f32": sum(flops_by_type.values())} if mode == "f32" else flops_by_type
 
-    # K1 at [32, 480000], one launch a forward of each main path
+    # K1 at [32, 480000], one launch a forward of each main path: "f32" runs
+    # the CUDA-core kernel, "bf16" (AMP) the wgmma kernel
     cfg = FrontendConfig()
     wav = t(B, 480000, scale=0.1)
     lo, hi = mel_active_bins(cfg)
     nb, nf = hi - lo, cfg.num_frames(480000)
-    for mode, _ in modes:
-        stats.check("fused_logmel", "[32,480000]", k1.fused_logmel(wav, cfg, mode),
-                    k1.logmel_plain(wav, cfg, mode), mode)
+    basis = torch.from_numpy(k1._constants(cfg)[0]).to(dev)
+    for mode, md in modes:
+        check_logmel(stats, "[32,480000]", wav, cfg, mode)
         nbytes = 4 * (wav.numel() + cfg.n_fft * 2 * nb + nb * cfg.n_mels + B * nf * cfg.n_mels)
         flops = {"bf16": 2.0 * B * nf * cfg.n_fft * 2 * nb, "f32": 2.0 * B * nf * nb * cfg.n_mels}
+        # yardstick, not the same function: the DFT product alone, one
+        # torch.matmul of pre-materialised frames [B*nf, n_fft] by the basis
+        # [n_fft, 2*nbins], both in the mode's operand type
+        frames = (fe.reflect_pad(wav, cfg.n_fft // 2).unfold(-1, cfg.n_fft, cfg.hop_length)
+                  .reshape(-1, cfg.n_fft).to(md or torch.float32).contiguous())
+        bm = basis.to(md or torch.float32)
         stats.time("fused_logmel", "[32,480000]", mode, lambda: k1.fused_logmel(wav, cfg, mode),
                    lambda: k1.logmel_plain(wav, cfg, mode), nbytes, typed(mode, flops),
-                   launches=2)
+                   launches=2, library_fn=lambda: torch.matmul(frames, bm),
+                   library_what="torch.matmul frames @ basis: the DFT product alone")
+        # device time of one call: the log-mel kernel alone, and all of the
+        # call's kernels (the wrapper's cast and reflect pad too)
+        k1.fused_logmel(wav, cfg, mode)
+        prof = device_profile(lambda: [k1.fused_logmel(wav, cfg, mode) for _ in range(5)])
+        log("kernels", kernel="fused_logmel", shape="[32,480000]", mode=mode,
+            kernel_device_ms=sum(v for n, v in prof[1].items() if "logmel" in n) / 5
+            if prof else None, call_device_ms=prof[2] / 5 if prof else None,
+            dft_matmul_device_ms=device_busy_ms(lambda: torch.matmul(frames, bm)))
+        del frames
+    # K1's AMP route at ragged shapes (nf = 209 at 100 000 samples is no
+    # multiple of its 128-frame tile), silence and the n_fft=1536 frontend;
+    # clips from their own generator, so the other kernels' inputs stay
+    clips = np.random.default_rng(5)
+
+    def clip_of(b, n):
+        return torch.from_numpy((0.1 * clips.standard_normal((b, n))).astype(np.float32)).to(dev)
+
+    win1536 = audio_frontend("HTSAT-tiny-win-1536")
+    for b in (1, 3):
+        for n in (48000, 100000, 240000, 480000):
+            check_logmel(stats, f"[{b},{n}]", clip_of(b, n), cfg, "bf16")
+    check_logmel(stats, "[3,48000] silence", torch.zeros(3, 48000, device=dev), cfg, "bf16",
+                 silence=True)
+    for b, n in ((1, 100000), (3, 240000)):
+        check_logmel(stats, f"[{b},{n}] n_fft=1536", clip_of(b, n), win1536, "bf16")
 
     def block(c, nh):
         hidden = 4 * c
@@ -317,7 +392,8 @@ def kernel_group(name: str) -> str:
                        ("attention_core_kernel", "attention core"),
                        ("add_layernorm_kernel", "LayerNorm"),
                        ("wide_qkv_attention", "K5 qkv + attention"),
-                       ("logmel", "K1 log-mel")):
+                       ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
+                       ("logmel_kernel", "K1 log-mel, golden (CUDA cores)")):
         if key in name:
             return group
     return "PyTorch (glue, casts)"

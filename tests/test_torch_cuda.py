@@ -207,3 +207,43 @@ def test_swin_block_amp_matches_plain_on_card(dev, shift):
             assert out.dtype == xin.dtype
             assert _rel(out, k4.swin_block_plain(*blk)) < 2e-2
     assert dict(launch_counts) == {"fused_swin_block": 2}
+
+
+WIN_1536 = fe.FrontendConfig(n_fft=1536, win_length=1536)  # HTSAT-tiny-win-1536's frontend
+
+
+@pytest.mark.parametrize("cfg", [fe.FrontendConfig(), WIN_1536, fe.FrontendConfig(n_mels=16)],
+                         ids=["n_fft=1024", "n_fft=1536", "n_mels=16"])
+@pytest.mark.parametrize("b,t", [(1, 48000), (3, 100000), (1, 240000), (2, 480000)])
+def test_logmel_amp_matches_plain_on_card(dev, cfg, b, t):
+    """K1's AMP route (bf16 DFT on wgmma) within 0.05 dB of the plain bf16
+    version at ragged frame counts (nf = 209 at 100 000 samples is no
+    multiple of the 128-frame tile); n_mels < 64 takes the kernel's masked
+    stores (the test models' 16 bands)."""
+    wav = torch.from_numpy(
+        (np.random.default_rng(t).standard_normal((b, t)) * 0.1).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    with torch.no_grad():
+        got = k1.fused_logmel(wav, cfg, "bf16")
+        ref = k1.logmel_plain(wav, cfg, "bf16")
+    assert got.shape == ref.shape == (b, cfg.num_frames(t), cfg.n_mels)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 0.05
+    assert dict(launch_counts) == {"fused_logmel": 1}
+
+
+def test_logmel_amp_gives_the_floor_on_silence(dev):
+    cfg = fe.FrontendConfig()
+    wav = torch.zeros(2, 48000, device=dev)
+    with torch.no_grad():
+        got, ref = k1.fused_logmel(wav, cfg, "bf16"), k1.logmel_plain(wav, cfg, "bf16")
+    assert torch.equal(got, ref)
+    assert torch.equal(got, torch.full_like(got, float(ref.flatten()[0])))
+
+
+def test_logmel_amp_refuses_a_misaligned_config(dev):
+    wav = torch.zeros(1, 48000, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k1.fused_logmel(wav, fe.FrontendConfig(hop_length=476), "bf16")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k1.fused_logmel(wav, fe.FrontendConfig(n_fft=1000, win_length=1000), "bf16")
