@@ -60,6 +60,10 @@ class HTSATConfig:
     fmax: float = 14000.0
     n_fft: int = 1024
     hop_size: int = 480
+    # the frontend DFT's mode: None follows compute_dtype ("bf16" under AMP,
+    # else "f32"); "f32" or "bf16" override it. The JAX package's "bf16x3"
+    # split dot is a TPU-only workaround and is not carried over.
+    dft_mode: str | None = None
 
     @property
     def freq_ratio(self) -> int:
@@ -321,13 +325,19 @@ def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None
     ``residual``: ``{layer_idx: {"basis": [K, D], "mean": [D], "lam": [K]}}``,
     applied in every block of the layer. ``compute_dtype=torch.bfloat16`` is
     the AMP path: bf16 operands with f32 accumulate from the bn0 output on,
-    the frontend's DFT in bf16, LN/softmax/ResiDual in f32.
+    the frontend's DFT in bf16, LN/softmax/ResiDual in f32. ``cfg.dft_mode``
+    ("f32" or "bf16"), when set, picks the DFT's mode whatever
+    ``compute_dtype`` is (``audio_residual_tpu/models/htsat.py:698-700``).
     """
     cfg = model.cfg
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
     # the frontend's DFT follows the AMP mode (single-pass bf16 under AMP)
-    dft = "bf16" if compute_dtype == torch.bfloat16 else "f32"
+    # unless the config names one
+    dft = cfg.dft_mode or ("bf16" if compute_dtype == torch.bfloat16 else "f32")
+    if dft == "bf16x3":
+        raise ValueError("dft_mode 'bf16x3': the split dot is a TPU-only workaround (Mosaic has "
+                         "no Precision.HIGH) and is not carried over; use 'f32' or 'bf16'")
     x = fused_logmel(wav.float().contiguous(), cfg.frontend_config, dft_mode=dft)
     x = model.bn0(x)
     if compute_dtype is not None:

@@ -131,6 +131,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// TMA: 3-D box at coordinates {c0, c1, c2} of `map` into shared memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a K-major tile written by TMA with the
 // 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart.
 __device__ __forceinline__ uint64_t smem_desc(const void* tile) {

@@ -175,15 +175,6 @@ struct FrameMaps {
   CUtensorMap kt[MAX_KT];
 };
 
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
     logmel_wgmma_kernel(const __grid_constant__ FrameMaps frames,
                         const __grid_constant__ CUtensorMap basis, const float* __restrict__ melw,

@@ -13,9 +13,10 @@ line):
                paths' shapes (B=32), f32 and bf16, with times; K1's AMP
                (wgmma) route also at ragged clip lengths, B=1 and 3, on
                silence and with the n_fft=1536 frontend, each within
-               0.05 dB; K5 also at HTSAT-large's wide layers; K4's device
-               time split by CUDA kernel (torch.profiler) at its main-path
-               shapes.
+               0.05 dB; K5 also at HTSAT-large's wide layers, at odd window
+               counts and at n = 49 tokens, and its launch (A) timed alone
+               by device time; K4's device time split by CUDA kernel
+               (torch.profiler) at its main-path shapes.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -324,6 +325,19 @@ def phase_kernels(stats: KernelStats, dev) -> None:
     k4_main[0][0]()  # warm
     log_profile("kernels", "K4 bf16, one forward of each main path", device_profile(k4_forwards))
 
+    def k5_launch_a(label, args, mode) -> None:
+        """K5's device time of one call: launch (A) alone (qkv + attention,
+        6 r C^2 + 4 r 64 C operations) and all of the call's kernels (the
+        wrapper's bf16 cast of x and the proj GEMM too)."""
+        r, c = args[0].shape[0] * args[0].shape[1], args[0].shape[2]
+        ops = 6.0 * r * c * c + 4.0 * r * 64 * c
+        prof = device_profile(lambda: [k5.wide_window_attention(*args) for _ in range(5)])
+        a_ms = sum(v for n_, v in prof[1].items() if "wide_" in n_) / 5 if prof else None
+        log("kernels", kernel="wide_window_attention", shape=label, mode=mode,
+            launch_a_device_ms=a_ms, call_device_ms=prof[2] / 5 if prof else None,
+            launch_a_tflops=ops / a_ms / 1e9 if a_ms else None,
+            launch_a_peak_share=ops * 1e3 / a_ms / PEAK[mode] if a_ms else None)
+
     # layer 3 (32 heads, one window per clip, shift 0): K2 and K3 at HTSAT-tiny's
     # C=768, K5 and K3 at HTSAT-base's C=1024; LN1 runs before them in plain
     # PyTorch, as on the main path. Under AMP K5 also takes bf16 input.
@@ -353,6 +367,8 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                        typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
                        library_fn=lambda: F.scaled_dot_product_attention(q, k, v,
                                                                          attn_mask=bias))
+            if name == "wide_window_attention":
+                k5_launch_a(f"C={c}", args, mode)
             a = a.reshape(r, c)
             for use_res, dffn in ((False, False), (True, False), (True, True)):
                 rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
@@ -370,19 +386,26 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                            typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2)
 
     # K5 at HTSAT-large's wide layers: layer 2 (C=1024, 16 heads, four windows
-    # a clip, shifts 0 and 4) and layer 3 (C=2048, 32 heads, one window)
-    for c, nh, nw, hw, shifts in ((1024, 16, 4, (16, 16), (0, 4)),
-                                  (2048, 32, 1, (8, 8), (0,))):
+    # a clip, shifts 0 and 4) and layer 3 (C=2048, 32 heads, one window); then
+    # at its edges: odd window counts (a window pair's second window missing)
+    # and 7-wide windows (n = 49 tokens < 64, shift 3)
+    for c, nh, windows, window, nw, hw, shifts in (
+            (1024, 16, 4 * B, 8, 4, (16, 16), (0, 4)), (2048, 32, B, 8, 1, (8, 8), (0,)),
+            (1024, 32, 3, 8, 1, (8, 8), (0,)), (1024, 16, 5, 8, 1, (8, 8), (0,)),
+            (1024, 16, 8, 7, 4, (14, 14), (0, 3))):
         flat, _ = block(c, nh)
-        x = t(B * nw, 64, c, scale=0.5)
+        table = t((2 * window - 1) ** 2, nh, scale=0.02)
+        x = t(windows, window * window, c, scale=0.5)
         for mode, md in modes:
             for xin in (x,) if md is None else (x, x.to(md)):
                 for shift in shifts:
-                    args = (xin, *flat[2:6], flat[12], nh, 8, nw, shift, hw, md)
-                    stats.check("wide_window_attention",
-                                f"C={c} nh={nh} nW={nw} shift={shift} x={xin.dtype}",
-                                k5.wide_window_attention(*args), k5.wide_attention_plain(*args),
-                                mode)
+                    args = (xin, *flat[2:6], table, nh, window, nw, shift, hw, md)
+                    label = (f"C={c} nh={nh} windows={windows} n={window * window} "
+                             f"shift={shift} x={xin.dtype}")
+                    stats.check("wide_window_attention", label, k5.wide_window_attention(*args),
+                                k5.wide_attention_plain(*args), mode)
+                    if windows >= B and shift == 0 and xin is x:  # the large model's layers
+                        k5_launch_a(label, args, mode)
 
 
 def kernel_group(name: str) -> str:
@@ -391,7 +414,8 @@ def kernel_group(name: str) -> str:
                        ("gemm_f32_kernel", "f32 GEMM (golden, ResiDual)"),
                        ("attention_core_kernel", "attention core"),
                        ("add_layernorm_kernel", "LayerNorm"),
-                       ("wide_qkv_attention", "K5 qkv + attention"),
+                       ("wide_attention_wgmma", "K5 qkv + attention, AMP (TMA + wgmma)"),
+                       ("wide_qkv_attention", "K5 qkv + attention, golden (CUDA cores)"),
                        ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
                        ("logmel_kernel", "K1 log-mel, golden (CUDA cores)")):
         if key in name:

@@ -7,10 +7,14 @@ card and no JAX it runs alone, without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 import torch
 
+from audio_residual_tpu_torch.models import htsat as t_htsat
 from audio_residual_tpu_torch.ops import frontend as fe
 from audio_residual_tpu_torch.ops.cuda import launch_counts
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
@@ -19,6 +23,8 @@ from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+from . import torch_port_fixture as fx
 
 pytestmark = pytest.mark.cuda
 
@@ -95,30 +101,35 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                   torch.zeros(361, 2, device=dev), 2, 10, 1, 0, (10, 10))
 
 
-def _wide_inputs(dev, c, nh, windows, seed=1):
+def _wide_inputs(dev, c, nh, windows, seed=1, window=8):
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
 
     weights = (t(3 * c, c, scale=0.02), t(3 * c, scale=0.02), t(c, c, scale=0.02),
-               t(c, scale=0.02), t(225, nh, scale=0.02))
-    return weights, t(windows, 64, c, scale=0.5)
+               t(c, scale=0.02), t((2 * window - 1) ** 2, nh, scale=0.02))
+    return weights, t(windows, window * window, c, scale=0.5)
 
 
 @pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("c,nh,nw,shift,res", [
-    (1024, 16, 4, 4, (16, 16)),  # HTSAT-large layer 2: hd 64, SW-MSA mask
-    (1024, 32, 1, 0, (8, 8)),    # HTSAT-base layer 3: hd 32, one window per clip
-])
-def test_wide_attention_matches_plain_on_card(dev, mode, md, tol, c, nh, nw, shift, res):
+@pytest.mark.parametrize("c,nh,nw,shift,res,windows,window", [
+    (1024, 16, 4, 4, (16, 16), 8, 8),   # HTSAT-large layer 2: hd 64, SW-MSA mask
+    (1024, 32, 1, 0, (8, 8), 2, 8),     # HTSAT-base layer 3: hd 32, one window per clip
+    (2048, 32, 1, 0, (8, 8), 2, 8),     # HTSAT-large layer 3: C=2048, hd 64
+    (1024, 32, 1, 0, (8, 8), 3, 8),     # odd window counts: a pair's second window
+    (1024, 16, 1, 0, (8, 8), 5, 8),     # missing
+    (1024, 16, 4, 3, (14, 14), 8, 7),   # 7-wide windows: n = 49 < 64, shifted
+], ids=["large-l2", "base-l3", "large-l3", "3-windows", "5-windows", "n49"])
+def test_wide_attention_matches_plain_on_card(dev, mode, md, tol, c, nh, nw, shift, res,
+                                              windows, window):
     """K5 against its plain version, f32 and bf16 inputs; the K2 entry
     point sends C >= 1024 to K5."""
-    weights, x = _wide_inputs(dev, c, nh, 2 * nw)
+    weights, x = _wide_inputs(dev, c, nh, windows, window=window)
     launch_counts.clear()
     with torch.no_grad():
         for xin in (x, x.to(md or torch.float32)):
-            args = (xin, *weights, nh, 8, nw, shift, res, md)
+            args = (xin, *weights, nh, window, nw, shift, res, md)
             out = k5.wide_window_attention(*args)
             assert out.dtype == (xin.dtype if md is not None else torch.float32)
             assert _rel(out, k5.wide_attention_plain(*args)) < tol
@@ -137,6 +148,11 @@ def test_wide_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="hd <= 64"):
         k5.wide_window_attention(x, *weights[:4], torch.zeros(225, 8, device=dev), 8,
                                  *rest[1:])
+    # C = 1056 with 33 heads of 32: the golden kernel takes it, the AMP one
+    # (64-column head groups) does not
+    weights, x = _wide_inputs(dev, 1056, 33, 2)
+    with pytest.raises(ValueError, match="no multiple of 64"):
+        k5.wide_window_attention(x, *weights, 33, 8, 1, 0, (8, 8), torch.bfloat16)
 
 
 # (M, N, K) of the AMP GEMMs on the main paths at B=2 (M ragged against the
@@ -247,3 +263,31 @@ def test_logmel_amp_refuses_a_misaligned_config(dev):
         k1.fused_logmel(wav, fe.FrontendConfig(hop_length=476), "bf16")
     with pytest.raises(ValueError, match="multiple of 64"):
         k1.fused_logmel(wav, fe.FrontendConfig(n_fft=1000, win_length=1000), "bf16")
+
+
+def _forward_logmel(cfg, compute_dtype, dev):
+    """``(dft mode, log-mel)`` that one ``htsat_apply`` gave K1 on the card."""
+    model = t_htsat.HTSAT(cfg).to(dev)
+    wav = np.random.default_rng(0).standard_normal((2, cfg.clip_samples)) * 0.1
+    wav = torch.from_numpy(wav.astype(np.float32)).to(dev)
+    seen, real = {}, t_htsat.fused_logmel
+
+    def capture(w, fcfg, dft_mode=None):
+        seen["mode"], seen["logmel"] = dft_mode, real(w, fcfg, dft_mode)
+        return seen["logmel"]
+
+    with mock.patch.object(t_htsat, "fused_logmel", capture), torch.no_grad():
+        t_htsat.htsat_apply(model, wav, compute_dtype=compute_dtype)
+    return seen["mode"], seen["logmel"]
+
+
+@pytest.mark.parametrize("dft_mode,compute_dtype,other", [("f32", torch.bfloat16, None),
+                                                          ("bf16", None, torch.bfloat16)])
+def test_dft_mode_overrides_the_compute_dtype_on_card(dev, dft_mode, compute_dtype, other):
+    """``HTSATConfig.dft_mode`` on the card: an AMP forward with the f32 DFT
+    takes K1's golden route and gives the golden forward's log-mel; a golden
+    forward with the bf16 DFT gives the AMP forward's."""
+    cfg = t_htsat.HTSATConfig(**fx.AUDIO_KW)
+    mode, got = _forward_logmel(dataclasses.replace(cfg, dft_mode=dft_mode), compute_dtype, dev)
+    assert mode == dft_mode
+    assert torch.equal(got, _forward_logmel(cfg, other, dev)[1])
