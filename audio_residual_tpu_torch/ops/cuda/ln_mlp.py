@@ -5,23 +5,122 @@ flattened rows ``x, a [R, C]`` (block input and attention output): the
 optional ResiDual epilogue on ``a`` (f32), ``h = x + a``,
 ``y = h + fc2(GELU(fc1(LN2(h))))``, and with ``double_ffn`` the reference's
 patched-forward quirk, a second pass from ``x + y``. Weights in
-``nn.Linear`` layout (the kernel takes bf16 copies under AMP). Output in
-the store dtype (the caller's under AMP).
+``nn.Linear`` layout. Output in the store dtype (the caller's under AMP).
+
+Two routes: the golden one (f32) is a launch sequence on the f32 GEMM; the
+AMP one (``mxu_dtype=torch.bfloat16``) runs ``ffn_cluster_kernel``, one
+clustered launch per FFN pass with the hidden activation exchanged through
+distributed shared memory, on bf16 copies of the weights and the launch
+plan of :func:`amp_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights, store_dtype
+from audio_residual_tpu_torch.ops.cuda.window_attention import derived, mxu_weights, store_dtype
 from audio_residual_tpu_torch.residual.module import residual_apply
 
-__all__ = ["fused_residual_ffn", "residual_ffn_plain"]
+__all__ = ["fused_residual_ffn", "residual_ffn_plain", "amp_plan", "FfnPlan"]
+
+# the AMP kernel's constants (csrc/ln_mlp.cu, namespace ffn)
+ROWS = 128                  # rows of a cluster's tile: two consumer warpgroups of 64
+PART = 64                   # hidden columns a block computes per chunk
+BK = 64                     # K step: 64 bf16, one 128-byte swizzle row (C's
+                            # ragged last step arrives zero-filled)
+OUT_WIDTHS = (64, 96, 128, 256)  # output columns a block (its wgmma N)
+# clusters of 6 first: on the H100 only 15 clusters of 8 such blocks are
+# resident at once, so 16 row tiles (R = 2048) would run in two waves
+CLUSTER_SIZES = (6, 8, 4, 2, 1)
+MAX_STAGES = 6
+MAX_C = 2048                # LN2's row in registers: 8 chunks of 8 a lane
+SMEM_LIMIT = 232448         # shared memory a block may use on the H100
+_Z_W1_BYTES = ROWS * BK * 2 + PART * BK * 2
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    """The AMP kernel's launch: clusters of ``cs`` blocks, one a 128-row
+    tile; each block owns ``n_out`` output columns and ``PART`` of every
+    ``chunk`` hidden columns; ``stages`` ring stages; ``grid`` blocks."""
+
+    cs: int
+    chunk: int
+    n_out: int
+    stages: int
+    smem_bytes: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=64)
+def amp_plan(rows: int, c: int, hidden: int) -> FfnPlan:
+    """The launch plan of the AMP kernel for ``rows`` rows of width ``c``
+    and ``hidden`` hidden units: the first cluster size of
+    ``CLUSTER_SIZES`` whose blocks' output width is one the kernel is built
+    for and whose chunk divides ``hidden``, with as many ring stages as
+    shared memory holds.
+    ``ValueError`` for a shape the kernel does not take; the C entry refuses
+    a plan that is not its build's."""
+    if rows <= 0 or c <= 0 or hidden <= 0:
+        raise ValueError(f"fused_residual_ffn: empty shape rows={rows} C={c} hidden={hidden}")
+    if c % 8:
+        raise ValueError(f"fused_residual_ffn: C={c} is no multiple of 8 (16-byte TMA rows)")
+    if c > MAX_C:
+        raise ValueError(f"fused_residual_ffn: C={c} is above {MAX_C}, the widest row the AMP "
+                         "kernel's LN2 holds in registers")
+    if hidden % PART:
+        raise ValueError(f"fused_residual_ffn: hidden={hidden} is no multiple of {PART}, the "
+                         "hidden columns a block computes per chunk")
+    for cs in CLUSTER_SIZES:
+        n_out = c // cs
+        if c % cs or n_out not in OUT_WIDTHS or hidden % (PART * cs):
+            continue
+        stage = max(_Z_W1_BYTES, n_out * BK * 2)
+        fixed = 1024 + cs * ROWS * PART * 2 + 2 * 8
+        stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // (stage + 16))
+        if stages < 2:
+            continue
+        return FfnPlan(cs=cs, chunk=PART * cs, n_out=n_out, stages=stages,
+                       smem_bytes=fixed + stages * (stage + 16), grid=-(-rows // ROWS) * cs)
+    raise ValueError(f"fused_residual_ffn: no AMP plan for C={c} hidden={hidden}: a block's "
+                     f"output width C/CS must be one of {OUT_WIDTHS} for a cluster size CS in "
+                     f"{CLUSTER_SIZES} with hidden a multiple of {PART}*CS")
+
+
+def _span(nbytes: int) -> int:
+    """``arpu::span``: scratch pieces are 256-byte aligned."""
+    return (nbytes + 255) & ~255
+
+
+def amp_workspace_bytes(rows: int, c: int, kr: int, double_ffn: bool) -> int:
+    """The AMP entry's scratch: z [R, C] bf16, with ResiDual h1 [R, C] and
+    proj [R, kr] f32, with the double FFN y2 [R, C] f32."""
+    n = _span(rows * c * 2)
+    if kr:
+        n += _span(rows * c * 4) + _span(rows * kr * 4)
+    if double_ffn:
+        n += _span(rows * c * 4)
+    return n
+
+
+def _weight_map(w: torch.Tensor, box_rows: int) -> ctypes.Array:
+    """The TMA map of a bf16 weight in boxes of ``[box_rows, 64]``, made once
+    per state of ``w`` (kept beside it, as ``mxu_weights`` keeps the copy)."""
+    def make(t):
+        m = ctypes.create_string_buffer(128)  # a CUtensorMap
+        fn = build.bind("ln_mlp", "arpu_ffn_weight_map", "piiip")
+        build.check("ln_mlp", fn(t.data_ptr(), t.shape[0], t.shape[1], box_rows, m),
+                    "fused_residual_ffn weight map")
+        return m
+
+    return derived(w, ("ffn_map", box_rows), make)
 
 
 def residual_ffn_f32(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
@@ -60,7 +159,9 @@ def residual_pointers(rparams, c: int) -> tuple:
     kr = basis.shape[0]
     if tuple(rparams["mean"].shape) != (c,) or tuple(rparams["lam"].shape) != (kr,):
         raise ValueError("ResiDual mean must be [C] and lam [K]")
-    return basis, basis.t().contiguous(), rparams["mean"], rparams["lam"], kr
+    # basis^T for the second ResiDual GEMM, made once per basis version
+    basis_t = derived(basis, "t", lambda t: t.t().contiguous())
+    return basis, basis_t, rparams["mean"], rparams["lam"], kr
 
 
 def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | None = None, *,
@@ -82,21 +183,32 @@ def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | N
                "basis": basis, "basis_t": basis_t, "mean": mean, "lam": lam}
     build.check_cuda_inputs("fused_residual_ffn", {"x": x, "a": a, **weights},
                             float_only=tuple(weights))
-    amp = mxu_dtype is not None
-    wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)
     out = torch.empty(r, c, device=x.device, dtype=store)
-    ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiiii",
-                         restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
-    ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
-    fn = build.bind("ln_mlp", "arpu_residual_ffn", "pipipi" "iii" "pppppp" "pppp" "iii" "pp")
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
-            int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
-            r, c, hidden,
-            n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(), wfc2.data_ptr(),
-            bfc2.data_ptr(),
-            build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
-            kr, int(bool(double_ffn)), int(amp),
-            ws.data_ptr(), build.stream_of(x))
+    if mxu_dtype is None:
+        ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiii",
+                             restype=ctypes.c_size_t)(r, c, hidden, kr)
+        ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
+        fn = build.bind("ln_mlp", "arpu_residual_ffn", "pipipi" "iii" "pppppp" "pppp" "ii" "pp")
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+                int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
+                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
+                wfc2.data_ptr(), bfc2.data_ptr(), build.ptr(basis), build.ptr(basis_t),
+                build.ptr(mean), build.ptr(lam), kr, int(bool(double_ffn)),
+                ws.data_ptr(), build.stream_of(x))
+    else:
+        plan = amp_plan(r, c, hidden)
+        wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)
+        w1_map, w2_map = _weight_map(wfc1, PART), _weight_map(wfc2, plan.n_out)
+        ws = torch.empty(amp_workspace_bytes(r, c, kr, double_ffn), device=x.device,
+                         dtype=torch.uint8)
+        fn = build.bind("ln_mlp", "arpu_residual_ffn_amp",
+                        "pipipi" "iii" "pppppp" "pppp" "ii" "iii" "pp")
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+                int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
+                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(), ctypes.addressof(w1_map),
+                bfc1.data_ptr(), ctypes.addressof(w2_map), bfc2.data_ptr(), build.ptr(basis),
+                build.ptr(basis_t), build.ptr(mean), build.ptr(lam), kr, int(bool(double_ffn)),
+                plan.cs, plan.stages, plan.smem_bytes, ws.data_ptr(), build.stream_of(x))
     build.check("ln_mlp", rc, "fused_residual_ffn")
     launch_counts["fused_residual_ffn"] += 1
     return out

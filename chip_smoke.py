@@ -15,8 +15,11 @@ line):
                silence and with the n_fft=1536 frontend, each within
                0.05 dB; K5 also at HTSAT-large's wide layers, at odd window
                counts and at n = 49 tokens, and its launch (A) timed alone
-               by device time; K4's device time split by CUDA kernel
-               (torch.profiler) at its main-path shapes.
+               by device time; K3's AMP kernel by device time (the only
+               kernel of its call, one launch a pass) beside the same
+               function as a sequence of PyTorch calls; K4's device time
+               split by CUDA kernel (torch.profiler) at its main-path
+               shapes.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -29,7 +32,7 @@ line):
                accuracy guard, the launch counts per forward, clips/s, what
                casting the weights to bf16 costs once, and one
                torch.profiler window over an AMP forward (device time by
-               CUDA kernel, the device's idle share).
+               CUDA kernel, the device's idle share, K3's launches).
   3b. main   -- the same program through HTSAT-base, built by name from the
                model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
                runs K5.
@@ -325,6 +328,28 @@ def phase_kernels(stats: KernelStats, dev) -> None:
     k4_main[0][0]()  # warm
     log_profile("kernels", "K4 bf16, one forward of each main path", device_profile(k4_forwards))
 
+    def k3_device_time(label, fargs, md, mode, seq, ops) -> None:
+        """K3's device time of one call: under AMP the clustered kernel alone
+        (it must be the call's only kernel: one launch a pass) and the call;
+        the yardstick sequence beside it."""
+        call = lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md)  # noqa: E731
+        call()
+        prof = device_profile(lambda: [call() for _ in range(5)])
+        extra = {}
+        if prof is not None and md is not None:
+            kernels = prof[4]
+            if set(kernels) != {n for n in kernels if "ffn_cluster_kernel" in n} or \
+                    sum(kernels.values()) != 5:
+                raise AssertionError(f"fused_residual_ffn {label}: AMP calls launched "
+                                     f"{dict(kernels)}, expected one ffn_cluster_kernel each")
+            k_ms = sum(prof[1].values()) / 5
+            extra = dict(kernel_device_ms=k_ms, kernel_tflops=ops / k_ms / 1e9,
+                         kernel_peak_share=ops * 1e3 / k_ms / PEAK[mode],
+                         kernel_names=json.dumps(sorted(kernels)))
+        log("kernels", kernel="fused_residual_ffn", shape=label, mode=mode,
+            call_device_ms=prof[2] / 5 if prof else None, **extra,
+            sequence_device_ms=device_busy_ms(seq) if seq is not None else None)
+
     def k5_launch_a(label, args, mode) -> None:
         """K5's device time of one call: launch (A) alone (qkv + attention,
         6 r C^2 + 4 r 64 C operations) and all of the call's kernels (the
@@ -379,11 +404,14 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                             k3.residual_ffn_plain(*fargs, double_ffn=dffn, mxu_dtype=md), mode)
                 if use_res:
                     continue  # the main paths' layer 3 has no ResiDual
+                seq = ffn_sequence(fargs, md) if md is not None else None
                 stats.time("fused_residual_ffn", label, mode,
                            lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
                            lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
                            3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
-                           typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2)
+                           typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2,
+                           library_fn=seq, library_what=FFN_SEQUENCE if seq else None)
+                k3_device_time(label, fargs, md, mode, seq, 4.0 * r * c * hidden)
 
     # K5 at HTSAT-large's wide layers: layer 2 (C=1024, 16 heads, four windows
     # a clip, shifts 0 and 4) and layer 3 (C=2048, 32 heads, one window); then
@@ -408,12 +436,34 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                         k5_launch_a(label, args, mode)
 
 
+FFN_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> F.linear + "
+                "F.gelu -> F.linear + add, on the same bf16 operands")
+
+
+def ffn_sequence(fargs, md):
+    """K3's function as PyTorch calls on bf16 operands (cuBLAS products): the
+    yardstick ``library_ms`` of K3, not a path of the port."""
+    import torch.nn.functional as F
+
+    x, a, n2s, n2b, w1, b1, w2, b2, _ = fargs
+    w1b, b1b, w2b, b2b = (t.to(md) for t in (w1, b1, w2, b2))
+    c = x.shape[-1]
+
+    def run():
+        h = x.float() + a.float()
+        z = F.layer_norm(h, (c,), n2s, n2b).to(md)
+        return h + F.linear(F.gelu(F.linear(z, w1b, b1b)), w2b, b2b)
+
+    return run
+
+
 def kernel_group(name: str) -> str:
     """The port's kernels by role; everything else is PyTorch's."""
     for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
                        ("gemm_f32_kernel", "f32 GEMM (golden, ResiDual)"),
                        ("attention_core_kernel", "attention core"),
                        ("add_layernorm_kernel", "LayerNorm"),
+                       ("ffn_cluster_kernel", "K3 FFN, AMP (clustered TMA + wgmma)"),
                        ("wide_attention_wgmma", "K5 qkv + attention, AMP (TMA + wgmma)"),
                        ("wide_qkv_attention", "K5 qkv + attention, golden (CUDA cores)"),
                        ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
@@ -425,9 +475,9 @@ def kernel_group(name: str) -> str:
 
 def device_profile(fn):
     """One ``torch.profiler`` window over ``fn()``: ({kernel group: device
-    ms}, {kernel name: device ms}, busy ms, span ms), or None when the trace
-    holds no device time. Busy is the union of kernel intervals, span the
-    first kernel start to the last kernel end."""
+    ms}, {kernel name: device ms}, busy ms, span ms, {kernel name: launches}),
+    or None when the trace holds no device time. Busy is the union of kernel
+    intervals, span the first kernel start to the last kernel end."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,17 +489,18 @@ def device_profile(fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         return None
-    groups, names = collections.Counter(), collections.Counter()
+    groups, names, counts = collections.Counter(), collections.Counter(), collections.Counter()
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
         groups[kernel_group(name)] += (end - start) / 1e3
         names[name] += (end - start) / 1e3
+        counts[name] += 1
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start = start
         cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    return groups, names, busy / 1e3, (cur_end - spans[0][0]) / 1e3
+    return groups, names, busy / 1e3, (cur_end - spans[0][0]) / 1e3, counts
 
 
 def device_busy_ms(fn, reps: int = 5) -> float | None:
@@ -467,7 +518,7 @@ def log_profile(phase: str, label: str, prof) -> None:
     if prof is None:
         log(phase, profile=label, device_time="not measured")
         return
-    groups, names, busy, span = prof
+    groups, names, busy, span, _ = prof
     log(phase, profile=label, span_ms=span, busy_ms=busy, idle_share=1 - busy / span,
         by_group=json.dumps({k: round(v, 4) for k, v in groups.most_common()}))
     for name, ms in names.most_common(8):
@@ -500,14 +551,10 @@ def gemm_specs():
                       (f"{tag} fc1", r, 4 * c, c, dict(bias=True, gelu=True, out=bf16), n),
                       (f"{tag} fc2+h1", r, c, 4 * c, dict(bias=True, r1=f32, out=f32), n)]
     # layer 3 (2048 rows, f32 activations): K2 at tiny's C=768, K5's proj at base's
-    # C=1024, K3 at both
+    # C=1024 (K3 runs its own clustered kernel there)
     specs += [("tiny K2 C=768 qkv", 2048, 2304, 768, dict(bias=True, col_scale=True, out=bf16), 2),
               ("tiny K2 C=768 proj", 2048, 768, 768, dict(bias=True, out=f32), 2),
               ("base K5 C=1024 proj", 2048, 1024, 1024, dict(bias=True, out=f32), 2)]
-    for model, c in (("tiny", 768), ("base", 1024)):
-        specs += [(f"{model} K3 C={c} fc1", 2048, 4 * c, c,
-                   dict(bias=True, gelu=True, out=bf16), 2),
-                  (f"{model} K3 C={c} fc2+h1", 2048, c, 4 * c, dict(bias=True, r1=f32, out=f32), 2)]
     return specs
 
 
@@ -633,8 +680,14 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     log("main", model=label,
         weight_cast_once_ms=time_ms(lambda: [w.to(torch.bfloat16) for w in mats]),
         weight_mats=len(mats), weight_mb=sum(w.numel() for w in mats) * 4 / 1e6)
-    log_profile("main", f"{label} bf16 forward",
-                device_profile(lambda: zero_shot(torch.bfloat16)))
+    prof = device_profile(lambda: zero_shot(torch.bfloat16))
+    log_profile("main", f"{label} bf16 forward", prof)
+    if prof is not None:  # K3's AMP call is one launch a pass: its kernel, once a call
+        k3_kernels = sum(n for name, n in prof[4].items() if "ffn_cluster_kernel" in name)
+        log("main", model=label, k3_ffn_cluster_launches=k3_kernels)
+        if k3_kernels != expected["fused_residual_ffn"]:
+            raise AssertionError(f"{label}: {k3_kernels} ffn_cluster_kernel launches in the "
+                                 f"AMP forward, expected {expected['fused_residual_ffn']}")
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())

@@ -101,6 +101,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                   torch.zeros(361, 2, device=dev), 2, 10, 1, 0, (10, 10))
 
 
+def _ffn_inputs(dev, rows, c, seed=2):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    h = 4 * c
+    weights = (t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(h, c, scale=c ** -0.5),
+               t(h, scale=0.02), t(c, h, scale=h ** -0.5), t(c, scale=0.02))
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    rp = {"basis": torch.from_numpy(q.astype(np.float32)).to(dev), "mean": t(c, scale=0.01),
+          "lam": t(c, scale=0.1, offset=1.0)}
+    return t(rows, c, scale=0.5), t(rows, c, scale=0.1), weights, rp
+
+
+FFN_VARIANTS = {"plain": (False, False), "residual": (True, False), "double-ffn": (True, True)}
+
+
+@pytest.mark.parametrize("variant", list(FFN_VARIANTS))
+@pytest.mark.parametrize("rows,c", [
+    (128, 768), (128, 1024), (128, 2048),  # HTSAT-tiny, -base, -large layer 3 at B=2
+    (512, 1024),                           # HTSAT-large layer 2 at B=2
+    (64, 768), (192, 1024),                # ragged: half a 128-row tile, one and a half
+    (512, 96), (128, 64),                  # the test widths: clusters of one
+])
+def test_residual_ffn_amp_matches_plain_on_card(dev, rows, c, variant):
+    """K3's AMP kernel (one clustered launch per FFN pass) against its plain
+    version, f32 and bf16 x (a in the same dtype, as K2 and K5 hand it):
+    max |kernel - plain| / max |plain| within 2e-2 (a bf16 output's ulp is
+    3.9e-3 of a value; the sums run in another order)."""
+    use_res, dffn = FFN_VARIANTS[variant]
+    x, a, weights, rp = _ffn_inputs(dev, rows, c)
+    launch_counts.clear()
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x.to(dt), a.to(dt), *weights, rp if use_res else None)
+            got = k3.fused_residual_ffn(*args, double_ffn=dffn, mxu_dtype=torch.bfloat16)
+            ref = k3.residual_ffn_plain(*args, double_ffn=dffn, mxu_dtype=torch.bfloat16)
+            assert got.dtype == ref.dtype == dt and got.shape == ref.shape
+            assert bool(torch.isfinite(got.float()).all())
+            assert _rel(got, ref) < 2e-2
+    assert dict(launch_counts) == {"fused_residual_ffn": 2}
+
+
+@pytest.mark.parametrize("variant", list(FFN_VARIANTS))
+def test_residual_ffn_amp_is_one_launch_a_pass(dev, variant):
+    """By the profiler's kernel names: one ffn_cluster_kernel a pass (two
+    with the double FFN), the two f32 ResiDual GEMMs with a ResiDual, and
+    nothing else -- no add_layernorm_kernel, no bf16 GEMM."""
+    from torch.profiler import ProfilerActivity, profile
+
+    use_res, dffn = FFN_VARIANTS[variant]
+    x, a, weights, rp = _ffn_inputs(dev, 256, 768)
+    args = (x, a, *weights, rp if use_res else None)
+    with torch.no_grad():
+        k3.fused_residual_ffn(*args, double_ffn=dffn, mxu_dtype=torch.bfloat16)  # bf16 copies
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            k3.fused_residual_ffn(*args, double_ffn=dffn, mxu_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    passes = 2 if dffn else 1
+    assert sum("ffn_cluster_kernel" in n for n in names) == passes, names
+    assert sum("gemm_f32_kernel" in n for n in names) == (2 if use_res else 0), names
+    assert len(names) == passes + (2 if use_res else 0), names
+
+
+def test_residual_ffn_amp_gives_equal_bits_twice(dev):
+    """The reduction order is fixed: two calls give the same bits."""
+    x, a, weights, rp = _ffn_inputs(dev, 192, 1024)
+    with torch.no_grad():
+        for args in ((x, a, *weights, None), (x.bfloat16(), a.bfloat16(), *weights, rp)):
+            one = k3.fused_residual_ffn(*args, double_ffn=True, mxu_dtype=torch.bfloat16)
+            two = k3.fused_residual_ffn(*args, double_ffn=True, mxu_dtype=torch.bfloat16)
+            assert torch.equal(one, two)
+
+
+def test_residual_ffn_amp_refuses_a_shape_without_a_plan(dev):
+    x, a, weights, _ = _ffn_inputs(dev, 128, 32)
+    with pytest.raises(ValueError, match="no AMP plan"):
+        k3.fused_residual_ffn(x, a, *weights, mxu_dtype=torch.bfloat16)
+    # the golden route takes it
+    with torch.no_grad():
+        assert _rel(k3.fused_residual_ffn(x, a, *weights),
+                    k3.residual_ffn_plain(x, a, *weights)) < 1e-4
+
+
 def _wide_inputs(dev, c, nh, windows, seed=1, window=8):
     rng = np.random.default_rng(seed)
 
@@ -157,8 +245,9 @@ def test_wide_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 # (M, N, K) of the AMP GEMMs on the main paths at B=2 (M ragged against the
 # 128-row tile where the path's R is a multiple of it): K4 qkv/proj/fc1/fc2
-# at HTSAT-tiny C=96 and HTSAT-base C=128, 384 and 512; K2 qkv at C=768; K3
-# fc1/fc2 at C=768 and 1024; K5's proj at 1024.
+# at HTSAT-tiny C=96 and HTSAT-base C=128, 384 and 512; K2 qkv at C=768;
+# K5's proj at 1024; and fc1/fc2 products at C=768 and 1024 (N and K up to
+# 4096).
 GEMM_SHAPES = [(8192 - 64, 288, 96), (8192 - 64, 96, 96), (8192 - 64, 384, 96),
                (8192 - 64, 96, 384), (8192 - 64, 128, 128), (2048 + 64, 1536, 384),
                (2048 + 64, 384, 1536), (512 + 64, 512, 512), (128 + 64, 2304, 768),
