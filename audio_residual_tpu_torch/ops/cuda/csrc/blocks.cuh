@@ -1,35 +1,39 @@
-// Launch sequences of the Swin-block kernels, built from common.cuh.
+// Launch sequences of the Swin-block kernels, built from common.cuh and
+// window_attention_tc.cuh.
 //
 // The TPU kernels keep a whole block (or half of one) resident in VMEM. On
 // Hopper a 64-token window's f32 qkv at C=384 alone is 288 KB, above the
 // 227 KB of shared memory a block may use, so each TPU kernel becomes a
 // fixed sequence of launches with intermediates in device memory:
-//   window attention = qkv GEMM -> attention core -> proj GEMM
+//   window attention = qkv + attention -> proj GEMM (AMP);
+//                      qkv GEMM -> attention core -> proj GEMM (golden)
 //   residual FFN     = [ResiDual GEMMs] -> add+LN2 -> fc1+GELU -> fc2 + h1
 //                      [-> double-FFN second pass]
 //
 // What bounds such a sequence on the H100 is the bytes of its intermediates,
 // not its operations: at HTSAT-tiny layer 0 (R = 131072 rows, C = 96) a
-// block writes and reads back qkv [R, 3C], hid [R, 4C] and several [R, C]
-// tensors, for ~72 operations a byte of its qkv GEMM against the bf16 ridge
-// of ~295. So under AMP (bf16 = 1) every intermediate whose only reader is a
-// GEMM or the attention core is stored in bf16 -- y = LN1(x), qkv (q
-// pre-scaled by hd^-1/2 in the qkv epilogue), the attention output, z =
-// LN2(h) and hid -- the rounding its reader applied anyway, so the function
-// is unchanged; the products run on the TMA + wgmma GEMM (gemm_sm90.cuh) with
-// bf16 weights cast once per weight version. What stays f32 (the AMP
-// contract): the proj output a that the ResiDual reads, h1, y2, the ResiDual
-// scratch, LN statistics and softmax. The golden path (bf16 = 0) keeps f32 everywhere
-// and the f32 GEMM. Fusing a block into one kernel is later work (ROADMAP,
-// Queue 2). Wide layers (C >= 1024) do not come here for their attention:
-// K5 (wide_attention.cu) cuts the work at head boundaries and keeps qkv on
-// chip.
+// block writes and reads back hid [R, 4C] and several [R, C] tensors, for
+// ~72 operations a byte of its GEMMs against the bf16 ridge of ~295. So
+// under AMP (bf16 = 1) every intermediate whose only reader is a GEMM is
+// stored in bf16 -- y = LN1(x), the attention output, z = LN2(h) and hid --
+// the rounding its reader applied anyway, so the function is unchanged; q|k|v
+// never leave the qkv + attention kernel (window_attention_tc.cuh), and the
+// other products run on the TMA + wgmma GEMM (gemm_sm90.cuh) with bf16
+// weights cast once per weight version. What stays f32 (the AMP contract):
+// the proj output a that the ResiDual reads, h1, y2, the ResiDual scratch,
+// LN statistics and softmax. The golden path (bf16 = 0) keeps f32
+// everywhere, the f32 GEMM and the f32 attention core. Fusing a block into
+// one kernel is later work (ROADMAP, Queue 2). Wide layers (C >= 1024) do
+// not come here for their attention: K5's wrapper runs them (its golden
+// route in wide_attention.cu cuts the work at head boundaries; its AMP route
+// is the entry of window_attention.cu).
 //
 // Weight pointers are const float* in the golden mode and const
 // __nv_bfloat16* under AMP.
 #pragma once
 
 #include "common.cuh"
+#include "window_attention_tc.cuh"
 
 namespace arpu {
 
@@ -50,21 +54,26 @@ struct Arena {
 
 static inline size_t elem_bytes(int bf16) { return bf16 ? 2 : 4; }
 
-// bytes of run_window_attention scratch: qkv [R, 3C] and att [R, C]
+// bytes of run_window_attention scratch: golden qkv [R, 3C] and att [R, C]
+// f32; AMP att [R, C] bf16
 static inline size_t window_attention_ws(long R, long C, int bf16) {
-  return span((size_t)R * 3 * C * elem_bytes(bf16)) + span((size_t)R * C * elem_bytes(bf16));
+  if (bf16) return span((size_t)R * C * 2);
+  return span((size_t)R * 3 * C * 4) + span((size_t)R * C * 4);
 }
 
 // y [R, C] -> out [R, C] = proj(attention(qkv(y))) (+ r1 in the proj
-// epilogue when r1 is given). AMP: y must be bf16; q_scale [3C] is hd^-1/2
-// on q's columns and 1 on k's and v's.
+// epilogue when r1 is given). Golden: bias [nh, n, n], mask [nW, n, n].
+// AMP: y must be bf16; bias [nh, 64, 64] and mask [nW, 64, 64] padded, and
+// `plan` the wrapper's launch plan of the qkv + attention kernel, whose TMA
+// map holds wqkv.
 static inline cudaError_t run_window_attention(const void* y, int y_bf16, void* out, int out_bf16,
                                                const void* r1, int r1_bf16, int R, int n, int C,
                                                int nh, int nW, const void* wqkv,
                                                const float* bqkv, const void* wproj,
                                                const float* bproj, const float* bias,
-                                               const float* mask, const float* q_scale, int bf16,
-                                               Arena ws, cudaStream_t s) {
+                                               const float* mask, int bf16,
+                                               const AttentionPlan& plan, Arena ws,
+                                               cudaStream_t s) {
   if (!bf16) {
     float* qkv = ws.take<float>((size_t)R * 3 * C);
     float* att = ws.take<float>((size_t)R * C);
@@ -77,11 +86,8 @@ static inline cudaError_t run_window_attention(const void* y, int y_bf16, void* 
     return launch_gemm_f32(g, s);
   }
   if (!y_bf16) return cudaErrorInvalidValue;
-  bf16_t* qkv = ws.take<bf16_t>((size_t)R * 3 * C);
   bf16_t* att = ws.take<bf16_t>((size_t)R * C);
-  ARPU_TRY(gemm_bf16(static_cast<const bf16_t*>(y), static_cast<const bf16_t*>(wqkv), qkv, 1, R,
-                     3 * C, C, Epilogue{bqkv, q_scale, 0, nullptr, nullptr}, 0, 0, s));
-  ARPU_TRY(launch_attention_core(qkv, att, bias, mask, R / n, n, nh, C, nW, s));
+  ARPU_TRY(launch_window_attention_tc(y, bqkv, bias, mask, att, R / n, n, C, nh, nW, plan, s));
   return gemm_bf16(att, static_cast<const bf16_t*>(wproj), out, out_bf16, R, C, C,
                    Epilogue{bproj, nullptr, 0, r1, nullptr}, r1_bf16, 0, s);
 }

@@ -8,14 +8,15 @@
 //                       wgmma, f32 accumulate
 //   * add_layernorm_kernel  h = x (+ r); y = LN(h), f32 statistics
 //   * attention_core_kernel one block per (window, head): scores, relative
-//                       bias, SW-MSA mask, exact f32 softmax, @V
+//                       bias, SW-MSA mask, exact f32 softmax, @V (golden;
+//                       the AMP attention is window_attention_tc.cuh)
 //
 // Layouts: A [M, K] row-major, W [N, K] row-major (nn.Linear layout), C and
 // the residual operands [M, N] row-major, all contiguous. The f32 GEMM reads
 // activations and residuals as f32 or bf16 (a runtime flag per pointer) and
-// f32 weights. Under AMP every intermediate that only a GEMM or the
-// attention core reads is stored in bf16, the rounding its reader applies
-// anyway, so the launch sequences move about half the bytes.
+// f32 weights. Under AMP every intermediate that only a GEMM reads is stored
+// in bf16, the rounding its reader applies anyway, so the launch sequences
+// move about half the bytes.
 //
 // GEMM epilogue, in this order: v = acc; v += bias[n]; v *= col_scale[n];
 // v = gelu(v); v += r1[m, n]; v += r2[m, n]. The f32 GEMM's prologue may
@@ -53,10 +54,6 @@ __device__ __forceinline__ void st(void* p, size_t i, float v, int bf16) {
   } else {
     reinterpret_cast<float*>(p)[i] = v;
   }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -211,24 +208,14 @@ static inline cudaError_t launch_add_layernorm(const void* x, int x_bf16, const 
 }
 
 // ---- window attention core: one block per (window, head) ----------------
-// qkv [W*n, 3C] -> out [W*n, C] (this head's hd columns), both of type T.
-// bias [nh, n, n]; mask [nW, n, n] or null (window w takes mask[w % nW]).
-// T = float (golden): q is scaled by hd^-1/2 here. T = bf16 (AMP): the qkv
-// GEMM stored bf16(q * hd^-1/2), k and v in bf16, and the probabilities are
-// rounded to bf16 before @V (f32 accumulate), the AMP contract of the TPU
-// kernels.
+// The golden route's: qkv [W*n, 3C] -> out [W*n, C] (this head's hd columns),
+// f32; q is scaled by hd^-1/2 here. bias [nh, n, n]; mask [nW, n, n] or null
+// (window w takes mask[w % nW]).
 constexpr int ATT_THREADS = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T>
 __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
-    const T* qkv, T* out, const float* bias, const float* mask, int n, int nh, int C, int nW,
-    float scale) {
-  constexpr bool kBf16 = sizeof(T) == 2;
+    const float* qkv, float* out, const float* bias, const float* mask, int n, int nh, int C,
+    int nW, float scale) {
   extern __shared__ float sm[];
   const int hd = C / nh;
   float* q = sm;                 // [n][hd]
@@ -241,10 +228,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
 
   for (int e = tid; e < n * hd; e += ATT_THREADS) {
     const int t = e / hd, d = e % hd;
-    const T* src = qkv + (row0 + t) * 3 * C + h * hd + d;
-    q[t * hd + d] = kBf16 ? to_f32(src[0]) : to_f32(src[0]) * scale;
-    k[t * (hd + 1) + d] = to_f32(src[C]);
-    v[t * hd + d] = to_f32(src[2 * C]);
+    const float* src = qkv + (row0 + t) * 3 * C + h * hd + d;
+    q[t * hd + d] = src[0] * scale;
+    k[t * (hd + 1) + d] = src[C];
+    v[t * hd + d] = src[2 * C];
   }
   __syncthreads();
 
@@ -272,10 +259,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
       sum += ex;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < n; j += 32) {
-      const float p = row[j] / sum;
-      row[j] = kBf16 ? round_bf16(p) : p;
-    }
+    for (int j = lane; j < n; j += 32) row[j] = row[j] / sum;
   }
   __syncthreads();
 
@@ -283,7 +267,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(
     const int i = e / hd, d = e % hd;
     float acc = 0.0f;
     for (int j = 0; j < n; ++j) acc = fmaf(s[i * (n + 1) + j], v[j * hd + d], acc);
-    store_as(out + (row0 + i) * C + h * hd + d, acc);
+    out[(row0 + i) * C + h * hd + d] = acc;
   }
 }
 
@@ -291,20 +275,19 @@ static inline size_t attention_smem_bytes(int n, int hd) {
   return sizeof(float) * ((size_t)n * hd * 2 + (size_t)n * (hd + 1) + (size_t)n * (n + 1));
 }
 
-template <typename T>
-static cudaError_t launch_attention_core(const T* qkv, T* out, const float* bias,
-                                         const float* mask, int windows, int n, int nh, int C,
-                                         int nW, cudaStream_t s) {
+static inline cudaError_t launch_attention_core(const float* qkv, float* out,
+                                                const float* bias, const float* mask, int windows,
+                                                int n, int nh, int C, int nW, cudaStream_t s) {
   const int hd = C / nh;
   const size_t smem = attention_smem_bytes(n, hd);
   if (smem > 48 * 1024) {
-    ARPU_TRY(cudaFuncSetAttribute(attention_core_kernel<T>,
+    ARPU_TRY(cudaFuncSetAttribute(attention_core_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   }
   // hd**-0.5 rounded once from double, as the plain version's scalar is
   const float scale = (float)pow((double)hd, -0.5);
-  attention_core_kernel<T><<<dim3(windows, nh), ATT_THREADS, smem, s>>>(qkv, out, bias, mask, n,
-                                                                       nh, C, nW, scale);
+  attention_core_kernel<<<dim3(windows, nh), ATT_THREADS, smem, s>>>(qkv, out, bias, mask, n, nh,
+                                                                     C, nW, scale);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,27 @@
 // C entry point of the bf16 TMA + wgmma GEMM (gemm_sm90.cuh), for its own
 // wrapper (ops/cuda/gemm.py) and tests: the Swin-block kernels call the
-// same function from their launch sequences.
+// same function from their launch sequences. Also the TMA map encoder of
+// the bf16 weights that the AMP kernels of K2-K5 read by TMA.
+#include <string.h>
+
 #include "common.cuh"
+
+// The TMA map of a bf16 weight [rows, cols] in boxes of [box_rows, 64]
+// (128-byte swizzle), for the AMP kernels that take a map from their
+// wrapper, which makes it once per weight version. Returns 0 or a CUDA
+// error.
+extern "C" int arpu_weight_map(const void* w, int rows, int cols, int box_rows, void* map) {
+  if (reinterpret_cast<uintptr_t>(w) % 16 || cols % 8 || box_rows < 1 || box_rows > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap m;  // 64-byte aligned here; the caller's buffer need not be
+  if (!arpu::sm90::encode_map(&m, w, rows, cols, box_rows, arpu::sm90::BK, 1,
+                              CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  memcpy(map, &m, sizeof(m));
+  return 0;
+}
 
 // C [M, N] (bf16 if c_bf16, else f32) = epi(A [M, K] @ W [N, K]^T), A and W
 // bf16; bias, col_scale [N] f32 or null; r1, r2 [M, N] or null, bf16 if

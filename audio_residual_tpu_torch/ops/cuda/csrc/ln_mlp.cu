@@ -144,30 +144,6 @@ __device__ __forceinline__ void arrive_peer(uint64_t* bar, int rank) {
                : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed. A wait that never
-// ends -- a lost arrival -- traps, which fails the launch, instead of hanging
-// the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (!start) {
-      start = now;
-    } else if (now - start > (1LL << 34)) {
-      __trap();
-    }
-  }
-}
-
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
 }
@@ -512,25 +488,9 @@ extern "C" int arpu_residual_ffn(const void* x, int x_bf16, const void* a, int a
       rbasis, rbasis_t, rmean, rlam, kr, double_ffn, ws, static_cast<cudaStream_t>(stream)));
 }
 
-// The TMA map of a bf16 weight [rows, cols] in boxes of [box_rows, 64], for
-// the AMP route; the wrapper makes it once per weight version. Returns 0 or
-// a CUDA error.
-extern "C" int arpu_ffn_weight_map(const void* w, int rows, int cols, int box_rows, void* map) {
-  if (reinterpret_cast<uintptr_t>(w) % 16 || cols % 8 || box_rows < 1 || box_rows > 256) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap m;  // 64-byte aligned here; the caller's buffer need not be
-  if (!arpu::sm90::encode_map(&m, w, rows, cols, box_rows, arpu::sm90::BK, 1,
-                              CU_TENSOR_MAP_SWIZZLE_128B)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  memcpy(map, &m, sizeof(m));
-  return 0;
-}
-
 // AMP route. x, a, out [R, C] (f32 or bf16 each); the TMA maps of the bf16
 // weights W1 [hidden, C] (box rows 64) and W2 [C, hidden] (box rows C / cs)
-// from arpu_ffn_weight_map; biases and LN2 f32. ResiDual as in the golden
+// from arpu_weight_map (gemm.cu); biases and LN2 f32. ResiDual as in the golden
 // route. The plan (cluster size cs, ring stages, shared bytes) comes from
 // the wrapper and must be this build's. ws: z [R, C] bf16, then with
 // ResiDual h1 [R, C] and proj [R, kr] f32, then with double_ffn y2 [R, C]

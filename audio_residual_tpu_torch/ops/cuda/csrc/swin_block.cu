@@ -13,9 +13,10 @@
 // and B=32 (R = 131072 rows, C = 96, ResiDual and the double FFN) about
 // 2.2 GB a launch with f32 intermediates against 46 GFLOP of products.
 //
-// Design: under AMP every intermediate that only a GEMM or the attention
-// core reads is stored in bf16 (blocks.cuh), about 1.4 GB a launch at that
-// layer, and every bf16 product runs on the TMA + wgmma GEMM
+// Design: under AMP the attention half is K2's qkv + attention kernel
+// (window_attention_tc.cuh: q|k|v never in device memory) and the proj
+// GEMM; every other intermediate that only a GEMM reads is stored in bf16
+// (blocks.cuh), and every other bf16 product runs on the TMA + wgmma GEMM
 // (gemm_sm90.cuh) with bf16 weights the wrapper keeps per weight version.
 // The attention output a stays f32 between the halves, as in the monolithic
 // kernel; with no ResiDual the first residual add rides the proj GEMM's
@@ -40,9 +41,10 @@ static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16
                               const void* wproj, const float* bproj, const float* n2s,
                               const float* n2b, const void* wfc1, const float* bfc1,
                               const void* wfc2, const float* bfc2, const float* bias,
-                              const float* mask, const float* q_scale, const float* rbasis,
-                              const float* rbasis_t, const float* rmean, const float* rlam, int kr,
-                              int double_ffn, int bf16, void* ws, cudaStream_t s) {
+                              const float* mask, const arpu::AttentionPlan& plan,
+                              const float* rbasis, const float* rbasis_t, const float* rmean,
+                              const float* rlam, int kr, int double_ffn, int bf16, void* ws,
+                              cudaStream_t s) {
   const size_t rc = (size_t)R * C;
   arpu::Arena ar{static_cast<unsigned char*>(ws)};
   void* y = ar.take<unsigned char>(rc * arpu::elem_bytes(bf16));  // LN1(x), bf16 under AMP
@@ -56,13 +58,13 @@ static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16
   ARPU_TRY(arpu::launch_add_layernorm(x, x_bf16, nullptr, 0, nullptr, y, bf16, n1s, n1b, R, C, s));
   if (rbasis) {
     ARPU_TRY(arpu::run_window_attention(y, bf16, a, 0, nullptr, 0, R, n, C, nh, nW, wqkv, bqkv,
-                                        wproj, bproj, bias, mask, q_scale, bf16, attn_scratch, s));
+                                        wproj, bproj, bias, mask, bf16, plan, attn_scratch, s));
     ARPU_TRY(arpu::run_residual_epilogue(a, 0, x, x_bf16, h1, R, C, kr, rbasis, rbasis_t, rmean,
                                          rlam, proj, s));
   } else {
     // h1 = x + proj(attention): the residual add rides the proj epilogue
     ARPU_TRY(arpu::run_window_attention(y, bf16, h1, 0, x, x_bf16, R, n, C, nh, nW, wqkv, bqkv,
-                                        wproj, bproj, bias, mask, q_scale, bf16, attn_scratch, s));
+                                        wproj, bproj, bias, mask, bf16, plan, attn_scratch, s));
   }
   return arpu::run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2,
                        bfc2, double_ffn, bf16, 0, ffn_scratch, s);
@@ -70,18 +72,22 @@ static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16
 
 // x, out [R, C] windows (already rolled and partitioned), R = windows * n.
 // Weights in nn.Linear layout [out, in], f32 (bf16 = 0) or bf16 (AMP);
-// q_scale [3C] (AMP only); rbasis / rbasis_t null without ResiDual.
+// rbasis / rbasis_t null without ResiDual. bias, mask and the attention
+// plan (w_map ... blocks) as arpu_window_attention takes them.
 extern "C" int arpu_swin_block(const void* x, int x_bf16, void* out, int out_bf16, int R, int n,
                                int C, int nh, int nW, int hidden, const float* n1s,
                                const float* n1b, const void* wqkv, const float* bqkv,
                                const void* wproj, const float* bproj, const float* n2s,
                                const float* n2b, const void* wfc1, const float* bfc1,
                                const void* wfc2, const float* bfc2, const float* bias,
-                               const float* mask, const float* q_scale, const float* rbasis,
-                               const float* rbasis_t, const float* rmean, const float* rlam,
-                               int kr, int double_ffn, int bf16, void* ws, void* stream) {
+                               const float* mask, const void* w_map, int heads_per_block,
+                               int windows_per_block, int stages, int smem, int blocks,
+                               const float* rbasis, const float* rbasis_t, const float* rmean,
+                               const float* rlam, int kr, int double_ffn, int bf16, void* ws,
+                               void* stream) {
+  const arpu::AttentionPlan plan{w_map, heads_per_block, windows_per_block, stages, smem, blocks};
   return static_cast<int>(swin_block(x, x_bf16, out, out_bf16, R, n, C, nh, nW, hidden, n1s, n1b,
                                      wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-                                     bias, mask, q_scale, rbasis, rbasis_t, rmean, rlam, kr,
+                                     bias, mask, plan, rbasis, rbasis_t, rmean, rlam, kr,
                                      double_ffn, bf16, ws, static_cast<cudaStream_t>(stream)));
 }

@@ -25,7 +25,12 @@ import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda.window_attention import derived, mxu_weights, store_dtype
+from audio_residual_tpu_torch.ops.cuda.window_attention import (
+    derived,
+    mxu_weights,
+    store_dtype,
+    weight_map,
+)
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["fused_residual_ffn", "residual_ffn_plain", "amp_plan", "FfnPlan"]
@@ -110,19 +115,6 @@ def amp_workspace_bytes(rows: int, c: int, kr: int, double_ffn: bool) -> int:
     return n
 
 
-def _weight_map(w: torch.Tensor, box_rows: int) -> ctypes.Array:
-    """The TMA map of a bf16 weight in boxes of ``[box_rows, 64]``, made once
-    per state of ``w`` (kept beside it, as ``mxu_weights`` keeps the copy)."""
-    def make(t):
-        m = ctypes.create_string_buffer(128)  # a CUtensorMap
-        fn = build.bind("ln_mlp", "arpu_ffn_weight_map", "piiip")
-        build.check("ln_mlp", fn(t.data_ptr(), t.shape[0], t.shape[1], box_rows, m),
-                    "fused_residual_ffn weight map")
-        return m
-
-    return derived(w, ("ffn_map", box_rows), make)
-
-
 def residual_ffn_f32(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
                      double_ffn=False, mxu_dtype=None) -> torch.Tensor:
     a = a.float()
@@ -198,7 +190,7 @@ def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | N
     else:
         plan = amp_plan(r, c, hidden)
         wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)
-        w1_map, w2_map = _weight_map(wfc1, PART), _weight_map(wfc2, plan.n_out)
+        w1_map, w2_map = weight_map(wfc1, PART), weight_map(wfc2, plan.n_out)
         ws = torch.empty(amp_workspace_bytes(r, c, kr, double_ffn), device=x.device,
                          dtype=torch.uint8)
         fn = build.bind("ln_mlp", "arpu_residual_ffn_amp",

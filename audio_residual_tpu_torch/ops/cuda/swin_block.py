@@ -12,8 +12,11 @@ On the card the kernel is LN1 -> window attention -> residual FFN, the plan
 the JAX package declares equivalent (``swin_block.py::_split_block``), with
 the attention output kept in f32 between the halves as in the monolithic
 TPU kernel. Under AMP the wrapper hands it bf16 copies of the four weight
-matrices, and it stores the intermediates that only a GEMM or the
-attention core reads in bf16 (``csrc/blocks.cuh``).
+matrices; its attention half is K2's qkv + attention kernel
+(``csrc/window_attention_tc.cuh``, with the padded bias and mask, the wqkv
+map and the plan of :func:`.window_attention.amp_plan`) and the proj GEMM,
+and it stores the intermediates that only a GEMM reads in bf16
+(``csrc/blocks.cuh``).
 
 As in the JAX package, the public function dispatches: from C =
 ``WIDE_MIN_C`` on (HTSAT-large layer 2) it runs :func:`split_block` --
@@ -35,13 +38,14 @@ from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
     residual_pointers,
 )
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
+    NO_PLAN,
     WIDE_MIN_C,
+    amp_attention_args,
     attention_f32,
     bias_and_mask,
     check_window_shapes,
     fused_window_attention,
     mxu_weights,
-    q_scale,
     store_dtype,
 )
 
@@ -128,23 +132,26 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
                "wfc2": wfc2, "bfc2": bfc2, "rel_bias_table": table, "basis": basis,
                "basis_t": basis_t, "mean": mean, "lam": lam}
     build.check_cuda_inputs("fused_swin_block", {"x": x, **weights}, float_only=tuple(weights))
-    bias, mask = bias_and_mask(table, window, shift, resolution)
     amp = mxu_dtype is not None
     wqkv, wproj, wfc1, wfc2 = mxu_weights(mxu_dtype, wqkv, wproj, wfc1, wfc2)
-    qs = q_scale(c, nh, x.device) if amp else None
+    if amp:  # the attention half reads LN1's bf16 output, of x's shape
+        bias, mask, plan = amp_attention_args(x, wqkv, table, nh, window, shift, resolution)
+    else:
+        bias, mask = bias_and_mask(table, window, shift, resolution)
+        plan = NO_PLAN
     r = wn * n
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
     ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiiii",
                          restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("swin_block", "arpu_swin_block",
-                    "pipi" "iiiiii" "pppppppppppp" "ppp" "pppp" "iii" "pp")
+                    "pipi" "iiiiii" "pppppppppppp" "pp" "piiiii" "pppp" "iii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, hidden,
             n1s.data_ptr(), n1b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
             bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
             wfc2.data_ptr(), bfc2.data_ptr(),
-            bias.data_ptr(), build.ptr(mask), build.ptr(qs),
+            bias.data_ptr(), build.ptr(mask), *plan,
             build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
             kr, int(bool(double_ffn and use_residual)), int(amp),
             ws.data_ptr(), build.stream_of(x))

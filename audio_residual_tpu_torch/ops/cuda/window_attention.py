@@ -12,8 +12,16 @@ SW-MSA mask, exact f32 softmax, ``@V``, output projection.
 Weights are in ``nn.Linear`` layout (``[out, in]``). ``mxu_dtype=torch.bfloat16``
 is the AMP contract: GEMM and attention operands rounded to bf16, f32
 accumulate, f32 softmax; the output keeps the caller's dtype. Without it
-the output is f32. Under AMP the wrapper hands the kernel bf16 copies of
-the weights and of ``x`` (the rounding the kernel's GEMM applies anyway).
+the output is f32. The two contracts run two routes: the golden one a
+sequence of f32 GEMM, attention core and f32 GEMM; the AMP one
+``window_attention_wgmma_kernel`` (``csrc/window_attention_tc.cuh``: qkv
+and attention in one launch over window pairs, q|k|v kept on chip), then
+the bf16 proj GEMM. Under AMP the wrapper hands the kernel bf16 copies of
+the weights and of ``x`` (the rounding its products apply anyway), the
+relative bias and mask padded to the 64-token tile, the TMA map of the
+bf16 wqkv (kept per weight version) and the launch plan of
+:func:`amp_plan`. K4's attention half (:mod:`.swin_block`) and K5's AMP
+route (:mod:`.wide_attention`) take the same kernel, plan and helpers.
 """
 
 from __future__ import annotations
@@ -21,20 +29,31 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops import windows as win_ops
 from audio_residual_tpu_torch.ops.common import attention_core, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 
 __all__ = ["fused_window_attention", "window_attention_plain", "WIDE_MIN_C", "mxu_weights",
-           "q_scale"]
+           "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
 
 WIDE_MIN_C = 1024
 """From this width a window attention runs K5: the port's explicit rule for
 where the JAX package's ``pick_group`` finds no plan (every shipped HTSAT
 layer with C >= 1024)."""
+
+
+# the AMP kernel's constants (csrc/window_attention_tc.cuh, namespace watc)
+AMP_HEAD_DIMS = (16, 24, 32, 64)  # two heads a group, one at 64
+TC_TOKENS = 64    # rows of a window tile: n <= 64, zero-filled past n
+TC_WINDOWS = 2    # windows a unit, one per consumer warpgroup
+TC_BK = 64        # K step: 64 bf16, one 128-byte swizzle row
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+H100_SMS = 132
 
 
 def store_dtype(x: torch.Tensor, mxu_dtype) -> torch.dtype:
@@ -88,9 +107,10 @@ def mxu_weights(mxu_dtype, *weights) -> tuple:
 
 @functools.lru_cache(maxsize=32)
 def q_scale(c: int, nh: int, device: torch.device) -> torch.Tensor:
-    """``[3C]`` f32 column scale of the AMP qkv GEMM: ``hd**-0.5`` on q's
-    columns, 1 on k's and v's, so the stored bf16 q is ``bf16(q * hd**-0.5)``,
-    the operand the plain version's score product rounds."""
+    """``[3C]`` f32 column scale: ``hd**-0.5`` on q's columns, 1 on k's and
+    v's. The AMP kernel's qkv epilogue applies it before rounding q|k|v to
+    bf16, so its q is ``bf16(q * hd**-0.5)``, the operand the plain
+    version's score product rounds; the CPU replays of that plan use it."""
     s = torch.ones(3 * c)
     s[:c] = (c // nh) ** -0.5
     return s.to(device)
@@ -99,6 +119,114 @@ def q_scale(c: int, nh: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _mask(h: int, w: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(win_ops.shift_window_mask(h, w, window, shift)).to(device)
+
+
+@dataclass(frozen=True)
+class AmpPlan:
+    """The AMP kernel's launch: work units are (window pair, head group of
+    ``heads_per_block`` heads, ``n_cols / 3`` q columns), ``grid`` = (window
+    pairs, head groups); ``blocks`` persistent blocks walk them."""
+
+    heads_per_block: int
+    windows_per_block: int
+    stages: int
+    smem_bytes: int
+    grid: tuple[int, int]
+    n_cols: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def amp_plan(windows: int, n: int, c: int, nh: int, sms: int = H100_SMS) -> AmpPlan:
+    """The launch plan of the AMP qkv + attention kernel for ``windows``
+    windows of ``n`` tokens at width ``c`` with ``nh`` heads on a card of
+    ``sms`` SMs: two heads a unit (one at hd 64), as many ring stages as
+    shared memory holds, one block an SM. ``ValueError`` for what the
+    kernel does not take; the C entry refuses a plan that is not its
+    build's."""
+    if windows <= 0 or n <= 0 or n > TC_TOKENS:
+        raise ValueError(f"window attention: {windows} windows of {n} tokens; the AMP kernel "
+                         f"takes at least one window of at most {TC_TOKENS} tokens")
+    if c <= 0 or c % 8:
+        raise ValueError(f"window attention: C={c} is no multiple of 8 (16-byte TMA rows)")
+    if nh <= 0 or c % nh or c // nh not in AMP_HEAD_DIMS:
+        raise ValueError(f"window attention: C={c} / nh={nh}; the AMP kernel takes head dims "
+                         f"{AMP_HEAD_DIMS}")
+    hd = c // nh
+    heads = 1 if hd == 64 else 2
+    nq = heads * hd
+    if c % nq:
+        raise ValueError(f"window attention: C={c} is no multiple of {nq}, the q columns of a "
+                         f"unit's head group of {heads}")
+    n_cols = 3 * nq
+    qkv_bytes = TC_WINDOWS * TC_TOKENS * (n_cols + 8) * 2
+    stage = TC_WINDOWS * TC_TOKENS * TC_BK * 2 + n_cols * TC_BK * 2 + 16
+    fixed = 1024 + qkv_bytes
+    stages = (SMEM_LIMIT - fixed) // stage
+    pairs = -(-windows // TC_WINDOWS)
+    return AmpPlan(heads_per_block=heads, windows_per_block=TC_WINDOWS, stages=stages,
+                   smem_bytes=fixed + stages * stage, grid=(pairs, c // nq), n_cols=n_cols,
+                   blocks=min(pairs * (c // nq), sms))
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pad_tile(t: torch.Tensor, n: int, key_fill: float) -> torch.Tensor:
+    """``[..., n, n]`` -> ``[..., 64, 64]``: key columns past ``n`` hold
+    ``key_fill``, padded query rows 0 elsewhere."""
+    out = F.pad(t, (0, TC_TOKENS - n, 0, TC_TOKENS - n))
+    out[..., n:] = key_fill
+    return out.contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def _mask64(h: int, w: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
+    return _pad_tile(_mask(h, w, window, shift, device), window * window, 0.0)
+
+
+def padded_bias_and_mask(table: torch.Tensor, window: int, shift: int, resolution) -> tuple:
+    """The AMP kernel's ``bias [nh, 64, 64]`` (-inf in the key columns past
+    the window's tokens, so they drop out of the softmax) and ``mask [nW,
+    64, 64]`` (None without a shift)."""
+    n = window * window
+    bias = derived(table, ("bias64", window), lambda t: _pad_tile(
+        win_ops.gather_relative_bias(t.float(), window, window), n, float("-inf")))
+    mask = _mask64(*resolution, window, shift, table.device) if shift > 0 else None
+    return bias, mask
+
+
+def weight_map(w: torch.Tensor, box_rows: int) -> ctypes.Array:
+    """The TMA map of the bf16 weight ``w`` in boxes of ``[box_rows, 64]``,
+    made once per state of ``w`` (kept beside it, as :func:`mxu_weights`
+    keeps the copy): the AMP kernels of K2-K5 read their weights by TMA."""
+    def make(t):
+        m = ctypes.create_string_buffer(128)  # a CUtensorMap
+        fn = build.bind("gemm", "arpu_weight_map", "piiip")
+        build.check("gemm", fn(t.data_ptr(), t.shape[0], t.shape[1], box_rows, m),
+                    "TMA weight map")
+        return m
+
+    return derived(w, ("tma_map", box_rows), make)
+
+
+def amp_attention_args(x, wqkv, table, nh, window, shift, resolution) -> tuple:
+    """``(bias, mask, plan arguments)`` of the AMP kernel for windows of
+    ``x``'s shape ``[W, n, C]`` on its device and the bf16 ``wqkv``: the
+    padded bias and mask, then the weight map's address, heads and windows
+    a unit, stages, shared bytes and blocks, in the order the C entries
+    take them."""
+    wn, n, c = x.shape
+    plan = amp_plan(wn, n, c, nh, _sm_count(x.device))
+    bias, mask = padded_bias_and_mask(table, window, shift, resolution)
+    w_map = weight_map(wqkv, plan.n_cols // 3)
+    return bias, mask, (ctypes.addressof(w_map), plan.heads_per_block, plan.windows_per_block,
+                        plan.stages, plan.smem_bytes, plan.blocks)
+
+
+NO_PLAN = (None, 0, 0, 0, 0, 0)  # the golden route reads no plan
 
 
 def bias_and_mask(table: torch.Tensor, window: int, shift: int, resolution) -> tuple:
@@ -152,7 +280,6 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
     if x.device.type == "cpu":
         return window_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                       num_windows_per_image, shift, resolution, mxu_dtype)
-    store = store_dtype(x, mxu_dtype)
     weights = {"wqkv": wqkv, "bqkv": bqkv, "wproj": wproj, "bproj": bproj,
                "rel_bias_table": rel_bias_table}
     build.check_cuda_inputs("fused_window_attention", {"x": x, **weights},
@@ -162,23 +289,40 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
     wn, n, c = x.shape
     if tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c):
         raise ValueError("fused_window_attention: weights must be [3C, C] and [C, C]")
-    bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
+    out = window_attention_call(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                                num_windows_per_image, shift, resolution, mxu_dtype,
+                                "fused_window_attention")
+    launch_counts["fused_window_attention"] += 1
+    return out
+
+
+def window_attention_call(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                          num_windows_per_image, shift, resolution, mxu_dtype, what):
+    """One call of ``csrc/window_attention.cu`` on checked CUDA inputs: the
+    golden sequence, or under AMP the qkv + attention kernel and the proj
+    GEMM (K5's AMP route comes here too)."""
+    store = store_dtype(x, mxu_dtype)
+    wn, n, c = x.shape
     amp = mxu_dtype is not None
-    if amp:
-        x = x.to(mxu_dtype)
     wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
-    qs = q_scale(c, nh, x.device) if amp else None
+    if amp:
+        x = x.to(mxu_dtype)  # the kernel's TMA reads bf16 rows; its products round x so anyway
+        bias, mask, plan = amp_attention_args(x, wqkv, rel_bias_table, nh, window, shift,
+                                              resolution)
+    else:
+        bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
+        plan = NO_PLAN
     r = wn * n
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
     ws_size = build.bind("window_attention", "arpu_window_attention_workspace", "iii",
                          restype=ctypes.c_size_t)(r, c, int(amp))
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
-    fn = build.bind("window_attention", "arpu_window_attention", "pipiiiiii" "ppppppp" "ipp")
+    fn = build.bind("window_attention", "arpu_window_attention",
+                    "pipiiiiii" "pppppp" "i" "piiiii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image,
             wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            bias.data_ptr(), build.ptr(mask), build.ptr(qs),
-            int(amp), ws.data_ptr(), build.stream_of(x))
-    build.check("window_attention", rc, "fused_window_attention")
-    launch_counts["fused_window_attention"] += 1
+            bias.data_ptr(), build.ptr(mask), int(amp), *plan, ws.data_ptr(),
+            build.stream_of(x))
+    build.check("window_attention", rc, what)
     return out

@@ -8,7 +8,9 @@ order given, and imports ``audio_residual_tpu_torch`` from there, so an
 older checkout needs no copy of this script. A run prints one JSON line a
 mode, golden f32 and bf16 AMP: the median event time of one call, and from
 one ``torch.profiler`` window over ``REPS`` calls the device time a call of
-launch (A) (the kernels named ``wide_*``) and of all of the call's kernels.
+launch (A) (the kernels named ``wide_*``, and under AMP from the checkout
+that moved it onto the kernel K2 and K4 share, ``window_attention_wgmma_*``)
+and of all of the call's kernels.
 Exits non-zero when a run fails or its trace holds no device time.
 """
 
@@ -38,7 +40,8 @@ def _device_ms(fn, reps: int) -> tuple[float, float]:
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         raise RuntimeError("the profiler's trace holds no device time")
-    launch_a = sum(end - start for start, end, name in spans if "wide_" in name)
+    launch_a = sum(end - start for start, end, name in spans
+                   if "wide_" in name or "window_attention_wgmma" in name)
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, _ in spans:
         if start > cur_end:

@@ -14,12 +14,14 @@ line):
                (wgmma) route also at ragged clip lengths, B=1 and 3, on
                silence and with the n_fft=1536 frontend, each within
                0.05 dB; K5 also at HTSAT-large's wide layers, at odd window
-               counts and at n = 49 tokens, and its launch (A) timed alone
-               by device time; K3's AMP kernel by device time (the only
-               kernel of its call, one launch a pass) beside the same
-               function as a sequence of PyTorch calls; K4's device time
-               split by CUDA kernel (torch.profiler) at its main-path
-               shapes.
+               counts and at n = 49 tokens; the AMP qkv + attention kernel
+               that K2, K4 and K5 share (window_attention_wgmma_kernel)
+               timed alone by device time in each of their calls, K2 and
+               K4 also at n = 49 and 3 windows; K3's AMP kernel by device
+               time (the only kernel of its call, one launch a pass); K2,
+               K3 and K4 beside their function as a sequence of PyTorch
+               calls (cuBLAS, SDPA); K4's device time split by CUDA kernel
+               (torch.profiler) at its main-path shapes.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -32,7 +34,9 @@ line):
                accuracy guard, the launch counts per forward, clips/s, what
                casting the weights to bf16 costs once, and one
                torch.profiler window over an AMP forward (device time by
-               CUDA kernel, the device's idle share, K3's launches).
+               CUDA kernel, the device's idle share, K3's launches, the
+               qkv + attention kernel's launches and no attention_core_kernel
+               under AMP).
   3b. main   -- the same program through HTSAT-base, built by name from the
                model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
                runs K5.
@@ -313,11 +317,17 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                              + passes * 4.0 * r * c * hidden}
                     if use_res:
                         flops["f32"] = 4.0 * r * c * c
+                    seq = block_sequence(args, md or torch.float32)
                     stats.time("fused_swin_block", label, mode,
                                lambda: k4.fused_swin_block(*args),
                                lambda: k4.swin_block_plain(*args),
                                2 * nbytes_of([x]) + nbytes_of(args[1]), typed(mode, flops),
-                               launches=per_shift)
+                               launches=per_shift, library_fn=seq, library_what=BLOCK_SEQUENCE)
+                    log("kernels", kernel="fused_swin_block", shape=label, mode=mode,
+                        yardstick_rel_err=rel_err(seq(), k4.swin_block_plain(*args)))
+                    if md is not None:
+                        attention_launch("fused_swin_block", label, mode,
+                                         lambda: k4.fused_swin_block(*args), r, c)
 
     # K4's device time by CUDA kernel, summed over one forward of each main path
     def k4_forwards():
@@ -334,7 +344,10 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         the yardstick sequence beside it."""
         call = lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md)  # noqa: E731
         call()
-        prof = device_profile(lambda: [call() for _ in range(5)])
+        for _ in range(3):  # a window now and then drops kernel records
+            prof = device_profile(lambda: [call() for _ in range(5)])
+            if prof is None or md is None or sum(prof[4].values()) == 5:
+                break
         extra = {}
         if prof is not None and md is not None:
             kernels = prof[4]
@@ -349,19 +362,6 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         log("kernels", kernel="fused_residual_ffn", shape=label, mode=mode,
             call_device_ms=prof[2] / 5 if prof else None, **extra,
             sequence_device_ms=device_busy_ms(seq) if seq is not None else None)
-
-    def k5_launch_a(label, args, mode) -> None:
-        """K5's device time of one call: launch (A) alone (qkv + attention,
-        6 r C^2 + 4 r 64 C operations) and all of the call's kernels (the
-        wrapper's bf16 cast of x and the proj GEMM too)."""
-        r, c = args[0].shape[0] * args[0].shape[1], args[0].shape[2]
-        ops = 6.0 * r * c * c + 4.0 * r * 64 * c
-        prof = device_profile(lambda: [k5.wide_window_attention(*args) for _ in range(5)])
-        a_ms = sum(v for n_, v in prof[1].items() if "wide_" in n_) / 5 if prof else None
-        log("kernels", kernel="wide_window_attention", shape=label, mode=mode,
-            launch_a_device_ms=a_ms, call_device_ms=prof[2] / 5 if prof else None,
-            launch_a_tflops=ops / a_ms / 1e9 if a_ms else None,
-            launch_a_peak_share=ops * 1e3 / a_ms / PEAK[mode] if a_ms else None)
 
     # layer 3 (32 heads, one window per clip, shift 0): K2 and K3 at HTSAT-tiny's
     # C=768, K5 and K3 at HTSAT-base's C=1024; LN1 runs before them in plain
@@ -382,7 +382,9 @@ def phase_kernels(stats: KernelStats, dev) -> None:
             if md is not None and name == "wide_window_attention":
                 bargs = (y.to(md), *args[1:])
                 stats.check(name, f"C={c} bf16 input", kernel(*bargs), plain(*bargs), mode)
-            # yardstick: SDPA with the same float bias, on the attention core only
+            # yardsticks: the function as F.linear -> SDPA (the same float
+            # bias) -> F.linear, and SDPA on the attention core alone
+            seq = attention_sequence(*args[1:6], nh, 8, 1, 0, (8, 8), md or torch.float32)
             qkv = (y.reshape(-1, c) @ flat[2].t() + flat[3]).reshape(B, 64, 3, nh, c // nh)
             q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).to(md or torch.float32).contiguous()
                        for i in range(3))
@@ -390,10 +392,13 @@ def phase_kernels(stats: KernelStats, dev) -> None:
             stats.time(name, f"C={c}", mode, lambda: kernel(*args), lambda: plain(*args),
                        2 * nbytes_of([y]) + nbytes_of(args[1:6]),
                        typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
-                       library_fn=lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                         attn_mask=bias))
-            if name == "wide_window_attention":
-                k5_launch_a(f"C={c}", args, mode)
+                       library_fn=lambda: seq(y), library_what=ATTENTION_SEQUENCE)
+            log("kernels", kernel=name, shape=f"C={c}", mode=mode,
+                yardstick_rel_err=rel_err(seq(y), plain(*args)),
+                sdpa_core_ms=2 * time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias)))
+            if md is not None or name == "wide_window_attention":
+                attention_launch(name, f"C={c}", mode, lambda: kernel(*args), r, c)
             a = a.reshape(r, c)
             for use_res, dffn in ((False, False), (True, False), (True, True)):
                 rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
@@ -433,7 +438,26 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                     stats.check("wide_window_attention", label, k5.wide_window_attention(*args),
                                 k5.wide_attention_plain(*args), mode)
                     if windows >= B and shift == 0 and xin is x:  # the large model's layers
-                        k5_launch_a(label, args, mode)
+                        attention_launch("wide_window_attention", label, mode,
+                                         lambda: k5.wide_window_attention(*args),
+                                         windows * window * window, c)
+
+    # the shared AMP kernel at its edges through K2 and K4: 7-wide windows
+    # (n = 49 < 64, shift 3) and odd window counts, at hd 24 and 32
+    for c, nh, windows, window, nw, hw, shift in ((96, 4, 8, 7, 4, (14, 14), 3),
+                                                 (768, 32, 3, 8, 1, (8, 8), 0),
+                                                 (128, 4, 5, 8, 1, (8, 8), 0)):
+        flat, res = block(c, nh)
+        table = t((2 * window - 1) ** 2, nh, scale=0.02)
+        x = t(windows, window * window, c, scale=0.5)
+        flat = flat[:12] + (table,)
+        label = f"C={c} nh={nh} windows={windows} n={window * window} shift={shift}"
+        args = (x, *flat[2:6], table, nh, window, nw, shift, hw, torch.bfloat16)
+        stats.check("fused_window_attention", label, k2.fused_window_attention(*args),
+                    k2.window_attention_plain(*args), "bf16")
+        blk = (x, flat + res, nh, window, nw, shift, hw, True, True, torch.bfloat16)
+        stats.check("fused_swin_block", label, k4.fused_swin_block(*blk),
+                    k4.swin_block_plain(*blk), "bf16")
 
 
 FFN_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> F.linear + "
@@ -457,14 +481,106 @@ def ffn_sequence(fargs, md):
     return run
 
 
+ATTENTION_SEQUENCE = ("a sequence of calls, which the port never calls: F.linear -> SDPA with "
+                      "the same float bias + mask -> F.linear, on the same operands")
+BLOCK_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> "
+                  "F.linear -> SDPA -> F.linear [-> ResiDual] + x -> F.layer_norm -> F.linear + "
+                  "F.gelu -> F.linear + add [-> the double FFN], on the same operands")
+ATTENTION_KERNELS = ("window_attention_wgmma", "wide_")  # launch (A): AMP, K5 golden
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def attention_sequence(wqkv, bqkv, wproj, bproj, table, nh, window, nw, shift, res, dt):
+    """K2's function as PyTorch calls in operand type ``dt`` (cuBLAS
+    products, SDPA with the float bias + mask): ``run(y [W, n, C])``, the
+    yardstick of K2 and of K4's attention half, not a path of the port."""
+    import torch.nn.functional as F
+
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+    bias, mask = k2.bias_and_mask(table, window, shift, res)
+    am = (bias[None] if mask is None else bias[None] + mask[:, None]).to(dt)  # [nW, nh, n, n]
+    wq, bq, wp, bp = (w.to(dt) for w in (wqkv, bqkv, wproj, bproj))
+
+    def run(y):
+        wn, n, c = y.shape
+        qkv = F.linear(y.to(dt), wq, bq).reshape(wn // nw, nw, n, 3, nh, c // nh)
+        q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).unbind(0)  # [B, nW, nh, n, hd]
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        return F.linear(o.permute(0, 1, 3, 2, 4).reshape(wn, n, c), wp, bp)
+
+    return run
+
+
+def block_sequence(args, dt):
+    """K4's function as PyTorch calls (:func:`attention_sequence`, f32
+    ResiDual and residual adds, cuBLAS FFN in operand type ``dt``): the
+    yardstick ``library_ms`` of K4, not a path of the port."""
+    import torch.nn.functional as F
+
+    x, flat, nh, window, nw, shift, res, use_res, dffn, _ = args
+    n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, w1, b1, w2, b2, table, *rp = flat
+    attn = attention_sequence(wqkv, bqkv, wproj, bproj, table, nh, window, nw, shift, res, dt)
+    w1b, b1b, w2b, b2b = (w.to(dt) for w in (w1, b1, w2, b2))
+    c = x.shape[-1]
+
+    def ffn(t):
+        z = F.layer_norm(t, (c,), n2s, n2b).to(dt)
+        return F.linear(F.gelu(F.linear(z, w1b, b1b)), w2b, b2b).float()
+
+    def run():
+        xf = x.float()
+        a = attn(F.layer_norm(xf, (c,), n1s, n1b)).float()
+        if use_res:
+            basis, mean, lam = rp
+            a = ((a - mean) @ basis.t() * lam) @ basis
+        h = xf + a
+        out = h + ffn(h)
+        if use_res and dffn:
+            y2 = xf + out
+            out = y2 + ffn(y2)
+        return out.to(x.dtype)
+
+    return run
+
+
+def attention_launch(kernel, label, mode, call, r, c) -> None:
+    """The qkv + attention launch of one call by device time (2 r 3C C +
+    4 r 64 C operations), beside all of the call's kernels: the AMP
+    window_attention_wgmma_kernel of K2, K4 and K5, or K5's golden launch
+    (A), one a call. A profiler window now and then drops kernel records:
+    up to three windows are taken for one that holds all five launches,
+    else the time is not measured (the card tests hold the count)."""
+    ops = 6.0 * r * c * c + 4.0 * r * 64 * c
+    call()
+    a_ms = call_ms = launches = None
+    for _ in range(3):
+        prof = device_profile(lambda: [call() for _ in range(5)])
+        if prof is None:
+            continue
+        launches = sum(v for n_, v in prof[4].items() if any(k in n_ for k in ATTENTION_KERNELS))
+        if launches == 5:
+            a_ms = sum(v for n_, v in prof[1].items()
+                       if any(k in n_ for k in ATTENTION_KERNELS)) / 5
+            call_ms = prof[2] / 5
+            break
+    log("kernels", kernel=kernel, shape=label, mode=mode, attention_launch_device_ms=a_ms,
+        call_device_ms=call_ms, launches_in_window=launches,
+        attention_launch_tflops=ops / a_ms / 1e9 if a_ms else None,
+        attention_launch_peak_share=ops * 1e3 / a_ms / PEAK[mode] if a_ms else None)
+
+
 def kernel_group(name: str) -> str:
     """The port's kernels by role; everything else is PyTorch's."""
     for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
                        ("gemm_f32_kernel", "f32 GEMM (golden, ResiDual)"),
-                       ("attention_core_kernel", "attention core"),
+                       ("attention_core_kernel", "attention core (golden)"),
+                       ("window_attention_wgmma", "K2/K4/K5 qkv + attention, AMP (TMA + wgmma)"),
                        ("add_layernorm_kernel", "LayerNorm"),
                        ("ffn_cluster_kernel", "K3 FFN, AMP (clustered TMA + wgmma)"),
-                       ("wide_attention_wgmma", "K5 qkv + attention, AMP (TMA + wgmma)"),
                        ("wide_qkv_attention", "K5 qkv + attention, golden (CUDA cores)"),
                        ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
                        ("logmel_kernel", "K1 log-mel, golden (CUDA cores)")):
@@ -539,7 +655,6 @@ def gemm_specs():
                                 ("tiny", 384, 8192, 6, False), ("base", 128, 131072, 2, True),
                                 ("base", 256, 32768, 2, False), ("base", 512, 8192, 12, False)):
         tag = f"{model} K4 C={c}"
-        specs.append((f"{tag} qkv", r, 3 * c, c, dict(bias=True, col_scale=True, out=bf16), n))
         if res:
             specs += [(f"{tag} proj", r, c, c, dict(bias=True, out=f32), n),
                       (f"{tag} fc1", r, 4 * c, c, dict(bias=True, gelu=True, out=bf16), 2 * n),
@@ -550,10 +665,10 @@ def gemm_specs():
             specs += [(f"{tag} proj+x", r, c, c, dict(bias=True, r1=f32, out=f32), n),
                       (f"{tag} fc1", r, 4 * c, c, dict(bias=True, gelu=True, out=bf16), n),
                       (f"{tag} fc2+h1", r, c, 4 * c, dict(bias=True, r1=f32, out=f32), n)]
-    # layer 3 (2048 rows, f32 activations): K2 at tiny's C=768, K5's proj at base's
-    # C=1024 (K3 runs its own clustered kernel there)
-    specs += [("tiny K2 C=768 qkv", 2048, 2304, 768, dict(bias=True, col_scale=True, out=bf16), 2),
-              ("tiny K2 C=768 proj", 2048, 768, 768, dict(bias=True, out=f32), 2),
+    # layer 3 (2048 rows, f32 activations): K2's proj at tiny's C=768, K5's at
+    # base's C=1024 (K3 runs its own clustered kernel there; the qkv products
+    # of K2, K4 and K5 run inside the qkv + attention kernel)
+    specs += [("tiny K2 C=768 proj", 2048, 768, 768, dict(bias=True, out=f32), 2),
               ("base K5 C=1024 proj", 2048, 1024, 1024, dict(bias=True, out=f32), 2)]
     return specs
 
@@ -680,14 +795,34 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     log("main", model=label,
         weight_cast_once_ms=time_ms(lambda: [w.to(torch.bfloat16) for w in mats]),
         weight_mats=len(mats), weight_mb=sum(w.numel() for w in mats) * 4 / 1e6)
-    prof = device_profile(lambda: zero_shot(torch.bfloat16))
-    log_profile("main", f"{label} bf16 forward", prof)
-    if prof is not None:  # K3's AMP call is one launch a pass: its kernel, once a call
+    # K3's AMP call is one launch a pass: its kernel, once a call; every K2,
+    # K4 and K5 call runs the qkv + attention kernel once, and none the
+    # golden attention core. A profiler window now and then drops kernel
+    # records, so up to three windows are taken for one that holds them all.
+    want = sum(expected.get(k, 0) for k in ("fused_swin_block", "fused_window_attention",
+                                             "wide_window_attention"))
+    prof = None
+    for _ in range(3):
+        window = device_profile(lambda: zero_shot(torch.bfloat16))
+        if window is None:
+            continue
+        prof = window
         k3_kernels = sum(n for name, n in prof[4].items() if "ffn_cluster_kernel" in name)
-        log("main", model=label, k3_ffn_cluster_launches=k3_kernels)
+        tc = sum(n for name, n in prof[4].items() if "window_attention_wgmma" in name)
+        core = sum(n for name, n in prof[4].items() if "attention_core_kernel" in name)
+        if k3_kernels == expected["fused_residual_ffn"] and tc == want:
+            break
+    log_profile("main", f"{label} bf16 forward", prof)
+    if prof is not None:
+        log("main", model=label, k3_ffn_cluster_launches=k3_kernels,
+            window_attention_wgmma_launches=tc, attention_core_launches=core)
         if k3_kernels != expected["fused_residual_ffn"]:
             raise AssertionError(f"{label}: {k3_kernels} ffn_cluster_kernel launches in the "
                                  f"AMP forward, expected {expected['fused_residual_ffn']}")
+        if tc != want or core:
+            raise AssertionError(f"{label}: the AMP forward launched window_attention_wgmma "
+                                 f"{tc} times (expected {want}) and attention_core_kernel "
+                                 f"{core} times (expected 0)")
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())

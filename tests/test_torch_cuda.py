@@ -314,6 +314,145 @@ def test_swin_block_amp_matches_plain_on_card(dev, shift):
     assert dict(launch_counts) == {"fused_swin_block": 2}
 
 
+# (C, nh, windows per clip, resolution) of every K2/K4 layer of the shipped
+# HTSAT configs: tiny layers 0-3 (hd 24), base layers 0-2 (hd 32), large
+# layers 0-1 (hd 64)
+WINDOW_LAYERS = {"tiny-l0": (96, 4, 64, (64, 64)), "tiny-l1": (192, 8, 16, (32, 32)),
+                 "tiny-l2": (384, 16, 4, (16, 16)), "tiny-l3": (768, 32, 1, (8, 8)),
+                 "base-l0": (128, 4, 64, (64, 64)), "base-l1": (256, 8, 16, (32, 32)),
+                 "base-l2": (512, 16, 4, (16, 16)), "large-l0": (256, 4, 64, (64, 64)),
+                 "large-l1": (512, 8, 16, (32, 32))}
+
+
+def _block_of(dev, c, nh, windows, window=8, seed=5):
+    """K4's flat params with a ResiDual, and x [windows, window^2, C]."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    h = 4 * c
+    flat = (t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(3 * c, c, scale=0.05),
+            t(3 * c, scale=0.02), t(c, c, scale=0.05), t(c, scale=0.02),
+            t(c, scale=0.1, offset=1.0), t(c, scale=0.1), t(h, c, scale=0.05), t(h, scale=0.02),
+            t(c, h, scale=0.05), t(c, scale=0.02), t((2 * window - 1) ** 2, nh, scale=0.02))
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res = (torch.from_numpy(q.astype(np.float32)).to(dev), t(c, scale=0.01),
+           t(c, scale=0.1, offset=1.0))
+    return flat, res, t(windows, window * window, c, scale=0.5)
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("layer", list(WINDOW_LAYERS))
+def test_window_attention_amp_matches_plain_on_card(dev, layer, shift):
+    """K2 and K4 under AMP (the qkv + attention kernel, then the proj GEMM)
+    against their plain versions at every shipped K2/K4 shape, B = 2, bf16
+    and f32 input, K4 without and with ResiDual + the double FFN: max
+    |kernel - plain| / max |plain| within 2e-2 (one bf16 ulp is 3.9e-3 of a
+    value, and a flip of one stored element reaches that)."""
+    c, nh, nw, res = WINDOW_LAYERS[layer]
+    flat, rp, x = _block_of(dev, c, nh, 2 * nw)
+    launch_counts.clear()
+    with torch.no_grad():
+        for xin in (x, x.bfloat16()):
+            args = (xin, *flat[2:6], flat[12], nh, 8, nw, shift, res, torch.bfloat16)
+            out = k2.fused_window_attention(*args)
+            assert out.dtype == xin.dtype and bool(torch.isfinite(out.float()).all())
+            assert _rel(out, k2.window_attention_plain(*args)) < 2e-2
+            for use_res in (False, True):
+                blk = (xin, flat + (rp if use_res else ()), nh, 8, nw, shift, res, use_res,
+                       use_res, torch.bfloat16)
+                out = k4.fused_swin_block(*blk)
+                assert out.dtype == xin.dtype and bool(torch.isfinite(out.float()).all())
+                assert _rel(out, k4.swin_block_plain(*blk)) < 2e-2
+    assert dict(launch_counts) == {"fused_window_attention": 2, "fused_swin_block": 4}
+
+
+@pytest.mark.parametrize("c,nh,windows,window,nw,shift,res", [
+    (96, 4, 8, 7, 4, 3, (14, 14)),     # 7-wide windows: n = 49 < 64, shifted, hd 24
+    (768, 32, 3, 8, 1, 0, (8, 8)),     # 3 windows: a pair's second window missing
+    (128, 4, 5, 8, 1, 0, (8, 8)),      # 5 windows at hd 32
+], ids=["n49", "3-windows", "5-windows"])
+def test_window_attention_amp_at_the_edges_on_card(dev, c, nh, windows, window, nw, shift, res):
+    """Rows past n are computed and not stored; a missing window is
+    zero-filled and not stored."""
+    flat, rp, x = _block_of(dev, c, nh, windows, window=window)
+    with torch.no_grad():
+        args = (x, *flat[2:6], flat[12], nh, window, nw, shift, res, torch.bfloat16)
+        assert _rel(k2.fused_window_attention(*args), k2.window_attention_plain(*args)) < 2e-2
+        blk = (x, flat + rp, nh, window, nw, shift, res, True, True, torch.bfloat16)
+        assert _rel(k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)) < 2e-2
+
+
+def _device_kernels(fn) -> list:
+    """The names of the kernels ``fn()`` ran, by the profiler. A window now
+    and then drops its first kernel's record, so one PyTorch kernel runs
+    first and is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").mul_(2)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if spans and "arpu::" not in spans[0][1]:
+        spans = spans[1:]
+    return [name for _, name in spans]
+
+
+def test_window_attention_amp_is_one_kernel_and_the_proj_gemm(dev):
+    """By the profiler's kernel names: a K2 AMP call on bf16 x is one
+    window_attention_wgmma_kernel and one bf16 GEMM (the proj), nothing
+    else; K4's AMP call runs the same kernel once; no attention_core_kernel
+    under AMP, where the golden route still runs it."""
+    c, nh, nw, res = WINDOW_LAYERS["tiny-l3"]
+    flat, rp, x = _block_of(dev, c, nh, 2 * nw)
+    args = (x.bfloat16(), *flat[2:6], flat[12], nh, 8, nw, 0, res, torch.bfloat16)
+    blk = (x.bfloat16(), flat + rp, nh, 8, nw, 0, res, True, True, torch.bfloat16)
+    with torch.no_grad():
+        k2.fused_window_attention(*args), k4.fused_swin_block(*blk)  # bf16 copies, maps
+        names = _device_kernels(lambda: k2.fused_window_attention(*args))
+        assert len(names) == 2, names
+        assert sum("window_attention_wgmma_kernel" in n for n in names) == 1, names
+        assert sum("gemm_kernel<" in n for n in names) == 1, names
+        names = _device_kernels(lambda: k4.fused_swin_block(*blk))
+        assert sum("window_attention_wgmma_kernel" in n for n in names) == 1, names
+        assert not any("attention_core_kernel" in n for n in names), names
+        golden = _device_kernels(lambda: k2.fused_window_attention(*args[:-1]))
+        assert sum("attention_core_kernel" in n for n in golden) == 1, golden
+        assert not any("window_attention_wgmma_kernel" in n for n in golden), golden
+
+
+def test_window_attention_amp_gives_equal_bits_twice(dev):
+    """The kernel's reduction order is fixed: two calls give the same bits."""
+    c, nh, nw, res = WINDOW_LAYERS["tiny-l0"]
+    flat, rp, x = _block_of(dev, c, nh, nw)
+    with torch.no_grad():
+        args = (x, *flat[2:6], flat[12], nh, 8, nw, 4, res, torch.bfloat16)
+        assert torch.equal(k2.fused_window_attention(*args), k2.fused_window_attention(*args))
+        blk = (x.bfloat16(), flat + rp, nh, 8, nw, 4, res, True, True, torch.bfloat16)
+        assert torch.equal(k4.fused_swin_block(*blk), k4.fused_swin_block(*blk))
+
+
+def test_window_attention_amp_refuses_a_head_dim_without_a_plan(dev):
+    """hd 48 (C = 96, 2 heads): the AMP route raises before any launch; the
+    golden route takes it."""
+    flat, _, x = _block_of(dev, 96, 2, 4)
+    args = (x, *flat[2:6], flat[12], 2, 8, 4, 0, (16, 16))
+    launch_counts.clear()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head dims"):
+            k2.fused_window_attention(*args, torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            k4.fused_swin_block(x, flat, 2, 8, 4, 0, (16, 16), False, False, torch.bfloat16)
+        assert dict(launch_counts) == {}
+        assert _rel(k2.fused_window_attention(*args), k2.window_attention_plain(*args)) < 1e-4
+
+
 WIN_1536 = fe.FrontendConfig(n_fft=1536, win_length=1536)  # HTSAT-tiny-win-1536's frontend
 
 

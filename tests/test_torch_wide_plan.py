@@ -1,6 +1,6 @@
-"""The plan of K5's AMP kernel (``csrc/wide_attention.cu::
-wide_attention_wgmma_kernel``), held on the CPU against the plain version and
-the JAX Pallas kernel.
+"""The plan of K5's AMP kernel (``csrc/window_attention_tc.cuh::
+window_attention_wgmma_kernel``, which K5 shares with K2 and K4), held on
+the CPU against the plain version and the JAX Pallas kernel.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 what it is given and how it splits the work are checked here: the launch
