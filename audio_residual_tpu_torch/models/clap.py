@@ -71,15 +71,24 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp(sq, min=eps * eps))
 
 
-@torch.no_grad()
 def encode_audio(model: CLAPAudio, batch, *, residual: dict | None = None,
-                 double_ffn_compat: bool = True, compute_dtype=None) -> dict:
+                 double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
+                 stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
     """Audio branch forward -> output dict, plus ``projected`` and
     ``normalized``. ``batch`` is ``{"waveform": [B, T]}`` or a ``[B, T]``
-    tensor on the model's device. Inference only."""
-    wav = batch["waveform"] if isinstance(batch, dict) else batch
-    out = htsat_apply(model.audio_branch, wav, residual=residual,
-                      double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype)
+    tensor on the model's device, or a cached prefix (``{"image"}``,
+    ``{"tokens"}``); ``stop_at_image`` / ``stop_at_layer`` return the prefix
+    (``{"image"}`` / ``{"tokens"}``) untouched. See :func:`htsat_apply`.
+
+    The model's weights are frozen, so a forward builds an autograd graph
+    only where a ResiDual ``lam`` requires grad (λ-training); callers that
+    only embed need no ``torch.no_grad()``, though it saves the check."""
+    out = htsat_apply(model.audio_branch, batch, residual=residual,
+                      double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                      start_layer=start_layer, stop_at_layer=stop_at_layer,
+                      stop_at_image=stop_at_image)
+    if stop_at_layer is not None or stop_at_image:
+        return out
     proj = apply_projection(model, out["embedding"])
     out["projected"] = proj
     out["normalized"] = l2_normalize(proj)

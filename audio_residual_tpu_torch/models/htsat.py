@@ -1,9 +1,10 @@
 """HTSAT (Hierarchical Token-Semantic Audio Transformer), eval path.
 
-Port of ``audio_residual_tpu/models/htsat.py`` (no mel fusion, no taps, no
-training mode). Module attribute names give the reference LAION-CLAP
-``state_dict`` keys (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the
-layout ``audio_residual_tpu/models/convert.py`` writes.
+Port of ``audio_residual_tpu/models/htsat.py`` with its split points (no
+mel fusion, no taps, no training mode). Module attribute names give the
+reference LAION-CLAP ``state_dict`` keys
+(``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the layout
+``audio_residual_tpu/models/convert.py`` writes.
 
 Kernel routing: every block of a layer with several windows per image runs
 ``fused_swin_block`` (K4); a layer whose window covers the whole image (one
@@ -317,10 +318,23 @@ def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: 
     return y.reshape(b, n, c)
 
 
-def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None,
-                double_ffn_compat: bool = True, compute_dtype=None) -> dict:
-    """Full HTSAT forward on ``wav [B, T]``; returns ``framewise_output``,
-    ``clipwise_output``, ``fine_grained_embedding`` and ``embedding``.
+def htsat_apply(model: HTSAT, batch, *, residual: dict | None = None,
+                double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
+                stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
+    """HTSAT forward; returns ``framewise_output``, ``clipwise_output``,
+    ``fine_grained_embedding`` and ``embedding``.
+
+    ``batch``: ``{"waveform": [B, T]}`` or a bare ``[B, T]`` tensor, or a
+    cached prefix to resume from: ``{"image": [B, H, W, 1]}`` (always from
+    layer 0) or ``{"tokens": [B, L, C]}`` (from ``start_layer``).
+
+    Split points for frozen-prefix caching
+    (``audio_residual_tpu/models/htsat.py::htsat_apply``): ``stop_at_image``
+    returns ``{"image": ...}`` right after ``reshape_wav2img``, in the dtype
+    the path made it (bf16 under AMP); ``stop_at_layer=l`` runs the layers
+    below ``l`` and returns ``{"tokens": x}``. A resume runs the same
+    operations as the uncached forward from that point, so it gives the
+    same bits.
 
     ``residual``: ``{layer_idx: {"basis": [K, D], "mean": [D], "lam": [K]}}``,
     applied in every block of the layer. ``compute_dtype=torch.bfloat16`` is
@@ -332,6 +346,32 @@ def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None
     cfg = model.cfg
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+    if isinstance(batch, dict) and ("tokens" in batch or "image" in batch):
+        if stop_at_image:
+            raise ValueError("stop_at_image needs a waveform input")
+        if "image" in batch:
+            if start_layer != 0:
+                raise ValueError("image input always resumes at layer 0")
+            x = batch["image"]
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
+            frames_num = x.shape[1]
+            x = _patch_embed(model.patch_embed, x, cfg)
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
+        else:
+            # in the dtype they were cached in: under AMP the port's
+            # PatchMerging hands the next layer f32 (the JAX package casts
+            # here, where its PatchMerging already gave bf16)
+            x = batch["tokens"]
+            frames_num = cfg.spec_size
+        return _layers_and_head(model, x, frames_num, residual=residual,
+                                double_ffn_compat=double_ffn_compat,
+                                compute_dtype=compute_dtype,
+                                start_layer=start_layer if "tokens" in batch else 0,
+                                stop_at_layer=stop_at_layer)
+
+    wav = batch["waveform"] if isinstance(batch, dict) else batch
     # the frontend's DFT follows the AMP mode (single-pass bf16 under AMP)
     # unless the config names one
     dft = cfg.dft_mode or ("bf16" if compute_dtype == torch.bfloat16 else "f32")
@@ -343,12 +383,26 @@ def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     x = reshape_wav2img(x, cfg)
+    if stop_at_image:
+        return {"image": x}
     frames_num = x.shape[1]
     x = _patch_embed(model.patch_embed, x, cfg)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    return _layers_and_head(model, x, frames_num, residual=residual,
+                            double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                            start_layer=0, stop_at_layer=stop_at_layer)
 
-    for i, layer in enumerate(model.layers):
+
+def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, residual,
+                     double_ffn_compat, compute_dtype, start_layer: int,
+                     stop_at_layer: int | None) -> dict:
+    """Swin layers ``start_layer .. stop_at_layer`` (or the end) on tokens
+    ``x``, then the head (``htsat.py::_htsat_layers_and_head``)."""
+    cfg = model.cfg
+    end_layer = stop_at_layer if stop_at_layer is not None else cfg.num_layers
+    for i in range(start_layer, end_layer):
+        layer = model.layers[i]
         res_i = residual.get(i) if residual is not None else None
         resolution = cfg.layer_resolution(i)
         for j, blk in enumerate(layer.blocks):
@@ -359,6 +413,8 @@ def htsat_apply(model: HTSAT, wav: torch.Tensor, *, residual: dict | None = None
             )
         if layer.downsample is not None:
             x = _patch_merge(layer.downsample, x, resolution)
+    if stop_at_layer is not None:
+        return {"tokens": x}
 
     x = _ln(model.norm, x.float())
     b, _, c = x.shape

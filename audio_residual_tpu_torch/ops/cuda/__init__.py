@@ -2,9 +2,11 @@
 ``gemm``, the bf16 GEMM they share under AMP.
 
 Each kernel module holds the wrapper (checks, allocation, launch on the
-current stream), its plain PyTorch version, and nothing else. A wrapper runs
-the plain version only for tensors on the CPU; for a CUDA tensor it launches
-the kernel or raises.
+current stream), its plain PyTorch version and, for K2-K5, its autograd
+entry (:mod:`.autograd`: the kernel forward, the plain version's backward).
+A wrapper runs the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises, through the autograd entry when an
+input requires grad in grad mode.
 
 ``launch_counts`` counts, per kernel, the launches made on the card; a run
 clears it and reads it afterwards to show which kernels a path went

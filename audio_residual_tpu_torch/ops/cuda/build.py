@@ -143,6 +143,6 @@ def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = ()
             raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected one of {allowed}")
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError(
-                f"{what}: {name} requires grad; the CUDA kernels are inference-only "
-                "(run under torch.no_grad())"
+                f"{what}: {name} requires grad; a kernel entry builds no graph (the wrappers "
+                "of K2-K5 take their autograd entry for such inputs; K1 has no backward)"
             )

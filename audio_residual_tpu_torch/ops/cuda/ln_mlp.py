@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
     derived,
     mxu_weights,
@@ -33,7 +34,8 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
 )
 from audio_residual_tpu_torch.residual.module import residual_apply
 
-__all__ = ["fused_residual_ffn", "residual_ffn_plain", "amp_plan", "FfnPlan"]
+__all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_autograd", "amp_plan",
+           "FfnPlan"]
 
 # the AMP kernel's constants (csrc/ln_mlp.cu, namespace ffn)
 ROWS = 128                  # rows of a cluster's tile: two consumer warpgroups of 64
@@ -159,10 +161,46 @@ def residual_pointers(rparams, c: int) -> tuple:
 def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | None = None, *,
                        double_ffn: bool = False, mxu_dtype=None) -> torch.Tensor:
     """``x, a [R, C]`` -> post-block rows ``[R, C]``. CPU tensors take
-    :func:`residual_ffn_plain`."""
+    :func:`residual_ffn_plain`; CUDA tensors with an input that requires
+    grad (in grad mode) take :func:`residual_ffn_autograd`."""
     if x.device.type == "cpu":
         return residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
                                   double_ffn=double_ffn, mxu_dtype=mxu_dtype)
+    if needs_graph(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, *_residual_tensors(rparams)):
+        return residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
+                                     double_ffn=double_ffn, mxu_dtype=mxu_dtype)
+    return _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams, double_ffn=double_ffn,
+                   mxu_dtype=mxu_dtype)
+
+
+def _residual_tensors(rparams) -> tuple:
+    if rparams is None:
+        return None, None, None
+    return rparams["basis"], rparams["mean"], rparams["lam"]
+
+
+def _residual_dict(basis, mean, lam) -> dict | None:
+    return None if basis is None else {"basis": basis, "mean": mean, "lam": lam}
+
+
+def residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
+                          double_ffn=False, mxu_dtype=None) -> torch.Tensor:
+    """K3 under autograd (:mod:`.autograd`): the kernel forward (the plain
+    version for CPU tensors), the plain version's backward, with grads for
+    ``x``, ``a`` and the ResiDual params."""
+    def call(fn):
+        return lambda *t: fn(*t[:8], _residual_dict(*t[8:]), double_ffn=double_ffn,
+                             mxu_dtype=mxu_dtype)
+
+    kernel = residual_ffn_plain if x.device.type == "cpu" else _kernel
+    op = Op(call(kernel), call(residual_ffn_plain))
+    return Recompute.apply(op, x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
+                           *_residual_tensors(rparams))
+
+
+def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=False,
+            mxu_dtype=None) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, one call, its count."""
     store = store_dtype(x, mxu_dtype)
     if x.ndim != 2 or a.shape != x.shape:
         raise ValueError(f"fused_residual_ffn: x and a must be [R, C], got {x.shape}, {a.shape}")

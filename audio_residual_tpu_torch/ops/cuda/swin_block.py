@@ -32,6 +32,7 @@ import torch
 
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
     fused_residual_ffn,
     residual_ffn_f32,
@@ -49,7 +50,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     store_dtype,
 )
 
-__all__ = ["fused_swin_block", "swin_block_plain", "split_block"]
+__all__ = ["fused_swin_block", "swin_block_plain", "swin_block_autograd", "split_block"]
 
 
 def _unpack(flat_params, use_residual: bool):
@@ -110,13 +111,35 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
                      mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` pre-norm windows -> post-block windows, in the store
     dtype. C >= ``WIDE_MIN_C`` runs :func:`split_block`; other CPU tensors
-    take :func:`swin_block_plain`."""
+    take :func:`swin_block_plain`; CUDA tensors with an input that requires
+    grad (in grad mode) take :func:`swin_block_autograd`."""
+    args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
+            mxu_dtype)
     if x.shape[-1] >= WIDE_MIN_C:
-        return split_block(x, flat_params, nh, window, num_windows_per_image, shift,
-                           resolution, use_residual, double_ffn, mxu_dtype)
+        return split_block(x, flat_params, *args)
     if x.device.type == "cpu":
-        return swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift,
-                                resolution, use_residual, double_ffn, mxu_dtype)
+        return swin_block_plain(x, flat_params, *args)
+    if needs_graph(x, *flat_params):
+        return swin_block_autograd(x, flat_params, *args)
+    return _kernel(x, flat_params, *args)
+
+
+def swin_block_autograd(x, flat_params, nh, window, num_windows_per_image, shift, resolution,
+                        use_residual, double_ffn, mxu_dtype=None) -> torch.Tensor:
+    """K4 under autograd (:mod:`.autograd`): the kernel forward (the plain
+    version for CPU tensors), :func:`swin_block_plain`'s backward
+    (``swin_block.py::_fsb_bwd``)."""
+    args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
+            mxu_dtype)
+    kernel = swin_block_plain if x.device.type == "cpu" else _kernel
+    op = Op(lambda x_, *fp: kernel(x_, fp, *args),
+            lambda x_, *fp: swin_block_plain(x_, fp, *args))
+    return Recompute.apply(op, x, *flat_params)
+
+
+def _kernel(x, flat_params, nh, window, num_windows_per_image, shift, resolution, use_residual,
+            double_ffn, mxu_dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, one call, its count."""
     store = store_dtype(x, mxu_dtype)
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
      table), rparams = _unpack(flat_params, use_residual)

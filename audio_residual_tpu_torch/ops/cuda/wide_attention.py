@@ -31,6 +31,7 @@ import torch
 
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
     SMEM_LIMIT,
     AmpPlan,
@@ -42,8 +43,8 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     window_attention_plain,
 )
 
-__all__ = ["wide_window_attention", "wide_attention_plain", "amp_plan", "AmpPlan",
-           "padded_bias_and_mask", "SMEM_LIMIT"]
+__all__ = ["wide_window_attention", "wide_attention_plain", "wide_attention_autograd",
+           "amp_plan", "AmpPlan", "padded_bias_and_mask", "SMEM_LIMIT"]
 
 HEAD_DIMS = (32, 64)  # the golden kernel's; the AMP kernel takes these among others
 
@@ -70,10 +71,32 @@ def wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int, 
                           num_windows_per_image: int, shift: int, resolution,
                           mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` -> attention output, same shape, in the store
-    dtype. CPU tensors take :func:`wide_attention_plain`."""
+    dtype. CPU tensors take :func:`wide_attention_plain`; CUDA tensors with
+    an input that requires grad (in grad mode) take
+    :func:`wide_attention_autograd`."""
     if x.device.type == "cpu":
         return wide_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                     num_windows_per_image, shift, resolution, mxu_dtype)
+    if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
+        return wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                                       num_windows_per_image, shift, resolution, mxu_dtype)
+    return _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                   num_windows_per_image, shift, resolution, mxu_dtype)
+
+
+def wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                            num_windows_per_image, shift, resolution, mxu_dtype=None):
+    """K5 under autograd (:mod:`.autograd`): the kernel forward (the plain
+    version for CPU tensors), the plain version's backward."""
+    meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
+    kernel = wide_attention_plain if x.device.type == "cpu" else _kernel
+    op = Op(lambda *t: kernel(*t, *meta), lambda *t: wide_attention_plain(*t, *meta))
+    return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
+
+
+def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
+            shift, resolution, mxu_dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, one call, its count."""
     store = store_dtype(x, mxu_dtype)
     weights = {"wqkv": wqkv, "bqkv": bqkv, "wproj": wproj, "bproj": bproj,
                "rel_bias_table": rel_bias_table}

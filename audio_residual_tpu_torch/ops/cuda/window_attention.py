@@ -37,9 +37,10 @@ import torch.nn.functional as F
 from audio_residual_tpu_torch.ops import windows as win_ops
 from audio_residual_tpu_torch.ops.common import attention_core, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 
-__all__ = ["fused_window_attention", "window_attention_plain", "WIDE_MIN_C", "mxu_weights",
-           "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
+__all__ = ["fused_window_attention", "window_attention_plain", "window_attention_autograd",
+           "WIDE_MIN_C", "mxu_weights", "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
 
 WIDE_MIN_C = 1024
 """From this width a window attention runs K5: the port's explicit rule for
@@ -80,8 +81,9 @@ def derived(t: torch.Tensor, what, make):
     ``p.data = new`` swap or a move changes them). Not seen: an in-place
     write through ``p.data`` (``p.data.copy_(...)``), which bumps the
     counter of a separate view only. An inference tensor tracks no version,
-    so its value is made at every call."""
-    if t.is_inference():
+    and a value derived from a tensor that requires grad carries its graph:
+    for both the value is made at every call."""
+    if t.is_inference() or t.requires_grad:
         return make(t)
     key = (id(t), what)
     stamp = _stamp(t)
@@ -270,7 +272,8 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
                            mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` -> attention output, same shape, in the store dtype.
     C >= ``WIDE_MIN_C`` goes to K5; other CPU tensors take
-    :func:`window_attention_plain`."""
+    :func:`window_attention_plain`; CUDA tensors with an input that requires
+    grad (in grad mode) take :func:`window_attention_autograd`."""
     if x.shape[-1] >= WIDE_MIN_C:
         # imported here: wide_attention builds on this module's helpers
         from audio_residual_tpu_torch.ops.cuda.wide_attention import wide_window_attention
@@ -280,6 +283,27 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
     if x.device.type == "cpu":
         return window_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                       num_windows_per_image, shift, resolution, mxu_dtype)
+    if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
+        return window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh,
+                                         window, num_windows_per_image, shift, resolution,
+                                         mxu_dtype)
+    return _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                   num_windows_per_image, shift, resolution, mxu_dtype)
+
+
+def window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
+                              num_windows_per_image, shift, resolution, mxu_dtype=None):
+    """K2 under autograd (:mod:`.autograd`): the kernel forward (the plain
+    version for CPU tensors), the plain version's backward."""
+    meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
+    kernel = window_attention_plain if x.device.type == "cpu" else _kernel
+    op = Op(lambda *t: kernel(*t, *meta), lambda *t: window_attention_plain(*t, *meta))
+    return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
+
+
+def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
+            shift, resolution, mxu_dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, one call, its count."""
     weights = {"wqkv": wqkv, "bqkv": bqkv, "wproj": wproj, "bproj": bproj,
                "rel_bias_table": rel_bias_table}
     build.check_cuda_inputs("fused_window_attention", {"x": x, **weights},

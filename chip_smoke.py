@@ -44,6 +44,18 @@ line):
                through the port's kernels.
   4b. fixture -- the wide JAX golden fixture (tests/data/torch_port_wide.npz),
                whose C=1024 layer runs K5.
+  5. train   -- ResiDual λ-training on HTSAT-tiny at full width (phase 3's
+               seeded model, ResiDual and text embeddings; B=32 clips and
+               labels from a seed): train_residual for 2 epochs of 2
+               batches, golden f32 (image-cached); one step split into
+               forward, backward and Adam by CUDA events, golden and AMP,
+               with its peak memory, its launches (the backward launches no
+               kernel) and the uncached step beside it; λ's gradient against
+               autograd through the plain versions on the card (golden:
+               max rel err <= 1e-3; AMP: cosine >= 0.999); the JAX training
+               fixture (tests/data/torch_port_train.npz); the image cache's
+               bit-equal resume; evaluate_zero_shot and the K-fold
+               artifacts on a held-out batch.
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -53,6 +65,7 @@ JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -71,6 +84,16 @@ EXPECTED_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 10, "fused_window_at
 EXPECTED_BASE_LAUNCHES = {"fused_logmel": 1, "fused_swin_block": 16, "wide_window_attention": 2,
                           "fused_residual_ffn": 2}
 TOL = {"f32": 1e-4, "bf16": 2e-2}  # max |kernel - plain| / max |plain|
+# the training phase: epochs of batches of B clips, Adam's rate, timed steps;
+# a step's forward from the cached image launches K4 at layers 0-2 and the
+# split plan at layer 3, the backward none
+TRAIN_EPOCHS, TRAIN_BATCHES, TRAIN_LR, TRAIN_TIMED_STEPS = 2, 2, 0.01, 5
+TRAIN_LAUNCHES = {"fused_swin_block": 10, "fused_window_attention": 2, "fused_residual_ffn": 2}
+GRAD_REL = 1e-3   # golden λ-gradient: max |card - plain| / max |plain|
+GRAD_COS = 0.999  # AMP λ-gradient: cosine against the plain versions'
+# the training fixture's bounds (tests/test_torch_train_residual.py)
+TRAIN_FIXTURE_TOL = {"loss": dict(rtol=1e-4, atol=0), "step_loss": dict(rtol=1e-4, atol=0),
+                     "lam": dict(rtol=0, atol=1e-4), "sims": dict(rtol=0, atol=2e-3)}
 K1_AMP_DB = 0.05  # K1 bf16 against its plain version, dB: the JAX kernel's AMP error
 HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / bf16 rates
 PEAK = {"f32": 67e12, "bf16": 989e12}
@@ -108,6 +131,8 @@ class KernelStats:
         self.kernels = kernels
         self.rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                 bytes_ms=0.0, ops_ms=0.0, library_ms=None) for name in kernels}
+        # the golden f32 rows, summed the same way (the training path's mode)
+        self.golden = {name: collections.Counter() for name in kernels}
 
     def check(self, name, label, got, ref, mode) -> None:
         import torch
@@ -138,6 +163,11 @@ class KernelStats:
         log("kernels", kernel=name, shape=label, mode=mode, launches=launches, ms=ms,
             plain_ms=plain, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=lib, **extra)
+        if mode == "f32":
+            g = self.golden[name]
+            g.update(ms=ms, plain_ms=plain, bound_ms=max(b_ms, o_ms))
+            if lib is not None:
+                g["library_ms"] += lib
         if mode == self.JSON_MODE:
             r = self.rows[name]
             r["ms"] += ms
@@ -147,6 +177,13 @@ class KernelStats:
             r["ops_ms"] += o_ms
             if lib is not None:
                 r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    def log_golden(self) -> None:
+        """One line a kernel: its golden f32 rows summed over the main paths'
+        launches, with the yardstick as PyTorch calls in f32 (TF32 off)."""
+        for name, g in self.golden.items():
+            log("kernels", golden_summary=name, mode="f32", ms=g["ms"], plain_ms=g["plain_ms"],
+                bound_ms=g["bound_ms"], library_ms=g["library_ms"] or None)
 
     def json_line(self, launches: dict) -> str:
         out = []
@@ -409,13 +446,13 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                             k3.residual_ffn_plain(*fargs, double_ffn=dffn, mxu_dtype=md), mode)
                 if use_res:
                     continue  # the main paths' layer 3 has no ResiDual
-                seq = ffn_sequence(fargs, md) if md is not None else None
+                seq = ffn_sequence(fargs, md or torch.float32)
                 stats.time("fused_residual_ffn", label, mode,
                            lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
                            lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
                            3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
                            typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2,
-                           library_fn=seq, library_what=FFN_SEQUENCE if seq else None)
+                           library_fn=seq, library_what=FFN_SEQUENCE)
                 k3_device_time(label, fargs, md, mode, seq, 4.0 * r * c * hidden)
 
     # K5 at HTSAT-large's wide layers: layer 2 (C=1024, 16 heads, four windows
@@ -461,12 +498,12 @@ def phase_kernels(stats: KernelStats, dev) -> None:
 
 
 FFN_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> F.linear + "
-                "F.gelu -> F.linear + add, on the same bf16 operands")
+                "F.gelu -> F.linear + add, on the same operands in the mode's type")
 
 
 def ffn_sequence(fargs, md):
-    """K3's function as PyTorch calls on bf16 operands (cuBLAS products): the
-    yardstick ``library_ms`` of K3, not a path of the port."""
+    """K3's function as PyTorch calls on operands of type ``md`` (cuBLAS
+    products): the yardstick ``library_ms`` of K3, not a path of the port."""
     import torch.nn.functional as F
 
     x, a, n2s, n2b, w1, b1, w2, b2, _ = fargs
@@ -730,6 +767,26 @@ def phase_gemm(dev) -> None:
                                  "shapes_without_device_time")})
 
 
+def main_inputs(cfg, dev) -> tuple:
+    """The main path's ResiDual at layer 0 (an orthonormal basis from a
+    seeded QR, K = C), its 50 class-text embeddings and 32 clips, made as
+    bench.py makes them."""
+    import torch
+
+    from audio_residual_tpu_torch.residual.module import init_residual_params
+
+    rng = np.random.default_rng(1)
+    c = cfg.audio.embed_dim
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    res0 = init_residual_params(q, rng.standard_normal(c) * 0.01, device=dev)
+    res0["lam"] = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(dev)
+    text = np.random.default_rng(7).standard_normal((1, CLIP)).astype(np.float32) * 0.1
+    text = torch.from_numpy(text[:, : N_CLASSES * 512].reshape(N_CLASSES, 512)).to(dev)
+    text = text / text.norm(dim=-1, keepdim=True)
+    wav = np.random.default_rng(123).standard_normal((B, CLIP)).astype(np.float32) * 0.1
+    return {0: res0}, text, torch.from_numpy(wav).to(dev)
+
+
 def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     """ESC-50 zero-shot + ResiDual at layer 0 through ``build_model()`` ->
     ``(model, cfg)``, golden and AMP; returns the AMP forward's launches."""
@@ -739,25 +796,12 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     from audio_residual_tpu_torch.models.clap import encode_audio
     from audio_residual_tpu_torch.ops.cuda import launch_counts
     from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
-    from audio_residual_tpu_torch.residual.module import init_residual_params
 
     t0 = time.perf_counter()
     model, cfg = build_model()
-    # ResiDual at layer 0: orthonormal basis from a seeded QR, K = C
-    rng = np.random.default_rng(1)
-    c = cfg.audio.embed_dim
-    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
-    res0 = init_residual_params(q, rng.standard_normal(c) * 0.01, device=dev)
-    res0["lam"] = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(dev)
-    residual = {0: res0}
-    # 50 class-text embeddings and 32 clips, made as bench.py makes them
-    text = np.random.default_rng(7).standard_normal((1, CLIP)).astype(np.float32) * 0.1
-    text = torch.from_numpy(text[:, : N_CLASSES * 512].reshape(N_CLASSES, 512)).to(dev)
-    text = text / text.norm(dim=-1, keepdim=True)
-    wav = np.random.default_rng(123).standard_normal((B, CLIP)).astype(np.float32) * 0.1
-    wav = torch.from_numpy(wav).to(dev)
-    log("main", model=label, batch=B, clip_samples=CLIP, residual_k=c,
-        setup_s=time.perf_counter() - t0)
+    residual, text, wav = main_inputs(cfg, dev)
+    log("main", model=label, batch=B, clip_samples=CLIP,
+        residual_k=residual[0]["lam"].numel(), setup_s=time.perf_counter() - t0)
 
     def zero_shot(dtype):
         batch = featurize_batch(quantize_roundtrip(wav), cfg.audio.clip_samples)
@@ -832,6 +876,238 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
     return counts["bf16"]
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The forward runs each kernel's plain version on the card: K4's
+    ``swin_block_plain`` for layers 0-2, the split plan's LN1 with K2's (or
+    K5's) and K3's plain versions for layer 3. The gradient check's
+    reference: autograd through the plain versions alone."""
+    from unittest import mock
+
+    from audio_residual_tpu_torch.models import htsat
+    from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
+    from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+    with mock.patch.object(htsat, "fused_swin_block", k4.swin_block_plain), \
+            mock.patch.object(k4, "fused_window_attention", k2.window_attention_plain), \
+            mock.patch.object(k4, "fused_residual_ffn", k3.residual_ffn_plain):
+        yield
+
+
+def cuda_ms_split(fns) -> list[float]:
+    """Run ``fns`` in turn with a CUDA event between each: the ms of each."""
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+    events[0].record()
+    for fn, event in zip(fns, events[1:]):
+        fn()
+        event.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def phase_train(dev, card: str) -> None:
+    """ResiDual λ-training on HTSAT-tiny at full width (the main path's
+    seeded model, ResiDual at layer 0 with K = C = 96 and text embeddings;
+    B=32 clips of 240 000 samples, labels from a seed): ``train_residual``
+    golden, the step split golden and AMP, the λ-gradient against the plain
+    versions', the JAX training fixture, the image cache's exactness, and
+    the K-fold evaluation's outputs. Any miss raises."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.evaluate.metrics import classification_metrics
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio, encode_audio
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.residual.module import (load_residual_params,
+                                                          save_residual_params)
+    from audio_residual_tpu_torch.training import train_residual as tr
+    from tests import torch_port_fixture as fx
+
+    cfg = CLAPConfig()
+    model = build_clap_audio(cfg, seed=0, device=dev)
+    residual, text, _ = main_inputs(cfg, dev)
+    max_len = cfg.audio.clip_samples
+    rng = np.random.default_rng(11)
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, (TRAIN_BATCHES + 1, B))).to(dev)
+    wavs = [torch.from_numpy((0.1 * rng.standard_normal((B, CLIP))).astype(np.float32)).to(dev)
+            for _ in range(TRAIN_BATCHES + 1)]
+
+    def train_batches():
+        return zip(wavs[:TRAIN_BATCHES], labels[:TRAIN_BATCHES])
+
+    modes = (("f32", None), ("bf16", torch.bfloat16))
+
+    # train_residual, golden f32 as the JAX package runs it (auto: image cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, history = tr.train_residual(model, train_batches, text, residual,
+                                         epochs=TRAIN_EPOCHS, lr=TRAIN_LR, max_len=max_len)
+    torch.cuda.synchronize()
+    moved = float((trained[0]["lam"] - residual[0]["lam"]).abs().max())
+    ok = (all(np.isfinite(h["train_loss"]) for h in history) and moved > 0
+          and torch.equal(trained[0]["basis"], residual[0]["basis"]))
+    log("train", run="train_residual golden f32", epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES,
+        batch=B, seconds=time.perf_counter() - t0, history=json.dumps(history),
+        lam_max_move=moved, ok=ok, card=card)
+    if not ok:
+        raise AssertionError("train_residual: λ did not train, or a loss is not finite")
+
+    # one step split into forward, backward and Adam by CUDA events, on the
+    # image cache; its launches; the same step from the waveform
+    images = tr.cache_prefix_images(model, train_batches(), max_len=max_len)
+    for mode, md in modes:
+        lam, frozen = tr._split_residual(residual)
+        optimizer = tr.adam(lam, TRAIN_LR)
+        step, loss_fn = tr.make_zero_shot_step(model, text, frozen, optimizer, max_len=max_len,
+                                               compute_dtype=md, image_input=True)
+        x, y = images[0]
+        out = {}
+
+        def forward():
+            optimizer.zero_grad(set_to_none=True)
+            out["loss"] = loss_fn(lam, x, y)[0]
+
+        splits = []
+        for i in range(TRAIN_TIMED_STEPS + 1):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            split = cuda_ms_split([forward, lambda: out["loss"].backward(), optimizer.step])
+            if i:  # the first step warms up
+                splits.append(split)
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd, opt = (statistics.median(s[i] for s in splits) for i in range(3))
+        step_ms = statistics.median(sum(s) for s in splits)
+        launch_counts.clear()
+        forward()
+        fwd_counts = dict(launch_counts)
+        launch_counts.clear()
+        out["loss"].backward()
+        optimizer.step()
+        torch.cuda.synchronize()
+        bwd_counts = dict(launch_counts)
+        # device time by CUDA kernel over one step: the backward is PyTorch's
+        log_profile("train", f"image-cached step, {mode}", device_profile(
+            lambda: (forward(), out["loss"].backward(), optimizer.step())))
+        uncached, _ = tr.make_zero_shot_step(model, text, frozen, optimizer, max_len=max_len,
+                                             compute_dtype=md)
+        uncached_ms = time_ms(lambda: uncached(lam, wavs[0], labels[0]), reps=TRAIN_TIMED_STEPS,
+                              warmup=1)
+        ok = fwd_counts == TRAIN_LAUNCHES and not bwd_counts
+        log("train", step=f"image-cached, {mode}", forward_ms=fwd, backward_ms=bwd,
+            optimizer_ms=opt, step_ms=step_ms, clips_per_s=B * 1e3 / step_ms,
+            peak_allocated_gb=peak / 1e9, held_before_step_gb=held / 1e9,
+            uncached_step_ms=uncached_ms, loss=float(out["loss"].detach()),
+            launches_forward=json.dumps(fwd_counts), launches_backward=json.dumps(bwd_counts),
+            ok=ok, card=card)
+        if not ok:
+            raise AssertionError(f"train step {mode}: forward launched {fwd_counts} (expected "
+                                 f"{TRAIN_LAUNCHES}), backward {bwd_counts} (expected none)")
+
+    # λ's gradient (kernel forward, plain-version backward) against autograd
+    # through the plain versions alone, at full width
+    for mode, md in modes:
+        lam, frozen = tr._split_residual(residual)
+        _, loss_fn = tr.make_zero_shot_step(model, text, frozen, tr.adam(lam, TRAIN_LR),
+                                            max_len=max_len, compute_dtype=md, image_input=True)
+        x, y = images[0]
+        loss, _ = loss_fn(lam, x, y)
+        (g,) = torch.autograd.grad(loss, [lam[0]])
+        launch_counts.clear()
+        with plain_kernels():
+            loss_p, _ = loss_fn(lam, x, y)
+            (g_p,) = torch.autograd.grad(loss_p, [lam[0]])
+        torch.cuda.synchronize()
+        rel = float((g - g_p).abs().max() / g_p.abs().max())
+        cos = float((g * g_p).sum() / (g.norm() * g_p.norm()))
+        ok = (not launch_counts and bool(torch.isfinite(g).all())
+              and (rel <= GRAD_REL if md is None else cos >= GRAD_COS))
+        log("train", grad_check=mode, loss=float(loss.detach()),
+            plain_loss=float(loss_p.detach()), grad_max_abs=float(g_p.abs().max()),
+            max_rel_err=rel, cosine=cos,
+            limit=f"max_rel_err<={GRAD_REL}" if md is None else f"cosine>={GRAD_COS}",
+            reference_launches=json.dumps(dict(launch_counts)), ok=ok)
+        if not ok:
+            raise AssertionError(f"λ-gradient ({mode}) disagrees with the plain versions'")
+
+    # the JAX training fixture, golden: loss, λ-gradient, λ after 3 Adam steps
+    arrays = fx.load(fx.TRAIN_PATH)
+    got = fx.run_port_train(arrays, dev)
+    for key in fx.TRAIN_OUTPUT_KEYS:
+        ref, val = arrays[f"out/{key}"], got[key]
+        err = float(np.abs(val - ref).max())
+        if key == "grad":
+            cos = float((val * ref).sum() / (np.linalg.norm(val) * np.linalg.norm(ref)))
+            ok = err <= 1e-4 * float(np.abs(ref).max()) and cos > 0.99999
+            tol = "1e-4*max|g|, cosine>0.99999"
+        else:
+            kw = TRAIN_FIXTURE_TOL[key]
+            ok = bool(np.allclose(val, ref, **kw))
+            tol = ",".join(f"{k}={v}" for k, v in kw.items())
+        log("fixture-train", output=key, max_abs_err=err, tol=tol, ok=ok)
+        if not ok:
+            raise AssertionError(f"fixture-train {key} disagrees with the JAX package")
+
+    # the image cache: the resumed forward gives the uncached forward's bits;
+    # λ after two steps from the cache and from the waveform agree
+    for mode, md in modes:
+        with torch.no_grad():
+            batch = featurize_batch(wavs[0], max_len)
+            full = encode_audio(model, batch, residual=residual, compute_dtype=md)["normalized"]
+            image = encode_audio(model, batch, stop_at_image=True, compute_dtype=md)["image"]
+            resumed = encode_audio(model, {"image": image}, residual=residual,
+                                   compute_dtype=md)["normalized"]
+        ok = torch.equal(full, resumed) and (md is not None or torch.equal(image, images[0][0]))
+        log("train", cache_check=mode, embeddings_bit_equal=torch.equal(full, resumed),
+            cached_image_bit_equal=torch.equal(image, images[0][0]) if md is None else None,
+            ok=ok)
+        if not ok:
+            raise AssertionError(f"image-cache resume ({mode}) differs from the uncached forward")
+    lams = []
+    for cached in (True, False):
+        lam, frozen = tr._split_residual(residual)
+        step, _ = tr.make_zero_shot_step(model, text, frozen, tr.adam(lam, TRAIN_LR),
+                                         max_len=max_len, image_input=cached)
+        for b in range(2):
+            step(lam, images[b][0] if cached else wavs[b], labels[b])
+        lams.append(lam[0].detach())
+    diff = float((lams[0] - lams[1]).abs().max())
+    log("train", cache_check="λ after 2 steps, cached vs uncached", max_abs_diff=diff,
+        atol=1e-6, ok=diff <= 1e-6)
+    if diff > 1e-6:
+        raise AssertionError(f"λ from the image cache differs from the uncached λ by {diff}")
+
+    # evaluation of the trained λ on a held-out batch, and its artifacts
+    preds, targets, sims = tr.evaluate_zero_shot(model, iter([(wavs[-1], labels[-1])]), text,
+                                                 residual=trained, max_len=max_len)
+    metrics = classification_metrics(sims, targets)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "ESC50", "ResiDual", "layers_0_evalfold_0.npz")
+        pkl = os.path.join(tmp, "ESC50", "ResiDual", "lambda_layer0_evalfold_0.pkl")
+        tr._kfold_npz(npz, preds, targets, sims)
+        save_residual_params(pkl, trained[0])
+        with np.load(npz) as d:
+            npz_ok = (sorted(d.files) == ["predictions", "similarities", "targets"]
+                      and np.array_equal(d["similarities"], sims))
+        back = load_residual_params(pkl, device=dev)
+        with open(pkl, "rb") as f:
+            lam_back = pickle.load(f)["lam"]
+        pkl_ok = (torch.equal(back["basis"], trained[0]["basis"])
+                  and np.array_equal(lam_back, trained[0]["lam"].cpu().numpy()))
+    ok = (sims.shape == (B, N_CLASSES) and bool(np.isfinite(sims).all()) and npz_ok and pkl_ok)
+    log("train", eval="held-out batch, trained λ", accuracy=metrics["accuracy"],
+        top5_accuracy=metrics["top5_accuracy"], f1_macro=metrics["f1_macro"],
+        npz_written_and_read=npz_ok, lambda_pickle_written_and_read=pkl_ok, ok=ok)
+    if not ok:
+        raise AssertionError("evaluate_zero_shot: malformed similarities or artifacts")
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include."""
@@ -898,6 +1174,7 @@ def main() -> int:
     launches = collections.Counter()
     with torch.no_grad():
         phase_kernels(stats, dev)
+        stats.log_golden()
         phase_gemm(dev)
         launches.update(phase_main(dev, card, "HTSAT-tiny (CLAPConfig defaults)", tiny,
                                    EXPECTED_LAUNCHES))
@@ -905,6 +1182,7 @@ def main() -> int:
                                    EXPECTED_BASE_LAUNCHES))
     phase_fixture(fx.PATH, "fixture")
     phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
+    phase_train(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

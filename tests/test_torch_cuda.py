@@ -88,8 +88,10 @@ def test_kernels_match_plain_on_card(dev, mode, md, tol):
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     flat, res, x, wav = _inputs(dev, c=32, nh=2)
     blk = (flat, 2, 8, 4, 0, (16, 16), False, False)
+    # a raw kernel entry refuses an input that requires grad; the wrapper
+    # takes its autograd entry for one
     with pytest.raises(RuntimeError, match="requires grad"):
-        k4.fused_swin_block(x.clone().requires_grad_(True), *blk)
+        k4._kernel(x.clone().requires_grad_(True), *blk, None)
     with pytest.raises(ValueError, match="on cpu"):
         k4.fused_swin_block(x, (flat[0].cpu(),) + flat[1:], *blk[1:])
     with pytest.raises(ValueError, match="contiguous"):
@@ -519,3 +521,108 @@ def test_dft_mode_overrides_the_compute_dtype_on_card(dev, dft_mode, compute_dty
     mode, got = _forward_logmel(dataclasses.replace(cfg, dft_mode=dft_mode), compute_dtype, dev)
     assert mode == dft_mode
     assert torch.equal(got, _forward_logmel(cfg, other, dev)[1])
+
+
+# the Swin layers of HTSAT-tiny and HTSAT-base: kernel, C, heads, windows a
+# clip, resolution (K4 at layers 0-2; layer 3 is LN1, K2 or K5, then K3)
+TRAIN_LAYERS = {
+    "tiny-0": ("K4", 96, 4, 64, (64, 64)), "tiny-1": ("K4", 192, 8, 16, (32, 32)),
+    "tiny-2": ("K4", 384, 16, 4, (16, 16)), "tiny-3-K2": ("K2", 768, 32, 1, (8, 8)),
+    "tiny-3-K3": ("K3", 768, 32, 1, (8, 8)), "base-0": ("K4", 128, 4, 64, (64, 64)),
+    "base-1": ("K4", 256, 8, 16, (32, 32)), "base-2": ("K4", 512, 16, 4, (16, 16)),
+    "base-3-K5": ("K5", 1024, 32, 1, (8, 8)), "base-3-K3": ("K3", 1024, 32, 1, (8, 8)),
+}
+TRAIN_KERNELS = {"K2": ("fused_window_attention", k2.fused_window_attention,
+                        k2.window_attention_plain),
+                 "K3": ("fused_residual_ffn", k3.fused_residual_ffn, k3.residual_ffn_plain),
+                 "K4": ("fused_swin_block", k4.fused_swin_block, k4.swin_block_plain),
+                 "K5": ("wide_window_attention", k5.wide_window_attention,
+                        k5.wide_attention_plain)}
+
+
+@pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layer", list(TRAIN_LAYERS))
+def test_autograd_grads_match_plain_on_card(dev, layer, mode, md, tol):
+    """Each kernel's wrapper in grad mode (the autograd entry: kernel
+    forward, plain-version backward) against autograd through its plain
+    version, at every K2-K5 layer shape of HTSAT-tiny and -base, two clips,
+    with a ResiDual (λ requiring grad) where the kernel takes one and the
+    double FFN at K4: the output and the grads of x, K3's ``a`` and λ within
+    the kernel tests' bounds; the forward launched the kernel once, the
+    backward none."""
+    kernel, c, nh, nw, res = TRAIN_LAYERS[layer]
+    name, wrapper, plain = TRAIN_KERNELS[kernel]
+    flat, rp, _, _ = _inputs(dev, c=c, nh=nh)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2 * nw, 64, c))).astype(np.float32)).to(dev)
+    if kernel == "K4" and md is not None and c in (96, 128):
+        x = x.to(md)  # layer 0 carries bf16 activations under AMP
+    x = x.requires_grad_(True)
+    lam = rp[2].clone().requires_grad_(True)
+    inputs = [x, lam]
+    if kernel == "K4":
+        def run(f):
+            return f(x, flat + (rp[0], rp[1], lam), nh, 8, nw, 4 if nw > 1 else 0, res, True,
+                     True, md)
+    elif kernel == "K3":
+        a = (0.1 * x.detach()).requires_grad_(True)
+        inputs = [x, a, lam]
+
+        def run(f):
+            return f(x.reshape(-1, c), a.reshape(-1, c), *flat[6:12],
+                     {"basis": rp[0], "mean": rp[1], "lam": lam}, double_ffn=True, mxu_dtype=md)
+    else:
+        inputs = [x]
+
+        def run(f):
+            return f(x, *flat[2:6], flat[12], nh, 8, nw, 0, res, md)
+    launch_counts.clear()
+    out = run(wrapper)
+    assert dict(launch_counts) == {name: 1}
+    cot = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    grads = torch.autograd.grad((out.float() * cot).sum(), inputs)
+    torch.cuda.synchronize()
+    assert not launch_counts, dict(launch_counts)
+    ref = run(plain)
+    ref_grads = torch.autograd.grad((ref.float() * cot).sum(), inputs)
+    assert out.dtype == ref.dtype and _rel(out.detach(), ref.detach()) < tol
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == r.dtype and bool(torch.isfinite(g.float()).all())
+        assert _rel(g, r) < tol
+
+
+def test_serving_is_unchanged_without_a_lambda_grad(dev):
+    """A λ that requires no grad: an ``encode_audio`` in grad mode launches
+    what one under ``torch.no_grad()`` does and returns no ``grad_fn``; a λ
+    that requires grad launches the same kernels forward and none backward."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+
+    cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(**fx.AUDIO_KW), **fx.CLAP_KW)
+    model = t_clap.build_clap_audio(cfg, device=dev)
+    rng = np.random.default_rng(8)
+    c = fx.AUDIO_KW["embed_dim"]
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    wav = torch.from_numpy((0.1 * rng.standard_normal((2, 24000))).astype(np.float32)).to(dev)
+
+    def run(lam_grad, no_grad=False):
+        res = {0: {"basis": torch.from_numpy(q.astype(np.float32)).to(dev),
+                   "mean": torch.zeros(c, device=dev),
+                   "lam": torch.ones(c, device=dev, requires_grad=lam_grad)}}
+        launch_counts.clear()
+        with torch.set_grad_enabled(not no_grad):
+            out = t_clap.encode_audio(model, wav, residual=res)
+        return dict(launch_counts), out, res
+
+    served, out, _ = run(False, no_grad=True)
+    assert served == {"fused_logmel": 1, "fused_swin_block": 2, "fused_window_attention": 2,
+                      "fused_residual_ffn": 2}
+    counts, out2, _ = run(False)
+    assert counts == served and all(v.grad_fn is None for v in out2.values())
+    assert torch.equal(out2["normalized"], out["normalized"])
+    counts, out3, res = run(True)
+    assert counts == served and torch.equal(out3["normalized"].detach(), out["normalized"])
+    launch_counts.clear()
+    out3["normalized"].sum().backward()
+    torch.cuda.synchronize()
+    assert not launch_counts and res[0]["lam"].grad is not None

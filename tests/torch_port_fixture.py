@@ -12,9 +12,17 @@ in the reference ``state_dict`` layout (:func:`seeded_state_dict`) and reach
 the JAX package through its ``convert_htsat_state_dict``. It holds the
 config, the input, a layer-0 ResiDual (K=64) and the JAX f32 outputs.
 
-``chip_smoke.py`` runs the port's kernels on the card against both without
-importing JAX; ``tests/test_torch_htsat.py`` and
-``tests/test_torch_wide_attention.py`` regenerate them and compare with the
+``tests/data/torch_port_train.npz`` holds the tiny fixture's config and
+params, two batches of two clips with labels, five class-text embeddings, a
+layer-0 ResiDual and the JAX package's golden λ-training outputs: the loss
+and the λ-gradient of ``make_zero_shot_step``'s loss on batch 0, λ and the
+loss after each of three Adam steps (lr 0.01, batches 0, 1, 0) and the
+``evaluate_zero_shot`` similarities of both batches with that λ.
+
+``chip_smoke.py`` runs the port's kernels on the card against all three
+without importing JAX; ``tests/test_torch_htsat.py``,
+``tests/test_torch_wide_attention.py`` and
+``tests/test_torch_train_residual.py`` regenerate them and compare with the
 committed files, so they cannot drift.
 
 Regenerate with ``python -m tests.torch_port_fixture`` from the repo root.
@@ -34,6 +42,12 @@ AUDIO_KW = dict(spec_size=64, mel_bins=16, embed_dim=32, depths=(2, 2), num_head
 CLAP_KW = dict(embed_dim=64, joint_embed_shape=32)
 OUTPUT_KEYS = ("embedding", "clipwise_output", "framewise_output", "fine_grained_embedding",
                "normalized")
+
+TRAIN_PATH = PATH.with_name("torch_port_train.npz")
+TRAIN_CLASSES = 5
+TRAIN_LR = 0.01
+TRAIN_STEPS = (0, 1, 0)  # the batch of each Adam step
+TRAIN_OUTPUT_KEYS = ("loss", "grad", "lam", "step_loss", "sims")
 
 WIDE_PATH = PATH.with_name("torch_port_wide.npz")
 WIDE_AUDIO_KW = dict(spec_size=128, mel_bins=32, embed_dim=256, depths=(1, 1, 2),
@@ -221,17 +235,12 @@ def output_keys(arrays: dict) -> list[str]:
     return [k[len("out/"):] for k in arrays if k.startswith("out/")]
 
 
-def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
-    """The port's outputs on a fixture's input: params loaded through the
-    weight bridge (tiny) or made from the seed (wide), quantize ->
-    featurize -> ``encode_audio``. Imports torch and the port only, so it
-    runs where JAX is absent."""
+def _port_with_residual(arrays: dict, device):
+    """The port's model of a fixture (params through the weight bridge, or
+    from the seed) and its layer-0 ResiDual, on ``device``."""
     import torch
 
-    from audio_residual_tpu_torch.data.featurize import featurize_batch
-    from audio_residual_tpu_torch.models import clap
     from audio_residual_tpu_torch.models.convert import load_jax_params
-    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
 
     audio_kw, clap_kw, seed = _config(arrays)
     model = _port_model(audio_kw, clap_kw, device)
@@ -241,8 +250,24 @@ def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
     else:
         model.load_state_dict({k: torch.from_numpy(v)
                                for k, v in _seeded_weights(model, seed).items()})
-    residual = {k[len("residual/"):]: torch.tensor(v).to(model.audio_branch.norm.weight.device)
+    dev = model.audio_branch.norm.weight.device
+    residual = {k[len("residual/"):]: torch.tensor(v).to(dev)
                 for k, v in arrays.items() if k.startswith("residual/")}
+    return model, residual
+
+
+def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
+    """The port's outputs on a fixture's input: params loaded through the
+    weight bridge (tiny) or made from the seed (wide), quantize ->
+    featurize -> ``encode_audio``. Imports torch and the port only, so it
+    runs where JAX is absent."""
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.models import clap
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+
+    model, residual = _port_with_residual(arrays, device)
     wav = torch.tensor(arrays["wav"]).to(residual["basis"].device)
     batch = featurize_batch(quantize_roundtrip(wav), model.cfg.audio.clip_samples)
     out = clap.encode_audio(model, batch, residual={0: residual}, double_ffn_compat=True,
@@ -250,12 +275,100 @@ def run_port(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
     return {k: out[k].float().cpu().numpy() for k in output_keys(arrays)}
 
 
+def train_inputs() -> dict[str, np.ndarray]:
+    """The training fixture's seeded inputs: ``wav [2 batches, 2, T]``,
+    ``labels [2, 2]``, unit ``text [5, D]`` and the ResiDual (QR basis,
+    K = C)."""
+    rng = np.random.default_rng(9)
+    c, t = AUDIO_KW["embed_dim"], AUDIO_KW["clip_samples"] // 2
+    text = rng.standard_normal((TRAIN_CLASSES, CLAP_KW["joint_embed_shape"]))
+    q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+    return {
+        "wav": (rng.standard_normal((2, 2, t)) * 0.1).astype(np.float32),
+        "labels": rng.integers(0, TRAIN_CLASSES, (2, 2)),
+        "text": (text / np.linalg.norm(text, axis=-1, keepdims=True)).astype(np.float32),
+        "residual/basis": q.astype(np.float32),
+        "residual/mean": (rng.standard_normal(c) * 0.01).astype(np.float32),
+        "residual/lam": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+    }
+
+
+def build_train() -> dict[str, np.ndarray]:
+    """The training fixture's arrays: ``config``, the inputs of
+    :func:`train_inputs`, ``param/<pytree path>`` and ``out/<key>``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from audio_residual_tpu.training import train_residual as jtr
+
+    cfg = jax_config()
+    params = jax_params()
+    inputs = train_inputs()
+    residual = {0: {k: jnp.asarray(inputs[f"residual/{k}"]) for k in ("basis", "mean", "lam")}}
+    lam, frozen = jtr._split_residual(residual)
+    optimizer = optax.adam(TRAIN_LR)
+    step, loss_fn = jtr.make_zero_shot_step(params, cfg, jnp.asarray(inputs["text"]), frozen,
+                                            optimizer, max_len=cfg.audio.clip_samples)
+    wav, labels = jnp.asarray(inputs["wav"]), jnp.asarray(inputs["labels"])
+    (loss, _), grad = jax.value_and_grad(loss_fn, has_aux=True)(lam, wav[0], labels[0])
+    opt_state = optimizer.init(lam)
+    step_loss = []
+    for b in TRAIN_STEPS:
+        lam, opt_state, l, _ = step(lam, opt_state, wav[b], labels[b])
+        step_loss.append(float(l))
+    _, _, sims = jtr.evaluate_zero_shot(params, cfg, zip(inputs["wav"], inputs["labels"]),
+                                        jnp.asarray(inputs["text"]),
+                                        residual=jtr._merge_residual(lam, frozen),
+                                        max_len=cfg.audio.clip_samples)
+    audio = {"audio_branch": params["audio_branch"],
+             "audio_projection": params["audio_projection"]}
+    return {
+        "config": np.asarray(json.dumps({"audio": AUDIO_KW, **CLAP_KW})),
+        **inputs,
+        **_flatten(jax.tree.map(np.asarray, audio), "param", {}),
+        "out/loss": np.asarray(loss),
+        "out/grad": np.asarray(grad[0]),
+        "out/lam": np.asarray(lam[0]),
+        "out/step_loss": np.asarray(step_loss, dtype=np.float32),
+        "out/sims": np.asarray(sims),
+    }
+
+
+def run_port_train(arrays: dict, device, compute_dtype=None) -> dict[str, np.ndarray]:
+    """The port's counterpart of :func:`build_train`'s outputs: its
+    ``make_zero_shot_step`` (loss, λ-gradient, three Adam steps) and
+    ``evaluate_zero_shot``. Imports torch and the port only."""
+    import torch
+
+    from audio_residual_tpu_torch.training import train_residual as ttr
+
+    model, residual = _port_with_residual(arrays, device)
+    dev = residual["basis"].device
+    lam, frozen = ttr._split_residual({0: residual})
+    optimizer = ttr.adam(lam, TRAIN_LR)
+    step, loss_fn = ttr.make_zero_shot_step(model, arrays["text"], frozen, optimizer,
+                                            max_len=model.cfg.audio.clip_samples,
+                                            compute_dtype=compute_dtype)
+    wav = torch.tensor(arrays["wav"], device=dev)
+    labels = torch.tensor(arrays["labels"], device=dev)
+    loss, _ = loss_fn(lam, wav[0], labels[0])
+    (grad,) = torch.autograd.grad(loss, [lam[0]])
+    step_loss = [float(step(lam, wav[b], labels[b])[0]) for b in TRAIN_STEPS]
+    _, _, sims = ttr.evaluate_zero_shot(model, zip(wav, labels), arrays["text"],
+                                        residual=ttr._merge_residual(lam, frozen),
+                                        max_len=model.cfg.audio.clip_samples)
+    return {"loss": np.float32(loss.detach().cpu()), "grad": grad.cpu().numpy(),
+            "lam": lam[0].detach().cpu().numpy(),
+            "step_loss": np.asarray(step_loss, dtype=np.float32), "sims": sims}
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")  # the tests' f32 CPU reference
     PATH.parent.mkdir(parents=True, exist_ok=True)
-    for path, make in ((PATH, build), (WIDE_PATH, build_wide)):
+    for path, make in ((PATH, build), (WIDE_PATH, build_wide), (TRAIN_PATH, build_train)):
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 
