@@ -22,14 +22,16 @@
 // weights cast once per weight version. What stays f32 (the AMP contract):
 // the proj output a that the ResiDual reads, h1, y2, the ResiDual scratch,
 // LN statistics and softmax. The golden path (bf16 = 0) keeps f32
-// everywhere, the f32 GEMM and the f32 attention core. Fusing a block into
+// everywhere: its FFN products run in 3xTF32 on the tensor cores
+// (gemm_tf32x3, f32 accuracy), its other products on the f32 GEMM, with the
+// f32 attention core. Fusing a block into
 // one kernel is later work (ROADMAP, Queue 2). Wide layers (C >= 1024) do
 // not come here for their attention: K5's wrapper runs them (its golden
 // route in wide_attention.cu cuts the work at head boundaries; its AMP route
 // is the entry of window_attention.cu).
 //
 // Weight pointers are const float* in the golden mode and const
-// __nv_bfloat16* under AMP.
+// __nv_bfloat16* under AMP; the FFN's come as FfnWeights.
 #pragma once
 
 #include "common.cuh"
@@ -130,36 +132,43 @@ static inline FfnScratch take_ffn(Arena& ws, long R, long C, long hidden, int bf
   return f;
 }
 
+// The FFN's weight matrices as the route takes them: bf16 copies under AMP;
+// in the golden mode split for 3xTF32, with each product's plan.
+struct FfnWeights {
+  const bf16_t* w1;  // AMP: fc1 [hidden, C], fc2 [C, hidden]
+  const bf16_t* w2;
+  Tf32x3Weight x1;   // golden
+  Tf32x3Weight x2;
+};
+
 // h1 [R, C] f32 -> out = h1 + fc2(GELU(fc1(LN2(h1)))). With double_ffn
 // (the reference's patched-forward quirk): y2 = x + that, out = y2 + FFN(y2).
-// z_ready: LN2(h1) is already in f.z.
+// z_ready: LN2(h1) is already in f.z. The golden products run in 3xTF32
+// (gemm_tf32x3) and write f32, so a golden out must be f32.
 static inline cudaError_t run_ffn(const void* x, int x_bf16, const float* h1, void* out,
                                   int out_bf16, int R, int C, int hidden, const float* n2s,
-                                  const float* n2b, const void* wfc1, const float* bfc1,
-                                  const void* wfc2, const float* bfc2, int double_ffn, int bf16,
-                                  int z_ready, const FfnScratch& f, cudaStream_t s) {
+                                  const float* n2b, const FfnWeights& w, const float* bfc1,
+                                  const float* bfc2, int double_ffn, int bf16, int z_ready,
+                                  const FfnScratch& f, cudaStream_t s) {
   // hid = GELU(z @ wfc1^T + bfc1)
   auto fc1 = [&]() -> cudaError_t {
+    const Epilogue e{bfc1, nullptr, 1, nullptr, nullptr};
     if (!bf16) {
-      GemmArgs g = gemm_args(f.z, 0, static_cast<const float*>(wfc1), f.hid, 0, R, hidden, C, bfc1);
-      g.gelu = 1;
-      return launch_gemm_f32(g, s);
+      return gemm_tf32x3(static_cast<const float*>(f.z), w.x1, static_cast<float*>(f.hid), R,
+                         hidden, C, e, 0, s);
     }
-    return gemm_bf16(static_cast<const bf16_t*>(f.z), static_cast<const bf16_t*>(wfc1), f.hid, 1,
-                     R, hidden, C, Epilogue{bfc1, nullptr, 1, nullptr, nullptr}, 0, 0, s);
+    return gemm_bf16(static_cast<const bf16_t*>(f.z), w.w1, f.hid, 1, R, hidden, C, e, 0, 0, s);
   };
   // dst = ((hid @ wfc2^T + bfc2) + res) [+ x2]
   auto fc2 = [&](void* dst, int dst_bf16, const float* res, const void* x2) -> cudaError_t {
+    const Epilogue e{bfc2, nullptr, 0, res, x2};
     if (!bf16) {
-      GemmArgs g = gemm_args(f.hid, 0, static_cast<const float*>(wfc2), dst, dst_bf16, R, C,
-                             hidden, bfc2);
-      g.r1 = res;
-      g.r2 = x2;
-      g.r2_bf16 = x_bf16;
-      return launch_gemm_f32(g, s);
+      if (dst_bf16) return cudaErrorInvalidValue;
+      return gemm_tf32x3(static_cast<const float*>(f.hid), w.x2, static_cast<float*>(dst), R, C,
+                         hidden, e, x_bf16, s);
     }
-    return gemm_bf16(static_cast<const bf16_t*>(f.hid), static_cast<const bf16_t*>(wfc2), dst,
-                     dst_bf16, R, C, hidden, Epilogue{bfc2, nullptr, 0, res, x2}, 0, x_bf16, s);
+    return gemm_bf16(static_cast<const bf16_t*>(f.hid), w.w2, dst, dst_bf16, R, C, hidden, e, 0,
+                     x_bf16, s);
   };
   if (!z_ready) {
     ARPU_TRY(launch_add_layernorm(h1, 0, nullptr, 0, nullptr, f.z, bf16, n2s, n2b, R, C, s));

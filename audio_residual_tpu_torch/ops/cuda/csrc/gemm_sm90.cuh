@@ -1,44 +1,74 @@
-// bf16 tensor-core GEMM for Hopper (sm_90a): C = epi(A @ W^T), the AMP GEMM
-// of the Swin-block kernels (K2-K5). A [M, K] bf16 row-major, W [N, K] bf16
-// (nn.Linear layout, K-major as wgmma wants it), f32 accumulate, C [M, N]
-// f32 or bf16. Epilogue, in this order: v += bias[n]; v *= col_scale[n];
-// v = gelu(v); v += r1[m, n]; v += r2[m, n] (r1, r2 f32 or bf16), each step
-// optional.
+// Tensor-core GEMM for Hopper (sm_90a): C = epi(A @ W^T), in two operand
+// modes that share one ring, one mainloop and one epilogue.
+//   * bf16 (gemm_bf16): the AMP GEMM of the Swin-block kernels (K2-K5). A
+//     [M, K] bf16 row-major, W [N, K] bf16 (nn.Linear layout, K-major as
+//     wgmma wants it).
+//   * 3xTF32 (gemm_tf32x3): the golden FFN products of K3 and K4 (run_ffn).
+//     A [M, K] f32; W as two f32 matrices hi and lo with hi + lo = W, hi
+//     rounded to TF32 (ops/cuda/tf32x3.py::split_tf32, once per weight
+//     version). Each K step multiplies lo_A hi_W + hi_A lo_W + hi_A hi_W on
+//     wgmma m64nNk8 .tf32 into an f32 partial sum of its 32 columns of K (the
+//     two small terms first, lo_A lo_W dropped), which the CUDA cores add to
+//     the tile's accumulator: A is split inside the kernel, hi_A =
+//     cvt.rna.tf32(x) and lo_A = cvt.rna.tf32(x - hi_A), each with its low 13
+//     bits cleared, so the tensor core, which reads the top 19 bits of an
+//     operand, is never handed a raw f32 value as hi. Each product keeps
+//     about f32's accuracy (a relative error near 2^-21 against f32's 2^-24;
+//     the sums stay f32) at 3 passes of the 495 TFLOP/s TF32 rate, 2.5x the
+//     67 TFLOP/s of f32 on the CUDA cores. It is the Hopper form of the TPU's
+//     Precision.HIGHEST (a split into bf16 passes on the MXU; the JAX package
+//     spells out a 3-pass split dot in ops/pallas/frontend.py::_split_dot).
+// f32 accumulate, C [M, N] f32 or bf16. Epilogue, in this order:
+// v += bias[n]; v *= col_scale[n]; v = gelu(v); v += r1[m, n]; v += r2[m, n]
+// (r1, r2 f32 or bf16), each step optional.
 //
-// What bounds it on the H100: bytes, at most shapes of the main paths. The
-// K4 GEMMs at HTSAT-tiny/base layers 0-2 have K = C or 4C with C <= 512:
+// What bounds it on the H100. bf16: bytes, at most shapes of the main paths.
+// The K4 GEMMs at HTSAT-tiny/base layers 0-2 have K = C or 4C with C <= 512:
 // the qkv product at C=96 is ~72 operations a byte against the card's bf16
-// ridge of ~295, so the work is to stream A in and C out.
+// ridge of ~295, so the work is to stream A in and C out. 3xTF32: operations
+// at K3's layer-3 shapes (HTSAT-tiny fc1: 2048 x 3072 x 768, three passes,
+// 29 GFLOP), bytes at K4's narrow layers (the f32 hid [R, 4C] out and in).
 //
 // Design:
 //   * one block an SM (persistent grid) walks (M tile, N tile) pairs, N
 //     fastest, so the blocks working at one time share their A tile in L2;
-//   * warpgroup 0 is the producer: one thread keeps TMA loads of A [128, 64]
-//     and W [BN, 64] tiles (128-byte swizzle) in flight through a ring of
-//     stages, completion counted by mbarriers; the ragged M, N and K edges
-//     arrive zero-filled;
-//   * warpgroups 1-2 are consumers, 64 rows of the tile each: wgmma
+//   * warpgroup 0 is the producer: one thread keeps TMA loads of A [128, BK]
+//     and W [BN, BK] tiles (BK: 64 bf16 or 32 f32, one 128-byte swizzle row;
+//     3xTF32 loads W's hi and lo tiles) in flight through a ring of stages,
+//     completion counted by mbarriers; the ragged M, N and K edges arrive
+//     zero-filled;
+//   * warpgroups 1-2 are consumers, 64 rows of the tile each. bf16: wgmma
 //     m64nBNk16 from shared memory into f32 registers, one group in flight
-//     while the next k-tile is issued; then the epilogue, while the producer
-//     already loads the next tile: the accumulator fragment goes to a
-//     per-warpgroup staging buffer in shared memory and comes back 8
+//     while the next k-tile is issued. 3xTF32: the warpgroup loads its A
+//     fragment of a k-tile from the swizzled tile into registers (bank
+//     conflict free), splits it there and issues the 12 wgmmas of the
+//     k-tile with A from registers and W from shared memory; the group
+//     finishes before the registers are reused, while the other consumer
+//     warpgroup keeps the tensor cores busy. Then the epilogue, while the
+//     producer already loads the next tile: the accumulator fragment goes
+//     to a per-warpgroup staging buffer in shared memory and comes back 8
 //     consecutive columns a thread, consecutive threads along a row, so
 //     bias, residuals and the output move in coalesced 16-byte vectors;
-//   * BN (96, 128 or 192) is picked per launch to divide N and fill the card;
-//     the output and residual types are template parameters. BN = 192 pays
-//     at HTSAT-tiny's qkv and fc1 shapes with N = 576 ... 3072: 3-12% less
-//     device time than the 96 or 128 they take without it; at HTSAT-base's
-//     (N = 384, 768, 1536) it ties (PERF.md).
-// Weights arrive in bf16, cast by the wrappers once per weight version,
-// never per tile.
+//   * bf16: BN (96, 128 or 192) is picked per launch to divide N and fill
+//     the card; the output and residual types are template parameters.
+//     BN = 192 pays at HTSAT-tiny's qkv and fc1 shapes with N = 576 ...
+//     3072: 3-12% less device time than the 96 or 128 they take without it;
+//     at HTSAT-base's (N = 384, 768, 1536) it ties (PERF.md). 3xTF32: BN
+//     (32, 64, 96 or 128; a stage holds A and both W tiles, so 128 leaves
+//     three stages beside the staging buffer) comes from the caller's plan
+//     (ops/cuda/tf32x3.py::gemm_plan), which the entry checks against this
+//     build.
+// Weights arrive in bf16 or split, made by the wrappers once per weight
+// version, never per tile.
 //
-// Tried on the H100 while this design was made and not kept, for none was
-// faster at HTSAT-tiny's layer-0 shapes: stores straight from the fragment,
-// a TMA store of the finished tile, the per-column steps in the fragment
-// pass, ping-pong consumers (each warpgroup its own 64-row tiles, product
-// loops taking turns) and contiguous tile runs per block. At those shapes
-// it takes 1.6-2.6x the device time of torch.matmul on the same operands,
-// furthest where the epilogue does most (GELU, bf16 output; PERF.md).
+// Tried on the H100 while the bf16 design was made and not kept, for none
+// was faster at HTSAT-tiny's layer-0 shapes: stores straight from the
+// fragment, a TMA store of the finished tile, the per-column steps in the
+// fragment pass, ping-pong consumers (each warpgroup its own 64-row tiles,
+// product loops taking turns) and contiguous tile runs per block. At those
+// shapes it takes 1.6-2.6x the device time of torch.matmul on the same
+// operands, furthest where the epilogue does most (GELU, bf16 output;
+// PERF.md).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
@@ -67,15 +97,18 @@ struct Epilogue {
 
 namespace sm90 {
 
-constexpr int BM = 128;  // two consumer warpgroups of 64 rows
-constexpr int BK = 64;   // 64 bf16 = 128 bytes: one row of the 128-byte swizzle
+constexpr int BM = 128;       // two consumer warpgroups of 64 rows
+constexpr int BK = 64;        // 64 bf16 = 128 bytes: one row of the 128-byte swizzle
+constexpr int BK_TF32 = 32;   // 32 f32: the same 128-byte row
+constexpr int ROW_BYTES = 128;
 constexpr int THREADS = 384;
 constexpr int SMEM_LIMIT = 232448;  // what a block may use on the H100
 
-template <int BN>
+// W_PARTS: 1 (bf16 W) or 2 (3xTF32: W's hi tile, then its lo tile)
+template <int BN, int W_PARTS = 1>
 struct Tiles {
-  static constexpr int A_BYTES = BM * BK * 2;
-  static constexpr int W_BYTES = BN * BK * 2;
+  static constexpr int A_BYTES = BM * ROW_BYTES;
+  static constexpr int W_BYTES = W_PARTS * BN * ROW_BYTES;
   static constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
   // epilogue staging, per consumer warpgroup: [64, BN] f32, rows padded by 8
   // floats so that the fragment's float2 stores take two wavefronts
@@ -388,6 +421,216 @@ struct Wgmma<256> {
   }
 };
 
+// ---- 3xTF32 -------------------------------------------------------------
+// x rounded to TF32, to nearest with ties away (cvt.rna), low 13 bits cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = hi + lo + (what lo's rounding drops, at most 2^-22 |x|): the two TF32
+// operands of x in a 3xTF32 product, lo formed from the rounded hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// One wgmma.mma_async m64nNk8, tf32 x tf32 -> f32: A from registers (the
+// fragment of m64nNk8: lane l of warp w holds rows 16w + l/4 (+8), columns
+// l%4 (+4) as a[0] (row), a[1] (row + 8), a[2] (column + 4), a[3] (both)),
+// B K-major in shared memory. acc = 0 overwrites d.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+
+// One K step of 32 f32 of a 3xTF32 product on a consumer warpgroup:
+// part[64, BN] = A[64, 32] @ W[BN, 32]^T as lo_A hi_W + hi_A lo_W + hi_A hi_W
+// per k8 step, the small terms first. a_tile: the warpgroup's 64 rows of A,
+// 128-byte rows written by TMA with the 128-byte swizzle (16-byte chunk c
+// of row r at c ^ (r % 8): the 32 lanes of a load hit 32 banks); dhi, dlo:
+// descriptors of W's hi and lo tiles. Commits one wgmma group, which reads
+// the fragment registers until it completes: the caller waits for it before
+// the registers are reused.
+template <int BN>
+__device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsigned char* a_tile,
+                                             uint64_t dhi, uint64_t dlo) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = 16 * (t / 32) + lane / 4, q = lane % 4, sw = lane / 4;  // sw = r % 8
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + 8 * (i & 1), chunk = 2 * s + (i >> 1);
+      const float x = *reinterpret_cast<const float*>(a_tile + row * ROW_BYTES +
+                                                      ((chunk ^ sw) << 4) + 4 * q);
+      split_tf32(x, hi[s][i], lo[s][i]);
+    }
+  fence_regs(part);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    // +32 bytes along K per k8 step (the descriptor counts 16-byte units);
+    // the k-tile's first product overwrites part
+    WgmmaTf32<BN>::mma(part, lo[s], dhi + 2 * s, s != 0);
+    WgmmaTf32<BN>::mma(part, hi[s], dlo + 2 * s, 1);
+    WgmmaTf32<BN>::mma(part, hi[s], dhi + 2 * s, 1);
+  }
+  wgmma_commit();
+}
+
+// The consumer side of one output tile's K loop over the ring, shared by
+// the GEMM and K1's DFT (logmel.cu): acc[64, BN] = A @ W^T for the
+// warpgroup's 64 rows (a_off bytes into each A tile). Stage s holds A at
+// a_ring + s A_BYTES and W at w_ring + s W_BYTES (3xTF32: hi, then lo
+// BN rows later). Lane 0 of each warp releases a stage once its products
+// are done; `stage` and `phase` carry over to the next tile.
+template <bool X3, int BN, int STAGES, int W_BYTES>
+__device__ __forceinline__ void consume_k_loop(float (&acc)[BN / 2], unsigned char* a_ring,
+                                               unsigned char* w_ring, int a_off, uint64_t* full,
+                                               uint64_t* empty, int k_tiles, int& stage,
+                                               uint32_t& phase) {
+  constexpr int A_BYTES = BM * ROW_BYTES;
+  const bool signals = threadIdx.x % 32 == 0;
+  int reading = -1;  // bf16: the stage the wgmma group in flight reads
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    mbar_wait(&full[stage], phase);
+    unsigned char* w = w_ring + stage * W_BYTES;
+    if constexpr (X3) {
+      // each k-tile into its own partial sum, added to acc on the CUDA cores
+      // (round to nearest): the tensor core's own adds, which do not round
+      // to nearest, then run 12 times on a sum of 32 products, not 3 K / 8
+      // times on the whole; this keeps the error against float64 near an
+      // f32 GEMM's
+      float part[BN / 2];
+      tf32x3_ktile<BN>(part, a_ring + stage * A_BYTES + a_off, smem_desc(w),
+                       smem_desc(w + BN * ROW_BYTES));
+      wgmma_wait<0>();  // the fragment registers are free, the stage is read
+      fence_regs(part);
+      if (signals) mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = kt ? acc[i] + part[i] : part[i];
+    } else {
+      const uint64_t da = smem_desc(a_ring + stage * A_BYTES + a_off);
+      const uint64_t dw = smem_desc(w);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) {
+        // +32 bytes along K per k16 step (the descriptor counts 16-byte units);
+        // the tile's first product overwrites the accumulator
+        Wgmma<BN>::mma(acc, da + 2 * k, dw + 2 * k, (kt | k) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-tile's products are done: release its stage
+      fence_regs(acc);
+      if (reading >= 0 && signals) mbar_arrive(&empty[reading]);
+      reading = stage;
+    }
+    if (++stage == STAGES) stage = 0, phase ^= 1;
+  }
+  if constexpr (!X3) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (signals) mbar_arrive(&empty[reading]);
+  }
+}
+
 // ---- epilogue: 8 consecutive columns of one row, in 16-byte vectors -----
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -430,7 +673,7 @@ __device__ __forceinline__ void add8(const void* base, size_t i, float (&v)[8]) 
 }
 
 // The consumer warpgroup's [64, BN] accumulator to C, through its staging
-// buffer in shared memory. Fragment layout of wgmma m64nNk16 (f32): lane l
+// buffer in shared memory. Fragment layout of wgmma m64nN (f32): lane l
 // of warp w holds d[4j + 2h + e] at row 16w + l/4 + 8h, column
 // 8j + 2(l%4) + e. Written as is, then read back 8 consecutive columns a
 // thread, consecutive threads along a row, so bias, residuals and the
@@ -481,12 +724,14 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], float* st
   warpgroup_sync(barrier);  // the buffer is free for the next tile
 }
 
-template <int BN, typename OutT, typename R1T, typename R2T>
-__global__ void __launch_bounds__(THREADS, 1)
-    gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-                const __grid_constant__ CUtensorMap tma_w, OutT* __restrict__ C, int M, int N,
-                int K, Epilogue e) {
-  using T = Tiles<BN>;
+// The GEMM on one block: X3 selects 3xTF32 (f32 A; W's hi map tma_w and
+// lo map *tma_w_lo) over bf16 (A and W bf16; tma_w_lo unused).
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtensorMap& tma_w,
+                                          const CUtensorMap* tma_w_lo, OutT* C, int M, int N,
+                                          int K, const Epilogue& e) {
+  using T = Tiles<BN, X3 ? 2 : 1>;
+  constexpr int KB = X3 ? BK_TF32 : BK;  // elements a K step
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* a_ring = smem;
@@ -496,7 +741,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + T::STAGES;
 
   const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = ((M + BM - 1) / BM) * n_tiles, k_tiles = (K + BK - 1) / BK;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles, k_tiles = (K + KB - 1) / KB;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
@@ -517,8 +762,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kt = 0; kt < k_tiles; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], T::STAGE_BYTES);
-        tma_load(a_ring + stage * T::A_BYTES, &tma_a, &full[stage], kt * BK, m0);
-        tma_load(w_ring + stage * T::W_BYTES, &tma_w, &full[stage], kt * BK, n0);
+        unsigned char* w = w_ring + stage * T::W_BYTES;
+        tma_load(a_ring + stage * T::A_BYTES, &tma_a, &full[stage], kt * KB, m0);
+        tma_load(w, &tma_w, &full[stage], kt * KB, n0);
+        if constexpr (X3) tma_load(w + BN * ROW_BYTES, tma_w_lo, &full[stage], kt * KB, n0);
         if (++stage == T::STAGES) stage = 0, phase ^= 1;
       }
     }
@@ -530,38 +777,33 @@ __global__ void __launch_bounds__(THREADS, 1)
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  const int a_off = (wg - 1) * 64 * BK * 2;
-  const bool signals = threadIdx.x % 32 == 0;  // lane 0 releases a stage for its warp
+  const int a_off = (wg - 1) * 64 * ROW_BYTES;
   float* stage_out = staging + (wg - 1) * 64 * T::LDS;
   int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-    int reading = -1;  // the stage the wgmma group in flight reads
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      mbar_wait(&full[stage], phase);
-      const uint64_t da = smem_desc(a_ring + stage * T::A_BYTES + a_off);
-      const uint64_t dw = smem_desc(w_ring + stage * T::W_BYTES);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < BK / 16; ++k) {
-        // +32 bytes along K per k16 step (the descriptor counts 16-byte units);
-        // the tile's first product overwrites the accumulator
-        Wgmma<BN>::mma(acc, da + 2 * k, dw + 2 * k, (kt | k) != 0);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous k-tile's products are done: release its stage
-      fence_regs(acc);
-      if (reading >= 0 && signals) mbar_arrive(&empty[reading]);
-      reading = stage;
-      if (++stage == T::STAGES) stage = 0, phase ^= 1;
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if (signals) mbar_arrive(&empty[reading]);
+    consume_k_loop<X3, BN, T::STAGES, T::W_BYTES>(acc, a_ring, w_ring, a_off, full, empty,
+                                                  k_tiles, stage, phase);
     store_tile<BN, OutT, R1T, R2T>(acc, stage_out, C, M, N, m0 + 64 * (wg - 1), n0, e, wg);
   }
+}
+
+template <int BN, typename OutT, typename R1T, typename R2T>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_w, OutT* __restrict__ C, int M, int N,
+                int K, Epilogue e) {
+  gemm_body<false, BN, OutT, R1T, R2T>(tma_a, tma_w, nullptr, C, M, N, K, e);
+}
+
+template <int BN, typename OutT, typename R1T, typename R2T>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tma_a,
+                       const __grid_constant__ CUtensorMap tma_hi,
+                       const __grid_constant__ CUtensorMap tma_lo, OutT* __restrict__ C, int M,
+                       int N, int K, Epilogue e) {
+  gemm_body<true, BN, OutT, R1T, R2T>(tma_a, tma_hi, &tma_lo, C, M, N, K, e);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -629,11 +871,18 @@ static inline cudaError_t sm_count(int dev, int* sms) {
   return cudaSuccess;
 }
 
-template <int BN, typename OutT, typename R1T, typename R2T>
-static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, void* C, int M, int N,
-                          int K, const Epilogue& e, int dev, int sms, cudaStream_t s) {
-  constexpr int smem = Tiles<BN>::SMEM;
-  const auto kernel = gemm_kernel<BN, OutT, R1T, R2T>;
+// X3: the 3xTF32 kernel, W's hi map tw and lo map *tl; else bf16 (tl null)
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T>
+static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap* tl,
+                          void* C, int M, int N, int K, const Epilogue& e, int dev, int sms,
+                          cudaStream_t s) {
+  constexpr int smem = Tiles<BN, X3 ? 2 : 1>::SMEM;
+  const void* kernel;
+  if constexpr (X3) {
+    kernel = reinterpret_cast<const void*>(gemm_tf32x3_kernel<BN, OutT, R1T, R2T>);
+  } else {
+    kernel = reinterpret_cast<const void*>(gemm_kernel<BN, OutT, R1T, R2T>);
+  }
   static std::atomic<bool> smem_set[MAX_DEVICES];  // per instantiation
   if (!smem_set[dev].load(std::memory_order_relaxed)) {
     const cudaError_t err =
@@ -642,8 +891,14 @@ static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, void* C,
     smem_set[dev].store(true, std::memory_order_relaxed);
   }
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  kernel<<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(ta, tw, static_cast<OutT*>(C), M, N,
-                                                          K, e);
+  const int grid = tiles < sms ? tiles : sms;
+  if constexpr (X3) {
+    gemm_tf32x3_kernel<BN, OutT, R1T, R2T><<<grid, THREADS, smem, s>>>(
+        ta, tw, *tl, static_cast<OutT*>(C), M, N, K, e);
+  } else {
+    gemm_kernel<BN, OutT, R1T, R2T><<<grid, THREADS, smem, s>>>(ta, tw, static_cast<OutT*>(C), M,
+                                                                N, K, e);
+  }
   return cudaGetLastError();
 }
 
@@ -653,11 +908,13 @@ static cudaError_t launch_typed(const CUtensorMap& ta, const CUtensorMap& tw, vo
                                 int dev, int sms, cudaStream_t s) {
   using B = __nv_bfloat16;
   if (r1_bf16) {
-    return r2_bf16 ? launch<BN, OutT, B, B>(ta, tw, C, M, N, K, e, dev, sms, s)
-                   : launch<BN, OutT, B, float>(ta, tw, C, M, N, K, e, dev, sms, s);
+    return r2_bf16 ? launch<false, BN, OutT, B, B>(ta, tw, nullptr, C, M, N, K, e, dev, sms, s)
+                   : launch<false, BN, OutT, B, float>(ta, tw, nullptr, C, M, N, K, e, dev, sms,
+                                                       s);
   }
-  return r2_bf16 ? launch<BN, OutT, float, B>(ta, tw, C, M, N, K, e, dev, sms, s)
-                 : launch<BN, OutT, float, float>(ta, tw, C, M, N, K, e, dev, sms, s);
+  return r2_bf16 ? launch<false, BN, OutT, float, B>(ta, tw, nullptr, C, M, N, K, e, dev, sms, s)
+                 : launch<false, BN, OutT, float, float>(ta, tw, nullptr, C, M, N, K, e, dev,
+                                                         sms, s);
 }
 
 template <int BN>
@@ -667,6 +924,35 @@ static cudaError_t launch_bn(const CUtensorMap& ta, const CUtensorMap& tw, void*
   return c_bf16 ? launch_typed<BN, __nv_bfloat16>(ta, tw, C, M, N, K, e, r1_bf16, r2_bf16, dev,
                                                   sms, s)
                 : launch_typed<BN, float>(ta, tw, C, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+}
+
+// the 3xTF32 GEMM writes f32 and adds an f32 r1; r2 may be bf16 (the
+// block input x of the double FFN)
+template <int BN>
+static cudaError_t launch_tf32x3(const CUtensorMap& ta, const CUtensorMap& th,
+                                 const CUtensorMap& tl, void* C, int M, int N, int K,
+                                 const Epilogue& e, int r2_bf16, int dev, int sms,
+                                 cudaStream_t s) {
+  using B = __nv_bfloat16;
+  return r2_bf16 ? launch<true, BN, float, float, B>(ta, th, &tl, C, M, N, K, e, dev, sms, s)
+                 : launch<true, BN, float, float, float>(ta, th, &tl, C, M, N, K, e, dev, sms, s);
+}
+
+// A 3xTF32 plan is this build's: BN 32, 64, 96 or 128, and the ring depth
+// Tiles gives it (the wrapper computes both, ops/cuda/tf32x3.py::gemm_plan)
+static inline bool tf32x3_plan_ok(int bn, int stages) {
+  switch (bn) {
+    case 32:
+      return stages == Tiles<32, 2>::STAGES;
+    case 64:
+      return stages == Tiles<64, 2>::STAGES;
+    case 96:
+      return stages == Tiles<96, 2>::STAGES;
+    case 128:
+      return stages == Tiles<128, 2>::STAGES;
+    default:
+      return false;
+  }
 }
 
 }  // namespace sm90
@@ -699,6 +985,52 @@ static inline cudaError_t gemm_bf16(const __nv_bfloat16* A, const __nv_bfloat16*
       return launch_bn<192>(ta, tw, C, c_bf16, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
     default:
       return launch_bn<128>(ta, tw, C, c_bf16, M, N, K, e, r1_bf16, r2_bf16, dev, sms, s);
+  }
+}
+
+// A weight W [N, K] f32 as the 3xTF32 GEMM takes it: hi = W rounded to
+// TF32 and lo = W - hi, made once per weight version, and the plan of the
+// product it takes part in (N tile bn, ring stages).
+struct Tf32x3Weight {
+  const float* hi;
+  const float* lo;
+  int bn;
+  int stages;
+};
+
+// C [M, N] f32 = epi(A [M, K] f32 @ W^T) in 3xTF32, W split as `w` says.
+// K a multiple of 4 (16-byte TMA rows), N of 8; r1 f32, r2 f32 or bf16
+// (r2_bf16); pointers 16-byte aligned. Enqueues on `s`.
+static inline cudaError_t gemm_tf32x3(const float* A, const Tf32x3Weight& w, float* C, int M,
+                                      int N, int K, const Epilogue& e, int r2_bf16,
+                                      cudaStream_t s) {
+  using namespace sm90;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 8 || !tf32x3_plan_ok(w.bn, w.stages)) {
+    return cudaErrorInvalidValue;
+  }
+  const void* pointers[8] = {A, w.hi, w.lo, C, e.bias, e.col_scale, e.r1, e.r2};
+  for (const void* p : pointers) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta, th, tl;
+  if (!encode_map(&ta, A, M, K, BM, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&th, w.hi, N, K, w.bn, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&tl, w.lo, N, K, w.bn, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (w.bn) {
+    case 32:
+      return launch_tf32x3<32>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+    case 64:
+      return launch_tf32x3<64>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+    case 96:
+      return launch_tf32x3<96>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+    default:
+      return launch_tf32x3<128>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
   }
 }
 

@@ -6,8 +6,16 @@
 //
 // Two routes.
 //
-// Golden (f32): a launch sequence on the f32 GEMM (blocks.cuh) --
-// [ResiDual GEMMs] -> add+LN2 -> fc1+GELU -> fc2 + h1 [-> second pass].
+// Golden (f32): a launch sequence (blocks.cuh) -- [ResiDual GEMMs, f32 GEMM]
+// -> add+LN2 -> fc1+GELU -> fc2 + h1 [-> second pass], fc1 and fc2 on the
+// 3xTF32 TMA + wgmma GEMM (gemm_sm90.cuh::gemm_tf32x3).
+//   What bounds it on the H100: operations. At HTSAT-tiny layer 3 and B=32
+//   (2048 rows, 768 -> 3072 -> 768) fc1 and fc2 are 19.3 GFLOP, 0.29 ms at
+//   the 67 TFLOP/s of f32 on the CUDA cores, where the f32 GEMM ran them.
+//   3xTF32 runs them as three TF32 passes, 58 GFLOP at 495 TFLOP/s
+//   (0.12 ms), with about f32's accuracy: the wrapper splits the weights
+//   into hi + lo once per weight version (ops/cuda/tf32x3.py), the kernel
+//   splits z and hid as it reads them.
 //
 // AMP (bf16 operands, f32 accumulate): ffn_cluster_kernel, one launch per
 // FFN pass.
@@ -71,11 +79,10 @@ static size_t residual_ffn_ws(int R, int C, int hidden, int kr) {
 
 static cudaError_t residual_ffn_f32(const void* x, int x_bf16, const void* a, int a_bf16,
                                     void* out, int out_bf16, int R, int C, int hidden,
-                                    const float* n2s, const float* n2b, const float* wfc1,
-                                    const float* bfc1, const float* wfc2, const float* bfc2,
-                                    const float* rbasis, const float* rbasis_t,
-                                    const float* rmean, const float* rlam, int kr,
-                                    int double_ffn, void* ws, cudaStream_t s) {
+                                    const float* n2s, const float* n2b, const FfnWeights& w,
+                                    const float* bfc1, const float* bfc2, const float* rbasis,
+                                    const float* rbasis_t, const float* rmean, const float* rlam,
+                                    int kr, int double_ffn, void* ws, cudaStream_t s) {
   Arena ar{static_cast<unsigned char*>(ws)};
   float* h1 = ar.take<float>((size_t)R * C);
   const FfnScratch ffn_scratch = take_ffn(ar, R, C, hidden, 0);
@@ -89,8 +96,8 @@ static cudaError_t residual_ffn_f32(const void* x, int x_bf16, const void* a, in
     ARPU_TRY(launch_add_layernorm(x, x_bf16, a, a_bf16, h1, ffn_scratch.z, 0, n2s, n2b, R, C, s));
     z_ready = 1;
   }
-  return run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-                 double_ffn, 0, z_ready, ffn_scratch, s);
+  return run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, w, bfc1, bfc2, double_ffn,
+                 0, z_ready, ffn_scratch, s);
 }
 
 // ---- AMP route: one clustered launch per FFN pass ------------------------
@@ -474,18 +481,25 @@ extern "C" size_t arpu_residual_ffn_workspace(int R, int C, int hidden, int kr) 
   return arpu::residual_ffn_ws(R, C, hidden, kr);
 }
 
-// Golden route. x, a, out [R, C]; weights f32 in nn.Linear layout. rbasis
+// Golden route. x, a, out [R, C] (out f32); fc1 [hidden, C] and fc2
+// [C, hidden] split for 3xTF32, hi and lo f32 in nn.Linear layout
+// (ops/cuda/tf32x3.py::split_tf32), each with its GEMM plan (N tile bn,
+// ring stages: tf32x3.py::gemm_plan, checked against this build). rbasis
 // [kr, C] and rbasis_t [C, kr] null without ResiDual. ws:
 // arpu_residual_ffn_workspace bytes.
 extern "C" int arpu_residual_ffn(const void* x, int x_bf16, const void* a, int a_bf16, void* out,
                                  int out_bf16, int R, int C, int hidden, const float* n2s,
-                                 const float* n2b, const float* wfc1, const float* bfc1,
-                                 const float* wfc2, const float* bfc2, const float* rbasis,
+                                 const float* n2b, const float* w1_hi, const float* w1_lo,
+                                 int fc1_bn, int fc1_stages, const float* bfc1,
+                                 const float* w2_hi, const float* w2_lo, int fc2_bn,
+                                 int fc2_stages, const float* bfc2, const float* rbasis,
                                  const float* rbasis_t, const float* rmean, const float* rlam,
                                  int kr, int double_ffn, void* ws, void* stream) {
+  const arpu::FfnWeights w{nullptr, nullptr, {w1_hi, w1_lo, fc1_bn, fc1_stages},
+                           {w2_hi, w2_lo, fc2_bn, fc2_stages}};
   return static_cast<int>(arpu::residual_ffn_f32(
-      x, x_bf16, a, a_bf16, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-      rbasis, rbasis_t, rmean, rlam, kr, double_ffn, ws, static_cast<cudaStream_t>(stream)));
+      x, x_bf16, a, a_bf16, out, out_bf16, R, C, hidden, n2s, n2b, w, bfc1, bfc2, rbasis,
+      rbasis_t, rmean, rlam, kr, double_ffn, ws, static_cast<cudaStream_t>(stream)));
 }
 
 // AMP route. x, a, out [R, C] (f32 or bf16 each); the TMA maps of the bf16

@@ -20,7 +20,9 @@
 // (gemm_sm90.cuh) with bf16 weights the wrapper keeps per weight version.
 // The attention output a stays f32 between the halves, as in the monolithic
 // kernel; with no ResiDual the first residual add rides the proj GEMM's
-// epilogue.
+// epilogue. The golden route's FFN half is K3's: fc1 and fc2 in 3xTF32 on
+// the tensor cores (gemm_sm90.cuh::gemm_tf32x3, weights split by the
+// wrapper); its qkv, proj and ResiDual products stay on the f32 GEMM.
 #include "blocks.cuh"
 
 static size_t swin_block_ws(int R, int C, int hidden, int kr, int bf16) {
@@ -39,8 +41,8 @@ static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16
                               int C, int nh, int nW, int hidden, const float* n1s,
                               const float* n1b, const void* wqkv, const float* bqkv,
                               const void* wproj, const float* bproj, const float* n2s,
-                              const float* n2b, const void* wfc1, const float* bfc1,
-                              const void* wfc2, const float* bfc2, const float* bias,
+                              const float* n2b, const arpu::FfnWeights& ffn,
+                              const float* bfc1, const float* bfc2, const float* bias,
                               const float* mask, const arpu::AttentionPlan& plan,
                               const float* rbasis, const float* rbasis_t, const float* rmean,
                               const float* rlam, int kr, int double_ffn, int bf16, void* ws,
@@ -66,28 +68,41 @@ static cudaError_t swin_block(const void* x, int x_bf16, void* out, int out_bf16
     ARPU_TRY(arpu::run_window_attention(y, bf16, h1, 0, x, x_bf16, R, n, C, nh, nW, wqkv, bqkv,
                                         wproj, bproj, bias, mask, bf16, plan, attn_scratch, s));
   }
-  return arpu::run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, wfc1, bfc1, wfc2,
-                       bfc2, double_ffn, bf16, 0, ffn_scratch, s);
+  return arpu::run_ffn(x, x_bf16, h1, out, out_bf16, R, C, hidden, n2s, n2b, ffn, bfc1, bfc2,
+                       double_ffn, bf16, 0, ffn_scratch, s);
 }
 
 // x, out [R, C] windows (already rolled and partitioned), R = windows * n.
 // Weights in nn.Linear layout [out, in], f32 (bf16 = 0) or bf16 (AMP);
 // rbasis / rbasis_t null without ResiDual. bias, mask and the attention
-// plan (w_map ... blocks) as arpu_window_attention takes them.
+// plan (w_map ... blocks) as arpu_window_attention takes them. fc1 and fc2
+// come as arpu_residual_ffn takes them: in the golden route split for
+// 3xTF32, wfc1 and wfc2 their hi parts and wfc1_lo and wfc2_lo their lo
+// parts, with each GEMM's plan (N tile, ring stages; tf32x3.py::gemm_plan);
+// under AMP wfc1 and wfc2 bf16, the lo parts null and the plans 0.
 extern "C" int arpu_swin_block(const void* x, int x_bf16, void* out, int out_bf16, int R, int n,
                                int C, int nh, int nW, int hidden, const float* n1s,
                                const float* n1b, const void* wqkv, const float* bqkv,
                                const void* wproj, const float* bproj, const float* n2s,
-                               const float* n2b, const void* wfc1, const float* bfc1,
-                               const void* wfc2, const float* bfc2, const float* bias,
-                               const float* mask, const void* w_map, int heads_per_block,
-                               int windows_per_block, int stages, int smem, int blocks,
-                               const float* rbasis, const float* rbasis_t, const float* rmean,
-                               const float* rlam, int kr, int double_ffn, int bf16, void* ws,
-                               void* stream) {
+                               const float* n2b, const void* wfc1, const float* wfc1_lo,
+                               int fc1_bn, int fc1_stages, const float* bfc1, const void* wfc2,
+                               const float* wfc2_lo, int fc2_bn, int fc2_stages,
+                               const float* bfc2, const float* bias, const float* mask,
+                               const void* w_map, int heads_per_block, int windows_per_block,
+                               int stages, int smem, int blocks, const float* rbasis,
+                               const float* rbasis_t, const float* rmean, const float* rlam,
+                               int kr, int double_ffn, int bf16, void* ws, void* stream) {
   const arpu::AttentionPlan plan{w_map, heads_per_block, windows_per_block, stages, smem, blocks};
+  arpu::FfnWeights ffn{};
+  if (bf16) {
+    ffn.w1 = static_cast<const arpu::bf16_t*>(wfc1);
+    ffn.w2 = static_cast<const arpu::bf16_t*>(wfc2);
+  } else {
+    ffn.x1 = {static_cast<const float*>(wfc1), wfc1_lo, fc1_bn, fc1_stages};
+    ffn.x2 = {static_cast<const float*>(wfc2), wfc2_lo, fc2_bn, fc2_stages};
+  }
   return static_cast<int>(swin_block(x, x_bf16, out, out_bf16, R, n, C, nh, nW, hidden, n1s, n1b,
-                                     wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-                                     bias, mask, plan, rbasis, rbasis_t, rmean, rlam, kr,
-                                     double_ffn, bf16, ws, static_cast<cudaStream_t>(stream)));
+                                     wqkv, bqkv, wproj, bproj, n2s, n2b, ffn, bfc1, bfc2, bias,
+                                     mask, plan, rbasis, rbasis_t, rmean, rlam, kr, double_ffn,
+                                     bf16, ws, static_cast<cudaStream_t>(stream)));
 }

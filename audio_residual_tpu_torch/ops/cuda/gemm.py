@@ -1,14 +1,15 @@
-"""The bf16 tensor-core GEMM of the Swin-block kernels (``csrc/gemm_sm90.cuh``).
+"""The tensor-core GEMM of the Swin-block kernels (``csrc/gemm_sm90.cuh``).
 
-``C = epi(A @ W^T)``: ``A [M, K]`` and ``W [N, K]`` (``nn.Linear`` layout)
-in bf16, f32 accumulate, then in this order ``+ bias[n]``,
-``* col_scale[n]``, exact GELU, ``+ r1[m, n]``, ``+ r2[m, n]`` (each
-optional), stored as f32 or bf16. It is the AMP GEMM that K2-K5 run inside
-their launch sequences (TMA loads into a ring of shared-memory stages,
-``wgmma`` from shared memory, persistent grid); this wrapper calls it alone,
-for its tests and ``chip_smoke.py``'s ``[gemm]`` phase. It replaces no TPU
-kernel by itself: on the TPU the same products are the MXU dots inside the
-Pallas block kernels.
+``C = epi(A @ W^T)``: ``A [M, K]`` and ``W [N, K]`` (``nn.Linear`` layout),
+f32 accumulate, then in this order ``+ bias[n]``, ``* col_scale[n]``, exact
+GELU, ``+ r1[m, n]``, ``+ r2[m, n]`` (each optional). Two operand modes:
+:func:`gemm`, bf16 operands stored as f32 or bf16, the AMP GEMM that K2-K5
+run inside their launch sequences; :func:`gemm_tf32x3`, f32 operands in
+3xTF32 (:mod:`.tf32x3`), f32 out, the golden FFN GEMM of K3 and K4. Both
+are one kernel design (TMA loads into a ring of shared-memory stages,
+``wgmma``, persistent grid); these wrappers call it alone, for its tests and
+``chip_smoke.py``. It replaces no TPU kernel by itself: on the TPU the same
+products are the MXU dots inside the Pallas block kernels.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
+from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
 
-__all__ = ["gemm", "gemm_plain"]
+__all__ = ["gemm", "gemm_plain", "gemm_tf32x3", "gemm_tf32x3_plain"]
 
 
 def gemm_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
@@ -74,4 +76,43 @@ def gemm(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
             build.stream_of(a))
     build.check("gemm", rc, "gemm")
     launch_counts["gemm"] += 1
+    return out
+
+
+def gemm_tf32x3_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None):
+    """Plain version of :func:`gemm_tf32x3`: the f32 matmul, then the
+    epilogue, in f32."""
+    return gemm_plain(a.float(), w, bias, col_scale, gelu, r1, r2, torch.float32)
+
+
+def gemm_tf32x3(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None,
+                r2=None) -> torch.Tensor:
+    """``a [M, K]``, ``w [N, K]`` f32 -> ``[M, N]`` f32 in 3xTF32, ``w``
+    split once per weight version; ``r2`` f32 or bf16. CPU tensors take
+    :func:`gemm_tf32x3_plain`; on the card K must be a multiple of 4 and N
+    of 8 (:func:`.tf32x3.gemm_plan`)."""
+    if a.device.type == "cpu":
+        return gemm_tf32x3_plain(a, w, bias, col_scale, gelu, r1, r2)
+    if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"gemm_tf32x3: a must be [M, K] and w [N, K], got {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[0]
+    plan = tf32x3.gemm_plan(m, n, k, sm_count(a.device))
+    for name, t, shape in (("bias", bias, (n,)), ("col_scale", col_scale, (n,)),
+                           ("r1", r1, (m, n)), ("r2", r2, (m, n))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"gemm_tf32x3: {name} must be {list(shape)}, got {tuple(t.shape)}")
+    build.check_cuda_inputs("gemm_tf32x3", {"a": a, "w": w, "bias": bias,
+                                            "col_scale": col_scale, "r1": r1, "r2": r2},
+                            float_only=("a", "w", "bias", "col_scale", "r1"))
+    (w_hi, w_lo), = tf32x3.split_weights(w)
+    out = torch.empty(m, n, device=a.device, dtype=torch.float32)
+    fn = build.bind("gemm", "arpu_gemm_tf32x3", "pppp" "iii" "ii" "ppi" "ppi" "p")
+    rc = fn(a.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), out.data_ptr(), m, n, k, plan.bn,
+            plan.stages, build.ptr(bias), build.ptr(col_scale), int(bool(gelu)), build.ptr(r1),
+            build.ptr(r2), int(r2 is not None and r2.dtype == torch.bfloat16),
+            build.stream_of(a))
+    build.check("gemm", rc, "gemm_tf32x3")
+    launch_counts["gemm_tf32x3"] += 1
     return out

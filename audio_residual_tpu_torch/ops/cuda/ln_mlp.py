@@ -7,11 +7,14 @@ optional ResiDual epilogue on ``a`` (f32), ``h = x + a``,
 patched-forward quirk, a second pass from ``x + y``. Weights in
 ``nn.Linear`` layout. Output in the store dtype (the caller's under AMP).
 
-Two routes: the golden one (f32) is a launch sequence on the f32 GEMM; the
-AMP one (``mxu_dtype=torch.bfloat16``) runs ``ffn_cluster_kernel``, one
-clustered launch per FFN pass with the hidden activation exchanged through
-distributed shared memory, on bf16 copies of the weights and the launch
-plan of :func:`amp_plan`.
+Two routes: the golden one (f32) is a launch sequence whose fc1 and fc2 run
+``gemm_tf32x3_kernel``, f32 products in 3xTF32 on the tensor cores
+(:mod:`.tf32x3`: the weights split once per weight version, each GEMM's
+plan from :func:`.tf32x3.gemm_plan`; the ResiDual GEMMs stay on the f32
+GEMM); the AMP one (``mxu_dtype=torch.bfloat16``) runs
+``ffn_cluster_kernel``, one clustered launch per FFN pass with the hidden
+activation exchanged through distributed shared memory, on bf16 copies of
+the weights and the launch plan of :func:`amp_plan`.
 """
 
 from __future__ import annotations
@@ -25,17 +28,19 @@ import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda import tf32x3
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
     derived,
     mxu_weights,
+    sm_count,
     store_dtype,
     weight_map,
 )
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_autograd", "amp_plan",
-           "FfnPlan"]
+           "FfnPlan", "golden_ffn_args"]
 
 # the AMP kernel's constants (csrc/ln_mlp.cu, namespace ffn)
 ROWS = 128                  # rows of a cluster's tile: two consumer warpgroups of 64
@@ -198,6 +203,17 @@ def residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, 
                            *_residual_tensors(rparams))
 
 
+def golden_ffn_args(wfc1, bfc1, wfc2, bfc2, rows: int, sms: int) -> tuple:
+    """The golden route's FFN arguments, in the order the C entries take
+    them: fc1's hi, lo, N tile and ring stages, its bias, then fc2's. The
+    weights are split for 3xTF32 once per weight version."""
+    hidden, c = wfc1.shape
+    (w1_hi, w1_lo), (w2_hi, w2_lo) = tf32x3.split_weights(wfc1, wfc2)
+    p1, p2 = tf32x3.gemm_plan(rows, hidden, c, sms), tf32x3.gemm_plan(rows, c, hidden, sms)
+    return (w1_hi.data_ptr(), w1_lo.data_ptr(), p1.bn, p1.stages, bfc1.data_ptr(),
+            w2_hi.data_ptr(), w2_lo.data_ptr(), p2.bn, p2.stages, bfc2.data_ptr())
+
+
 def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=False,
             mxu_dtype=None) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, one call, its count."""
@@ -218,13 +234,14 @@ def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=
         ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiii",
                              restype=ctypes.c_size_t)(r, c, hidden, kr)
         ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
-        fn = build.bind("ln_mlp", "arpu_residual_ffn", "pipipi" "iii" "pppppp" "pppp" "ii" "pp")
+        fn = build.bind("ln_mlp", "arpu_residual_ffn",
+                        "pipipi" "iii" "pp" "ppiip" "ppiip" "pppp" "ii" "pp")
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
                 int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
-                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
-                wfc2.data_ptr(), bfc2.data_ptr(), build.ptr(basis), build.ptr(basis_t),
-                build.ptr(mean), build.ptr(lam), kr, int(bool(double_ffn)),
-                ws.data_ptr(), build.stream_of(x))
+                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(),
+                *golden_ffn_args(wfc1, bfc1, wfc2, bfc2, r, sm_count(x.device)),
+                build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam), kr,
+                int(bool(double_ffn)), ws.data_ptr(), build.stream_of(x))
     else:
         plan = amp_plan(r, c, hidden)
         wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)

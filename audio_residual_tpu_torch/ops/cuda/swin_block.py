@@ -16,7 +16,9 @@ matrices; its attention half is K2's qkv + attention kernel
 (``csrc/window_attention_tc.cuh``, with the padded bias and mask, the wqkv
 map and the plan of :func:`.window_attention.amp_plan`) and the proj GEMM,
 and it stores the intermediates that only a GEMM reads in bf16
-(``csrc/blocks.cuh``).
+(``csrc/blocks.cuh``). In the golden mode its FFN half is K3's golden
+sequence: fc1 and fc2 in 3xTF32 on the tensor cores, on weights the wrapper
+splits once per weight version (:func:`.ln_mlp.golden_ffn_args`).
 
 As in the JAX package, the public function dispatches: from C =
 ``WIDE_MIN_C`` on (HTSAT-large layer 2) it runs :func:`split_block` --
@@ -35,6 +37,7 @@ from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
     fused_residual_ffn,
+    golden_ffn_args,
     residual_ffn_f32,
     residual_pointers,
 )
@@ -47,6 +50,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     check_window_shapes,
     fused_window_attention,
     mxu_weights,
+    sm_count,
     store_dtype,
 )
 
@@ -156,24 +160,27 @@ def _kernel(x, flat_params, nh, window, num_windows_per_image, shift, resolution
                "basis_t": basis_t, "mean": mean, "lam": lam}
     build.check_cuda_inputs("fused_swin_block", {"x": x, **weights}, float_only=tuple(weights))
     amp = mxu_dtype is not None
-    wqkv, wproj, wfc1, wfc2 = mxu_weights(mxu_dtype, wqkv, wproj, wfc1, wfc2)
+    r = wn * n
+    wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
     if amp:  # the attention half reads LN1's bf16 output, of x's shape
         bias, mask, plan = amp_attention_args(x, wqkv, table, nh, window, shift, resolution)
+        w1, w2 = mxu_weights(mxu_dtype, wfc1, wfc2)
+        ffn = (w1.data_ptr(), None, 0, 0, bfc1.data_ptr(), w2.data_ptr(), None, 0, 0,
+               bfc2.data_ptr())
     else:
         bias, mask = bias_and_mask(table, window, shift, resolution)
         plan = NO_PLAN
-    r = wn * n
+        ffn = golden_ffn_args(wfc1, bfc1, wfc2, bfc2, r, sm_count(x.device))
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
     ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiiii",
                          restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("swin_block", "arpu_swin_block",
-                    "pipi" "iiiiii" "pppppppppppp" "pp" "piiiii" "pppp" "iii" "pp")
+                    "pipi" "iiiiii" "pppppppp" "ppiip" "ppiip" "pp" "piiiii" "pppp" "iii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, hidden,
             n1s.data_ptr(), n1b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-            bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), wfc1.data_ptr(), bfc1.data_ptr(),
-            wfc2.data_ptr(), bfc2.data_ptr(),
+            bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), *ffn,
             bias.data_ptr(), build.ptr(mask), *plan,
             build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
             kr, int(bool(double_ffn and use_residual)), int(amp),

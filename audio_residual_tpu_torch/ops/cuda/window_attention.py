@@ -172,7 +172,7 @@ def amp_plan(windows: int, n: int, c: int, nh: int, sms: int = H100_SMS) -> AmpP
 
 
 @functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -221,7 +221,7 @@ def amp_attention_args(x, wqkv, table, nh, window, shift, resolution) -> tuple:
     a unit, stages, shared bytes and blocks, in the order the C entries
     take them."""
     wn, n, c = x.shape
-    plan = amp_plan(wn, n, c, nh, _sm_count(x.device))
+    plan = amp_plan(wn, n, c, nh, sm_count(x.device))
     bias, mask = padded_bias_and_mask(table, window, shift, resolution)
     w_map = weight_map(wqkv, plan.n_cols // 3)
     return bias, mask, (ctypes.addressof(w_map), plan.heads_per_block, plan.windows_per_block,

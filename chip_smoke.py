@@ -10,18 +10,25 @@ line):
   1. build   -- nvcc every kernel (in parallel), print the card's name and
                power limit, turn TF32 off for the golden path.
   2. kernels -- each of K1-K5 against its plain PyTorch version at the main
-               paths' shapes (B=32), f32 and bf16, with times; K1's AMP
-               (wgmma) route also at ragged clip lengths, B=1 and 3, on
-               silence and with the n_fft=1536 frontend, each within
-               0.05 dB; K5 also at HTSAT-large's wide layers, at odd window
+               paths' shapes (B=32), f32 and bf16, with times; the golden
+               routes of K1, K3 and K4 (3xTF32 on wgmma) also against a
+               float64 evaluation of the same function (at most 4x the
+               plain f32 version's error), each golden bound at the f32
+               CUDA-core rate and for the 3xTF32 arithmetic the route runs,
+               K1's golden yardsticks the DFT matmul and the whole function
+               as torch.stft -> power -> mel -> dB; K1's routes also at
+               ragged clip lengths, B=1 and 3, on silence and with the
+               n_fft=1536 frontend, AMP within 0.05 dB; K5 also at
+               HTSAT-large's wide layers, at odd window
                counts and at n = 49 tokens; the AMP qkv + attention kernel
                that K2, K4 and K5 share (window_attention_wgmma_kernel)
                timed alone by device time in each of their calls, K2 and
                K4 also at n = 49 and 3 windows; K3's AMP kernel by device
                time (the only kernel of its call, one launch a pass); K2,
                K3 and K4 beside their function as a sequence of PyTorch
-               calls (cuBLAS, SDPA); K4's device time split by CUDA kernel
-               (torch.profiler) at its main-path shapes.
+               calls (cuBLAS, SDPA); K3's golden 3xTF32 GEMMs by device
+               time; K4's device time split by CUDA kernel (torch.profiler)
+               at its main-path shapes, AMP and golden.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -36,7 +43,9 @@ line):
                torch.profiler window over an AMP forward (device time by
                CUDA kernel, the device's idle share, K3's launches, the
                qkv + attention kernel's launches and no attention_core_kernel
-               under AMP).
+               under AMP), and one over a golden forward (the same split;
+               K1's one logmel_tf32x3_kernel and a gemm_tf32x3_kernel for
+               each golden fc1 and fc2).
   3b. main   -- the same program through HTSAT-base, built by name from the
                model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
                runs K5.
@@ -95,8 +104,13 @@ GRAD_COS = 0.999  # AMP λ-gradient: cosine against the plain versions'
 TRAIN_FIXTURE_TOL = {"loss": dict(rtol=1e-4, atol=0), "step_loss": dict(rtol=1e-4, atol=0),
                      "lam": dict(rtol=0, atol=1e-4), "sims": dict(rtol=0, atol=2e-3)}
 K1_AMP_DB = 0.05  # K1 bf16 against its plain version, dB: the JAX kernel's AMP error
-HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / bf16 rates
-PEAK = {"f32": 67e12, "bf16": 989e12}
+HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / TF32 / bf16 rates
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+# golden routes against float64: at most this times the plain f32 version's error
+GOLDEN_F64_RATIO = 4.0
+# a golden forward's 3xTF32 GEMMs: fc1 and fc2 of each FFN pass (layer 0's
+# blocks run two passes: ResiDual's double FFN)
+EXPECTED_GOLDEN_TF32X3 = {"tiny": 2 * (2 * 2 + 2 + 6 + 2), "base": 2 * (2 * 2 + 2 + 12 + 2)}
 
 
 def log(phase: str, **kv) -> None:
@@ -150,22 +164,30 @@ class KernelStats:
             self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], err)
 
     def time(self, name, label, mode, kernel_fn, plain_fn, nbytes, flops, launches=1,
-             library_fn=None, library_what=None) -> None:
+             library_fn=None, library_what=None, route_flops=None) -> None:
         """``nbytes``: each input read once, each output written once;
         ``flops``: {peak type: operations} of one launch; ``library_what``
-        says what ``library_fn`` computes when it is not the same function."""
+        says what ``library_fn`` computes when it is not the same function.
+        ``route_flops``: the operations the route itself runs, by type (a
+        3xTF32 route: three TF32 products for each f32 one), for a second
+        bound, ``route_bound_ms``, beside the f32 one."""
         ms = launches * time_ms(kernel_fn)
         plain = launches * time_ms(plain_fn)
         lib = launches * time_ms(library_fn) if library_fn is not None else None
         b_ms = launches * 1e3 * nbytes / HBM_BYTES_S
         o_ms = launches * 1e3 * sum(f / PEAK[t] for t, f in flops.items())
         extra = {"library": repr(library_what)} if library_what else {}
+        route_ms = None
+        if route_flops is not None:
+            route_ms = max(b_ms, launches * 1e3 * sum(f / PEAK[t] for t, f in route_flops.items()))
+            extra["route_bound_ms"] = route_ms
         log("kernels", kernel=name, shape=label, mode=mode, launches=launches, ms=ms,
             plain_ms=plain, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=lib, **extra)
         if mode == "f32":
             g = self.golden[name]
-            g.update(ms=ms, plain_ms=plain, bound_ms=max(b_ms, o_ms))
+            g.update(ms=ms, plain_ms=plain, bound_ms=max(b_ms, o_ms),
+                     route_bound_ms=route_ms if route_ms is not None else max(b_ms, o_ms))
             if lib is not None:
                 g["library_ms"] += lib
         if mode == self.JSON_MODE:
@@ -180,10 +202,28 @@ class KernelStats:
 
     def log_golden(self) -> None:
         """One line a kernel: its golden f32 rows summed over the main paths'
-        launches, with the yardstick as PyTorch calls in f32 (TF32 off)."""
+        launches, with the yardstick as PyTorch calls in f32 (TF32 off);
+        ``bound_ms`` at the f32 CUDA-core rate, ``route_bound_ms`` for the
+        arithmetic the route runs (3xTF32 where it does)."""
         for name, g in self.golden.items():
+            extra = {k: g[k] for k in ("stft_chain_ms",) if k in g}
             log("kernels", golden_summary=name, mode="f32", ms=g["ms"], plain_ms=g["plain_ms"],
-                bound_ms=g["bound_ms"], library_ms=g["library_ms"] or None)
+                bound_ms=g["bound_ms"], route_bound_ms=g["route_bound_ms"],
+                library_ms=g["library_ms"] or None, **extra)
+
+    def check_f64(self, name, label, got, plain, ref64) -> None:
+        """A golden route against float64: its error at most
+        ``GOLDEN_F64_RATIO`` times the plain f32 version's."""
+        from tests.torch_f64_reference import error_ratio
+
+        err, plain_err, ratio = error_ratio(got, plain, ref64)
+        ok = ratio <= GOLDEN_F64_RATIO
+        log("kernels", check=f"{name} {label} against float64", mode="f32",
+            max_abs_err_f64=err, plain_max_abs_err_f64=plain_err, ratio=ratio,
+            limit=GOLDEN_F64_RATIO, ok=ok)
+        if not ok:
+            raise AssertionError(f"{name} {label}: {ratio:.2f}x the plain version's error "
+                                 "against float64")
 
     def json_line(self, launches: dict) -> str:
         out = []
@@ -215,7 +255,8 @@ def audio_frontend(name: str):
 def check_logmel(stats: KernelStats, label: str, wav, cfg, mode: str,
                  silence: bool = False) -> None:
     """K1 against its plain version: ``TOL`` and, under AMP, at most
-    ``K1_AMP_DB`` dB apart; on silence both give the amin floor exactly."""
+    ``K1_AMP_DB`` dB apart; on silence both give the amin floor exactly
+    (the golden route: both give the same bits)."""
     import torch
 
     from audio_residual_tpu_torch.ops.cuda import frontend as k1
@@ -223,6 +264,8 @@ def check_logmel(stats: KernelStats, label: str, wav, cfg, mode: str,
     got, ref = k1.fused_logmel(wav, cfg, mode), k1.logmel_plain(wav, cfg, mode)
     stats.check("fused_logmel", label, got, ref, mode)
     if mode != "bf16":
+        if silence and not torch.equal(got, ref):
+            raise AssertionError(f"fused_logmel {label}: golden differs from plain on silence")
         return
     err = float((got - ref).abs().max())
     extra = {}
@@ -248,6 +291,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
     from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
     from audio_residual_tpu_torch.ops.cuda import window_attention as k2
     from audio_residual_tpu_torch.ops.frontend import FrontendConfig, mel_active_bins
+    from tests import torch_f64_reference as f64
 
     rng = np.random.default_rng(0)
     modes = (("f32", None), ("bf16", torch.bfloat16))
@@ -264,7 +308,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         return {"f32": sum(flops_by_type.values())} if mode == "f32" else flops_by_type
 
     # K1 at [32, 480000], one launch a forward of each main path: "f32" runs
-    # the CUDA-core kernel, "bf16" (AMP) the wgmma kernel
+    # logmel_tf32x3_kernel (3xTF32), "bf16" (AMP) logmel_wgmma_kernel
     cfg = FrontendConfig()
     wav = t(B, 480000, scale=0.1)
     lo, hi = mel_active_bins(cfg)
@@ -273,7 +317,8 @@ def phase_kernels(stats: KernelStats, dev) -> None:
     for mode, md in modes:
         check_logmel(stats, "[32,480000]", wav, cfg, mode)
         nbytes = 4 * (wav.numel() + cfg.n_fft * 2 * nb + nb * cfg.n_mels + B * nf * cfg.n_mels)
-        flops = {"bf16": 2.0 * B * nf * cfg.n_fft * 2 * nb, "f32": 2.0 * B * nf * nb * cfg.n_mels}
+        dft, fold = 2.0 * B * nf * cfg.n_fft * 2 * nb, 2.0 * B * nf * nb * cfg.n_mels
+        flops = {"bf16": dft, "f32": fold}
         # yardstick, not the same function: the DFT product alone, one
         # torch.matmul of pre-materialised frames [B*nf, n_fft] by the basis
         # [n_fft, 2*nbins], both in the mode's operand type
@@ -283,7 +328,21 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         stats.time("fused_logmel", "[32,480000]", mode, lambda: k1.fused_logmel(wav, cfg, mode),
                    lambda: k1.logmel_plain(wav, cfg, mode), nbytes, typed(mode, flops),
                    launches=2, library_fn=lambda: torch.matmul(frames, bm),
-                   library_what="torch.matmul frames @ basis: the DFT product alone")
+                   library_what="torch.matmul frames @ basis: the DFT product alone",
+                   route_flops={"tf32": 3 * dft, "f32": fold} if md is None else None)
+        if md is None:
+            # the whole function as library calls (cuFFT's STFT in f32), a
+            # second yardstick the port never calls; and the error against
+            # float64 beside the plain version's
+            chain = stft_chain(cfg, dev)
+            log("kernels", kernel="fused_logmel", shape="[32,480000]", mode=mode,
+                stft_chain_ms=2 * time_ms(lambda: chain(wav)),
+                stft_chain_device_ms=device_busy_ms(lambda: chain(wav)),
+                stft_chain_rel_err=rel_err(chain(wav), k1.logmel_plain(wav, cfg)),
+                library=repr(STFT_CHAIN))
+            stats.golden["fused_logmel"]["stft_chain_ms"] += 2 * time_ms(lambda: chain(wav))
+            stats.check_f64("fused_logmel", "[32,480000]", k1.fused_logmel(wav, cfg),
+                            k1.logmel_plain(wav, cfg), f64.logmel64(wav, cfg))
         # device time of one call: the log-mel kernel alone, and all of the
         # call's kernels (the wrapper's cast and reflect pad too)
         k1.fused_logmel(wav, cfg, mode)
@@ -302,13 +361,18 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         return torch.from_numpy((0.1 * clips.standard_normal((b, n))).astype(np.float32)).to(dev)
 
     win1536 = audio_frontend("HTSAT-tiny-win-1536")
-    for b in (1, 3):
-        for n in (48000, 100000, 240000, 480000):
-            check_logmel(stats, f"[{b},{n}]", clip_of(b, n), cfg, "bf16")
-    check_logmel(stats, "[3,48000] silence", torch.zeros(3, 48000, device=dev), cfg, "bf16",
-                 silence=True)
-    for b, n in ((1, 100000), (3, 240000)):
-        check_logmel(stats, f"[{b},{n}] n_fft=1536", clip_of(b, n), win1536, "bf16")
+    for mode in ("bf16", "f32"):
+        for b in (1, 3):
+            for n in (48000, 100000, 240000, 480000):
+                check_logmel(stats, f"[{b},{n}]", clip_of(b, n), cfg, mode)
+        check_logmel(stats, "[3,48000] silence", torch.zeros(3, 48000, device=dev), cfg, mode,
+                     silence=True)
+        for b, n in ((1, 100000), (3, 240000)):
+            check_logmel(stats, f"[{b},{n}] n_fft=1536", clip_of(b, n), win1536, mode)
+    wav1536 = clip_of(B, 480000)
+    stats.check_f64("fused_logmel", "[32,480000] n_fft=1536", k1.fused_logmel(wav1536, win1536),
+                    k1.logmel_plain(wav1536, win1536), f64.logmel64(wav1536, win1536))
+    del wav1536
 
     def block(c, nh):
         hidden = 4 * c
@@ -323,6 +387,7 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         return flat, res
 
     k4_main = []  # the main paths' AMP K4 calls, with their launches a forward
+    k4_golden = []  # and their golden calls
     # K4 at layers 0-2 of HTSAT-tiny, then HTSAT-base: (C, heads, windows per
     # clip, grid, main-path launches per shift, main path has ResiDual +
     # double-FFN: layer 0); shift 0 and 4; ResiDual off / on / on + double-FFN
@@ -347,19 +412,28 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                                 k4.swin_block_plain(*args), mode)
                     if (use_res, dffn) != ((True, True) if path_res else (False, False)):
                         continue
-                    if md is not None:
-                        k4_main.append((lambda a=args: k4.fused_swin_block(*a), per_shift))
+                    (k4_golden if md is None else k4_main).append(
+                        (lambda a=args: k4.fused_swin_block(*a), per_shift))
                     passes = 2 if dffn else 1
-                    flops = {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c
-                             + passes * 4.0 * r * c * hidden}
+                    ffn = passes * 4.0 * r * c * hidden
+                    attn = 8.0 * r * c * c + 4.0 * r * 64 * c
+                    flops = {"bf16": attn + ffn}
                     if use_res:
                         flops["f32"] = 4.0 * r * c * c
                     seq = block_sequence(args, md or torch.float32)
+                    # golden: the FFN products in 3xTF32, the rest on the CUDA cores
+                    route = {"tf32": 3 * ffn, "f32": attn + flops.get("f32", 0.0)}
                     stats.time("fused_swin_block", label, mode,
                                lambda: k4.fused_swin_block(*args),
                                lambda: k4.swin_block_plain(*args),
                                2 * nbytes_of([x]) + nbytes_of(args[1]), typed(mode, flops),
-                               launches=per_shift, library_fn=seq, library_what=BLOCK_SEQUENCE)
+                               launches=per_shift, library_fn=seq, library_what=BLOCK_SEQUENCE,
+                               route_flops=route if md is None else None)
+                    if md is None:
+                        rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
+                        stats.check_f64("fused_swin_block", label, k4.fused_swin_block(*args),
+                                        k4.swin_block_plain(*args),
+                                        f64.block64(x, flat, rp, nh, 8, shift, hw, dffn))
                     log("kernels", kernel="fused_swin_block", shape=label, mode=mode,
                         yardstick_rel_err=rel_err(seq(), k4.swin_block_plain(*args)))
                     if md is not None:
@@ -372,18 +446,29 @@ def phase_kernels(stats: KernelStats, dev) -> None:
             for _ in range(launches):
                 fn()
 
+    def k4_golden_forwards():
+        for fn, launches in k4_golden:
+            for _ in range(launches):
+                fn()
+
     k4_main[0][0]()  # warm
     log_profile("kernels", "K4 bf16, one forward of each main path", device_profile(k4_forwards))
+    k4_golden[0][0]()
+    log_profile("kernels", "K4 f32, one forward of each main path",
+                device_profile(k4_golden_forwards))
 
     def k3_device_time(label, fargs, md, mode, seq, ops) -> None:
         """K3's device time of one call: under AMP the clustered kernel alone
-        (it must be the call's only kernel: one launch a pass) and the call;
-        the yardstick sequence beside it."""
+        (it must be the call's only kernel: one launch a pass), golden its
+        two 3xTF32 GEMMs (fc1, fc2; with add+LN2 the call's only kernels),
+        and the call; the yardstick sequence beside it."""
         call = lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md)  # noqa: E731
+        # AMP: one ffn_cluster_kernel a call; golden: add+LN2 and two GEMMs
+        want = 5 if md is not None else 15
         call()
         for _ in range(3):  # a window now and then drops kernel records
             prof = device_profile(lambda: [call() for _ in range(5)])
-            if prof is None or md is None or sum(prof[4].values()) == 5:
+            if prof is None or sum(prof[4].values()) == want:
                 break
         extra = {}
         if prof is not None and md is not None:
@@ -395,6 +480,17 @@ def phase_kernels(stats: KernelStats, dev) -> None:
             k_ms = sum(prof[1].values()) / 5
             extra = dict(kernel_device_ms=k_ms, kernel_tflops=ops / k_ms / 1e9,
                          kernel_peak_share=ops * 1e3 / k_ms / PEAK[mode],
+                         kernel_names=json.dumps(sorted(kernels)))
+        elif prof is not None:
+            kernels = prof[4]
+            gemms = sum(v for n, v in kernels.items() if "gemm_tf32x3_kernel" in n)
+            if any("gemm_f32_kernel" in n for n in kernels) or \
+                    (sum(kernels.values()) == want and gemms != 10):
+                raise AssertionError(f"fused_residual_ffn {label}: golden calls launched "
+                                     f"{dict(kernels)}, expected fc1 and fc2 on gemm_tf32x3")
+            k_ms = sum(v for n, v in prof[1].items() if "gemm_tf32x3_kernel" in n) / 5
+            extra = dict(tf32x3_gemms_device_ms=k_ms, tf32x3_gemms_tflops=ops / k_ms / 1e9,
+                         tf32x3_peak_share=3 * ops * 1e3 / k_ms / PEAK["tf32"],
                          kernel_names=json.dumps(sorted(kernels)))
         log("kernels", kernel="fused_residual_ffn", shape=label, mode=mode,
             call_device_ms=prof[2] / 5 if prof else None, **extra,
@@ -447,13 +543,19 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                 if use_res:
                     continue  # the main paths' layer 3 has no ResiDual
                 seq = ffn_sequence(fargs, md or torch.float32)
+                ops = 4.0 * r * c * hidden
                 stats.time("fused_residual_ffn", label, mode,
                            lambda: k3.fused_residual_ffn(*fargs, mxu_dtype=md),
                            lambda: k3.residual_ffn_plain(*fargs, mxu_dtype=md),
                            3 * nbytes_of([x]) + nbytes_of(flat[6:12]),
-                           typed(mode, {"bf16": 4.0 * r * c * hidden}), launches=2,
-                           library_fn=seq, library_what=FFN_SEQUENCE)
-                k3_device_time(label, fargs, md, mode, seq, 4.0 * r * c * hidden)
+                           typed(mode, {"bf16": ops}), launches=2,
+                           library_fn=seq, library_what=FFN_SEQUENCE,
+                           route_flops={"tf32": 3 * ops} if md is None else None)
+                k3_device_time(label, fargs, md, mode, seq, ops)
+                if md is None:
+                    stats.check_f64("fused_residual_ffn", label,
+                                    k3.fused_residual_ffn(*fargs),
+                                    k3.residual_ffn_plain(*fargs), f64.ffn64(*fargs, False))
 
     # K5 at HTSAT-large's wide layers: layer 2 (C=1024, 16 heads, four windows
     # a clip, shifts 0 and 4) and layer 3 (C=2048, 32 heads, one window); then
@@ -514,6 +616,31 @@ def ffn_sequence(fargs, md):
         h = x.float() + a.float()
         z = F.layer_norm(h, (c,), n2s, n2b).to(md)
         return h + F.linear(F.gelu(F.linear(z, w1b, b1b)), w2b, b2b)
+
+    return run
+
+
+STFT_CHAIN = ("a sequence of calls, which the port never calls: torch.stft (f32, hann, center, "
+              "reflect) -> power -> the mel product -> dB, over all n_fft / 2 + 1 bins")
+
+
+def stft_chain(cfg, dev):
+    """K1's function as PyTorch calls in f32: ``run(wav [B, T])``, the
+    golden yardstick ``stft_chain_ms``, not a path of the port."""
+    import torch
+
+    from audio_residual_tpu_torch.ops import frontend as fe
+
+    window = torch.hann_window(cfg.win_length, periodic=True, device=dev)
+    melw = torch.from_numpy(fe.mel_filterbank(cfg)).to(dev)
+    offset = float(10.0 * np.log10(max(cfg.amin, cfg.ref)))
+
+    def run(wav):
+        spec = torch.stft(wav, cfg.n_fft, cfg.hop_length, cfg.win_length, window, center=True,
+                          pad_mode="reflect", return_complex=True)
+        power = spec.real ** 2 + spec.imag ** 2  # [B, n_fft / 2 + 1, frames]
+        mel = power.transpose(1, 2) @ melw
+        return 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin)) - offset
 
     return run
 
@@ -613,14 +740,15 @@ def attention_launch(kernel, label, mode, call, r, c) -> None:
 def kernel_group(name: str) -> str:
     """The port's kernels by role; everything else is PyTorch's."""
     for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
-                       ("gemm_f32_kernel", "f32 GEMM (golden, ResiDual)"),
+                       ("gemm_tf32x3_kernel", "3xTF32 GEMM (golden fc1, fc2)"),
+                       ("gemm_f32_kernel", "f32 GEMM (golden qkv, proj; ResiDual)"),
                        ("attention_core_kernel", "attention core (golden)"),
                        ("window_attention_wgmma", "K2/K4/K5 qkv + attention, AMP (TMA + wgmma)"),
                        ("add_layernorm_kernel", "LayerNorm"),
                        ("ffn_cluster_kernel", "K3 FFN, AMP (clustered TMA + wgmma)"),
                        ("wide_qkv_attention", "K5 qkv + attention, golden (CUDA cores)"),
                        ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
-                       ("logmel_kernel", "K1 log-mel, golden (CUDA cores)")):
+                       ("logmel_tf32x3_kernel", "K1 log-mel, golden (3xTF32 wgmma)")):
         if key in name:
             return group
     return "PyTorch (glue, casts)"
@@ -787,9 +915,11 @@ def main_inputs(cfg, dev) -> tuple:
     return {0: res0}, text, torch.from_numpy(wav).to(dev)
 
 
-def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
+def phase_main(dev, card: str, label: str, build_model, expected: dict,
+               golden_gemms: int) -> dict:
     """ESC-50 zero-shot + ResiDual at layer 0 through ``build_model()`` ->
-    ``(model, cfg)``, golden and AMP; returns the AMP forward's launches."""
+    ``(model, cfg)``, golden and AMP; returns the AMP forward's launches.
+    ``golden_gemms``: the 3xTF32 GEMMs of a golden forward."""
     import torch
 
     from audio_residual_tpu_torch.data.featurize import featurize_batch
@@ -867,6 +997,27 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict) -> dict:
             raise AssertionError(f"{label}: the AMP forward launched window_attention_wgmma "
                                  f"{tc} times (expected {want}) and attention_core_kernel "
                                  f"{core} times (expected 0)")
+    # the golden forward: K1 is one logmel_tf32x3_kernel, every fc1 and fc2
+    # a gemm_tf32x3_kernel
+    prof = None
+    for _ in range(3):
+        window = device_profile(lambda: zero_shot(None))
+        if window is None:
+            continue
+        prof = window
+        tf32x3 = sum(n for name, n in prof[4].items() if "gemm_tf32x3_kernel" in name)
+        k1_golden = sum(n for name, n in prof[4].items() if "logmel_tf32x3_kernel" in name)
+        f32_gemms = sum(n for name, n in prof[4].items() if "gemm_f32_kernel" in name)
+        if tf32x3 == golden_gemms and k1_golden == 1:
+            break
+    log_profile("main", f"{label} f32 forward", prof)
+    if prof is not None:
+        log("main", model=label, golden_tf32x3_gemm_launches=tf32x3,
+            golden_logmel_tf32x3_launches=k1_golden, golden_f32_gemm_launches=f32_gemms)
+        if tf32x3 != golden_gemms or k1_golden != 1:
+            raise AssertionError(f"{label}: the golden forward launched gemm_tf32x3_kernel "
+                                 f"{tf32x3} times (expected {golden_gemms}) and "
+                                 f"logmel_tf32x3_kernel {k1_golden} times (expected 1)")
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())
@@ -1177,9 +1328,9 @@ def main() -> int:
         stats.log_golden()
         phase_gemm(dev)
         launches.update(phase_main(dev, card, "HTSAT-tiny (CLAPConfig defaults)", tiny,
-                                   EXPECTED_LAUNCHES))
+                                   EXPECTED_LAUNCHES, EXPECTED_GOLDEN_TF32X3["tiny"]))
         launches.update(phase_main(dev, card, "HTSAT-base (create_audio_model)", base,
-                                   EXPECTED_BASE_LAUNCHES))
+                                   EXPECTED_BASE_LAUNCHES, EXPECTED_GOLDEN_TF32X3["base"]))
     phase_fixture(fx.PATH, "fixture")
     phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
     phase_train(dev, card)

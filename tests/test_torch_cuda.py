@@ -24,6 +24,7 @@ from audio_residual_tpu_torch.ops.cuda import swin_block as k4
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
+from . import torch_f64_reference as f64
 from . import torch_port_fixture as fx
 
 pytestmark = pytest.mark.cuda
@@ -626,3 +627,191 @@ def test_serving_is_unchanged_without_a_lambda_grad(dev):
     out3["normalized"].sum().backward()
     torch.cuda.synchronize()
     assert not launch_counts and res[0]["lam"].grad is not None
+
+
+# ---- the golden routes on 3xTF32 (K1, K3 and K4's FFN half) -----------------
+# What they are held to: each kernel's max abs error against a float64
+# evaluation of the same function (the same f32 weights and constants) at
+# most GOLDEN_F64_RATIO times that of the plain f32 version (cuBLAS, TF32
+# off): 3xTF32 keeps about f32's accuracy, so the ratio stays near 1.
+GOLDEN_F64_RATIO = 4.0
+
+
+@pytest.mark.parametrize("n_fft", [1024, 1536])
+def test_logmel_golden_error_against_float64(dev, n_fft):
+    """K1 golden at the main path's shape ([32, 480000], HTSAT-tiny's
+    frontend, and HTSAT-tiny-win-1536's), dB against float64."""
+    cfg = fe.FrontendConfig(n_fft=n_fft, win_length=n_fft)
+    wav = torch.from_numpy(
+        (np.random.default_rng(11).standard_normal((32, 480000)) * 0.1).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        got, plain = k1.fused_logmel(wav, cfg, "f32"), k1.logmel_plain(wav, cfg, "f32")
+        ref = f64.logmel64(wav, cfg)
+    assert _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+
+
+@pytest.mark.parametrize("variant", list(FFN_VARIANTS))
+@pytest.mark.parametrize("rows,c", [(2048, 768), (2048, 1024)])  # tiny and base layer 3, B=32
+def test_residual_ffn_golden_error_against_float64(dev, rows, c, variant):
+    use_res, dffn = FFN_VARIANTS[variant]
+    x, a, weights, rp = _ffn_inputs(dev, rows, c)
+    args = (x, a, *weights, rp if use_res else None)
+    with torch.no_grad():
+        got = k3.fused_residual_ffn(*args, double_ffn=dffn)
+        plain = k3.residual_ffn_plain(*args, double_ffn=dffn)
+    ref = f64.ffn64(*args, dffn)
+    assert _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+
+
+# K4 at the main paths' layer shapes, B=32 (layer 0 with ResiDual and the
+# double FFN, as the main paths run it)
+GOLDEN_BLOCKS = {"tiny-l0": (96, 4, 64, (64, 64), True), "tiny-l2": (384, 16, 4, (16, 16), False),
+                 "base-l0": (128, 4, 64, (64, 64), True), "base-l2": (512, 16, 4, (16, 16), False)}
+
+
+@pytest.mark.parametrize("layer", list(GOLDEN_BLOCKS))
+def test_swin_block_golden_error_against_float64(dev, layer):
+    c, nh, nw, res, path_res = GOLDEN_BLOCKS[layer]
+    flat, rp, x = _block_of(dev, c, nh, 32 * nw)
+    rpd = dict(zip(("basis", "mean", "lam"), rp)) if path_res else None
+    blk = (x, flat + (rp if path_res else ()), nh, 8, nw, 4, res, path_res, path_res)
+    with torch.no_grad():
+        got, plain = k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)
+        ref = f64.block64(x, flat, rpd, nh, 8, 4, res, path_res)
+    assert _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+
+
+@pytest.mark.parametrize("cfg", [fe.FrontendConfig(), WIN_1536, fe.FrontendConfig(n_mels=16)],
+                         ids=["n_fft=1024", "n_fft=1536", "n_mels=16"])
+@pytest.mark.parametrize("b,t", [(1, 48000), (3, 100000), (1, 100001), (3, 240000)])
+def test_logmel_golden_matches_plain_on_card(dev, cfg, b, t):
+    """K1 golden at ragged frame counts (nf = 209 at 100 000 samples) and a
+    ragged row (100 001 samples: the wrapper pads the row to 4 samples)."""
+    wav = torch.from_numpy(
+        (np.random.default_rng(t).standard_normal((b, t)) * 0.1).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    with torch.no_grad():
+        got, ref = k1.fused_logmel(wav, cfg), k1.logmel_plain(wav, cfg)
+    assert got.shape == ref.shape == (b, cfg.num_frames(t), cfg.n_mels)
+    assert bool(torch.isfinite(got).all()) and _rel(got, ref) < 1e-4
+    assert dict(launch_counts) == {"fused_logmel": 1}
+
+
+def test_logmel_golden_gives_the_floor_on_silence(dev):
+    wav = torch.zeros(3, 48000, device=dev)
+    with torch.no_grad():
+        got, ref = k1.fused_logmel(wav, fe.FrontendConfig()), k1.logmel_plain(wav,
+                                                                               fe.FrontendConfig())
+    assert torch.equal(got, ref)
+
+
+def test_logmel_golden_refuses_a_misaligned_config(dev):
+    wav = torch.zeros(1, 48000, device=dev)
+    with pytest.raises(ValueError, match="f32: hop_length=478 must be a multiple of 4"):
+        k1.fused_logmel(wav, fe.FrontendConfig(hop_length=478))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k1.fused_logmel(wav, fe.FrontendConfig(n_fft=1000, win_length=1000))
+
+
+@pytest.mark.parametrize("variant", list(FFN_VARIANTS))
+@pytest.mark.parametrize("rows,c", [
+    (64, 768), (192, 1024),   # ragged: half a 128-row tile, one and a half
+    (100, 96), (128, 64),     # the test widths
+    (130, 32),                # N = 32, K = 32: one K step
+    (200, 40),                # N = 40 against a 32-column tile: a masked edge; ragged K
+])
+def test_residual_ffn_golden_matches_plain_on_card(dev, rows, c, variant):
+    use_res, dffn = FFN_VARIANTS[variant]
+    x, a, weights, rp = _ffn_inputs(dev, rows, c)
+    launch_counts.clear()
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x.to(dt), a.to(dt), *weights, rp if use_res else None)
+            got = k3.fused_residual_ffn(*args, double_ffn=dffn)
+            ref = k3.residual_ffn_plain(*args, double_ffn=dffn)
+            assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+            assert _rel(got, ref) < 1e-4
+    assert dict(launch_counts) == {"fused_residual_ffn": 2}
+
+
+@pytest.mark.parametrize("c,nh", [(32, 2), (64, 4), (96, 4), (256, 8)])
+def test_swin_block_golden_matches_plain_on_card(dev, c, nh):
+    """K4 golden at the test widths (the fixtures' C = 32, 64, 256), bf16
+    and f32 x, ResiDual and the double FFN."""
+    flat, rp, x = _block_of(dev, c, nh, 6)
+    with torch.no_grad():
+        for xin in (x, x.bfloat16()):
+            blk = (xin, flat + rp, nh, 8, 2, 4, (16, 8), True, True)
+            assert _rel(k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)) < 1e-4
+
+
+TF32X3_SHAPES = [(2048, 3072, 768), (2048, 768, 3072), (2048, 4096, 1024), (2048, 1024, 4096),
+                 (8192 - 64, 384, 96), (8192 - 64, 96, 384), (200, 40, 40), (130, 32, 32),
+                 (300, 520, 68)]
+
+
+@pytest.mark.parametrize("m,n,k", TF32X3_SHAPES)
+def test_gemm_tf32x3_error_against_float64(dev, m, n, k):
+    """The 3xTF32 GEMM alone (bias, GELU, r1 f32, r2 bf16): against its
+    plain version within 1e-4, and against float64 at most
+    GOLDEN_F64_RATIO times the plain version's error."""
+    rng = np.random.default_rng(m + n + k)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    a, w = t(m, k), t(n, k, scale=k ** -0.5)
+    epi = dict(bias=t(n, scale=0.1), gelu=True, r1=t(m, n), r2=t(m, n).bfloat16())
+    launch_counts.clear()
+    with torch.no_grad():
+        got = kg.gemm_tf32x3(a, w, **epi)
+        plain = kg.gemm_tf32x3_plain(a, w, **epi)
+    ref = torch.nn.functional.gelu(a.double() @ w.double().t() + epi["bias"].double())
+    ref = ref + epi["r1"].double() + epi["r2"].double()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+    assert dict(launch_counts) == {"gemm_tf32x3": 1}
+
+
+def test_golden_routes_give_equal_bits_twice(dev):
+    """Every sum runs in a fixed order: two calls give the same bits."""
+    wav = torch.from_numpy(
+        (np.random.default_rng(3).standard_normal((2, 100000)) * 0.1).astype(np.float32)).to(dev)
+    x, a, weights, rp = _ffn_inputs(dev, 192, 768)
+    flat, rpb, xb = _block_of(dev, 96, 4, 8)
+    blk = (xb, flat + rpb, 4, 8, 4, 4, (16, 16), True, True)
+    with torch.no_grad():
+        for call in (lambda: k1.fused_logmel(wav, fe.FrontendConfig()),
+                     lambda: k3.fused_residual_ffn(x, a, *weights, rp, double_ffn=True),
+                     lambda: k4.fused_swin_block(*blk)):
+            assert torch.equal(call(), call())
+
+
+def test_golden_routes_run_the_3xtf32_kernels(dev):
+    """By the profiler's kernel names: golden K1 is one logmel_tf32x3_kernel
+    (after the wrapper's pad); golden K3's fc1 and fc2 are gemm_tf32x3
+    launches, with no gemm_f32_kernel but the ResiDual's two; K4's FFN half
+    the same, its qkv and proj still on the f32 GEMM."""
+    wav = torch.zeros(2, 48000, device=dev)
+    x, a, weights, rp = _ffn_inputs(dev, 256, 768)
+    flat, rpb, xb = _block_of(dev, 96, 4, 8)
+    with torch.no_grad():
+        k1.fused_logmel(wav, fe.FrontendConfig())  # constants
+        names = _device_kernels(lambda: k1.fused_logmel(wav, fe.FrontendConfig()))
+        assert sum("logmel_tf32x3_kernel" in n for n in names) == 1, names
+        assert not any("logmel_wgmma_kernel" in n for n in names), names
+        for rpar, dffn, f32_gemms in ((None, False, 0), (rp, True, 2)):
+            k3.fused_residual_ffn(x, a, *weights, rpar, double_ffn=dffn)  # split weights
+            names = _device_kernels(lambda: k3.fused_residual_ffn(x, a, *weights, rpar,
+                                                                  double_ffn=dffn))
+            assert sum("gemm_tf32x3_kernel" in n for n in names) == (4 if dffn else 2), names
+            assert sum("gemm_f32_kernel" in n for n in names) == f32_gemms, names
+        blk = (xb, flat + rpb, 4, 8, 4, 4, (16, 16), True, True)
+        k4.fused_swin_block(*blk)
+        names = _device_kernels(lambda: k4.fused_swin_block(*blk))
+        assert sum("gemm_tf32x3_kernel" in n for n in names) == 4, names
+        assert sum("gemm_f32_kernel" in n for n in names) == 4, names  # qkv, proj, ResiDual
