@@ -21,17 +21,17 @@
 // other products run on the TMA + wgmma GEMM (gemm_sm90.cuh) with bf16
 // weights cast once per weight version. What stays f32 (the AMP contract):
 // the proj output a that the ResiDual reads, h1, y2, the ResiDual scratch,
-// LN statistics and softmax. The golden path (bf16 = 0) keeps f32
-// everywhere: its FFN products run in 3xTF32 on the tensor cores
-// (gemm_tf32x3, f32 accuracy), its other products on the f32 GEMM, with the
-// f32 attention core. Fusing a block into
-// one kernel is later work (ROADMAP, Queue 2). Wide layers (C >= 1024) do
-// not come here for their attention: K5's wrapper runs them (its golden
-// route in wide_attention.cu cuts the work at head boundaries; its AMP route
-// is the entry of window_attention.cu).
+// LN statistics and softmax. The ResiDual GEMMs are f32 in both modes and
+// run in 3xTF32 on the tensor cores (gemm_tf32x3, f32 accuracy). The golden
+// path (bf16 = 0) keeps f32 everywhere: every product (qkv, proj, fc1, fc2,
+// the ResiDual's) runs on gemm_tf32x3, with the f32 attention core between
+// qkv and proj. Fusing a block into one kernel is later work (ROADMAP, Queue
+// 2). Wide layers (C >= 1024) come here for their attention through K5's
+// entry (wide_attention.cu), golden, or K2's, AMP.
 //
-// Weight pointers are const float* in the golden mode and const
-// __nv_bfloat16* under AMP; the FFN's come as FfnWeights.
+// Weights come as AttentionWeights, ResidualWeights and FfnWeights: bf16
+// copies under AMP, in the golden mode (and the ResiDual's always) split for
+// 3xTF32 with each product's plan.
 #pragma once
 
 #include "common.cuh"
@@ -63,53 +63,73 @@ static inline size_t window_attention_ws(long R, long C, int bf16) {
   return span((size_t)R * 3 * C * 4) + span((size_t)R * C * 4);
 }
 
+// The window attention's weight matrices as the route takes them: under
+// AMP the bf16 wproj (wqkv is read through the plan's TMA map); in the
+// golden mode wqkv [3C, C] and wproj [C, C] split for 3xTF32, with each
+// product's plan.
+struct AttentionWeights {
+  const bf16_t* wproj;  // AMP
+  Tf32x3Weight qkv;     // golden
+  Tf32x3Weight proj;
+};
+
 // y [R, C] -> out [R, C] = proj(attention(qkv(y))) (+ r1 in the proj
-// epilogue when r1 is given). Golden: bias [nh, n, n], mask [nW, n, n].
-// AMP: y must be bf16; bias [nh, 64, 64] and mask [nW, 64, 64] padded, and
-// `plan` the wrapper's launch plan of the qkv + attention kernel, whose TMA
-// map holds wqkv.
+// epilogue when r1 is given). Golden: y and out f32 (r1 f32 or bf16), qkv
+// and proj on the 3xTF32 GEMM around the f32 attention core; bias [nh, n,
+// n], mask [nW, n, n]. AMP: y must be bf16; bias [nh, 64, 64] and mask [nW,
+// 64, 64] padded, and `plan` the wrapper's launch plan of the qkv +
+// attention kernel, whose TMA map holds wqkv.
 static inline cudaError_t run_window_attention(const void* y, int y_bf16, void* out, int out_bf16,
                                                const void* r1, int r1_bf16, int R, int n, int C,
-                                               int nh, int nW, const void* wqkv,
-                                               const float* bqkv, const void* wproj,
-                                               const float* bproj, const float* bias,
-                                               const float* mask, int bf16,
+                                               int nh, int nW, const AttentionWeights& w,
+                                               const float* bqkv, const float* bproj,
+                                               const float* bias, const float* mask, int bf16,
                                                const AttentionPlan& plan, Arena ws,
                                                cudaStream_t s) {
   if (!bf16) {
+    if (y_bf16 || out_bf16) return cudaErrorInvalidValue;
     float* qkv = ws.take<float>((size_t)R * 3 * C);
     float* att = ws.take<float>((size_t)R * C);
-    ARPU_TRY(launch_gemm_f32(
-        gemm_args(y, y_bf16, static_cast<const float*>(wqkv), qkv, 0, R, 3 * C, C, bqkv), s));
+    ARPU_TRY(gemm_tf32x3(static_cast<const float*>(y), w.qkv, qkv, R, 3 * C, C,
+                         Epilogue{bqkv, nullptr, 0, nullptr, nullptr}, 0, s));
     ARPU_TRY(launch_attention_core(qkv, att, bias, mask, R / n, n, nh, C, nW, s));
-    GemmArgs g = gemm_args(att, 0, static_cast<const float*>(wproj), out, out_bf16, R, C, C, bproj);
-    g.r1 = r1;
-    g.r1_bf16 = r1_bf16;
-    return launch_gemm_f32(g, s);
+    // the residual in the r2 slot, which takes f32 or bf16
+    return gemm_tf32x3(att, w.proj, static_cast<float*>(out), R, C, C,
+                       Epilogue{bproj, nullptr, 0, nullptr, r1}, r1_bf16, s);
   }
   if (!y_bf16) return cudaErrorInvalidValue;
   bf16_t* att = ws.take<bf16_t>((size_t)R * C);
   ARPU_TRY(launch_window_attention_tc(y, bqkv, bias, mask, att, R / n, n, C, nh, nW, plan, s));
-  return gemm_bf16(att, static_cast<const bf16_t*>(wproj), out, out_bf16, R, C, C,
-                   Epilogue{bproj, nullptr, 0, r1, nullptr}, r1_bf16, 0, s);
+  return gemm_bf16(att, w.wproj, out, out_bf16, R, C, C, Epilogue{bproj, nullptr, 0, r1, nullptr},
+                   r1_bf16, 0, s);
 }
 
-// ResiDual epilogue and the first residual add, always f32 (the method's
-// precision-sensitive core): h1 = x + ((a - mean) @ basis^T * lam) @ basis.
-// basis [kr, C]; basis_t [C, kr]; proj scratch [R, kr].
-static inline cudaError_t run_residual_epilogue(const void* a, int a_bf16, const void* x,
-                                                int x_bf16, float* h1, int R, int C, int kr,
-                                                const float* basis, const float* basis_t,
-                                                const float* mean, const float* lam, float* proj,
+// A ResiDual as its two products take it: basis [kr, C] and basis_t [C, kr]
+// split for 3xTF32 with each product's plan, mean [C] and lam [kr]. The
+// wrapper pads kr to a multiple of 8 with zero rows of basis, zero columns
+// of basis_t and zeros of lam, which leaves both products' values as they
+// were (ops/cuda/tf32x3.py::residual_weights).
+struct ResidualWeights {
+  Tf32x3Weight basis;
+  Tf32x3Weight basis_t;
+  const float* mean;
+  const float* lam;
+  int kr;
+};
+
+// ResiDual epilogue and the first residual add, f32 in both modes (the
+// method's precision-sensitive core), on the 3xTF32 GEMM:
+// h1 = x + ((a - mean) @ basis^T * lam) @ basis. a [R, C] f32, x f32 or bf16;
+// proj scratch [R, kr]. The centring is the first GEMM's prologue, before
+// the split, so the products round |a - mean|.
+static inline cudaError_t run_residual_epilogue(const float* a, const void* x, int x_bf16,
+                                                float* h1, int R, int C,
+                                                const ResidualWeights& r, float* proj,
                                                 cudaStream_t s) {
-  GemmArgs p = gemm_args(a, a_bf16, basis, proj, 0, R, kr, C, nullptr);
-  p.a_sub = mean;
-  p.col_scale = lam;
-  ARPU_TRY(launch_gemm_f32(p, s));
-  GemmArgs q = gemm_args(proj, 0, basis_t, h1, 0, R, C, kr, nullptr);
-  q.r1 = x;
-  q.r1_bf16 = x_bf16;
-  return launch_gemm_f32(q, s);
+  ARPU_TRY(gemm_tf32x3(a, r.basis, proj, R, r.kr, C, Epilogue{nullptr, r.lam, 0, nullptr, nullptr},
+                       0, s, r.mean));
+  return gemm_tf32x3(proj, r.basis_t, h1, R, C, r.kr,
+                     Epilogue{nullptr, nullptr, 0, nullptr, x}, x_bf16, s);
 }
 
 // run_ffn scratch: z [R, C] and hid [R, hidden] (bf16 under AMP), y2 [R, C] f32

@@ -2,24 +2,25 @@
 // TPU kernels (window_attention.cu, ln_mlp.cu, swin_block.cu,
 // wide_attention.cu):
 //
-//   * gemm_f32_kernel   C = epi(A @ W^T), f32 operands, f32 FMA: the golden
-//                       path and the ResiDual GEMMs (always f32)
-//   * gemm_bf16         (gemm_sm90.cuh) the AMP GEMM: bf16 operands, TMA +
-//                       wgmma, f32 accumulate
+//   * gemm_bf16, gemm_tf32x3 (gemm_sm90.cuh) the tensor-core GEMM, TMA +
+//                       wgmma, f32 accumulate: bf16 operands under AMP; f32
+//                       operands in 3xTF32 for every golden product and the
+//                       ResiDual GEMMs of both modes
 //   * add_layernorm_kernel  h = x (+ r); y = LN(h), f32 statistics
 //   * attention_core_kernel one block per (window, head): scores, relative
 //                       bias, SW-MSA mask, exact f32 softmax, @V (golden;
 //                       the AMP attention is window_attention_tc.cuh)
 //
 // Layouts: A [M, K] row-major, W [N, K] row-major (nn.Linear layout), C and
-// the residual operands [M, N] row-major, all contiguous. The f32 GEMM reads
-// activations and residuals as f32 or bf16 (a runtime flag per pointer) and
-// f32 weights. Under AMP every intermediate that only a GEMM reads is stored
-// in bf16, the rounding its reader applies anyway, so the launch sequences
-// move about half the bytes.
+// the residual operands [M, N] row-major, all contiguous. Activations and
+// residuals are f32 or bf16 (a runtime flag per pointer) where a kernel
+// reads them on the CUDA cores; a GEMM's A is bf16 under AMP and f32 in
+// 3xTF32. Under AMP every intermediate that only a GEMM reads is stored in
+// bf16, the rounding its reader applies anyway, so the launch sequences move
+// about half the bytes.
 //
 // GEMM epilogue, in this order: v = acc; v += bias[n]; v *= col_scale[n];
-// v = gelu(v); v += r1[m, n]; v += r2[m, n]. The f32 GEMM's prologue may
+// v = gelu(v); v += r1[m, n]; v += r2[m, n]. The 3xTF32 GEMM's prologue may
 // subtract a_sub[k] from A's columns (the ResiDual centring). Each step is
 // optional.
 //
@@ -66,107 +67,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-struct GemmArgs {
-  const void* A;  // [M, K]
-  int a_bf16;
-  const float* W;  // [N, K]
-  void* C;         // [M, N]
-  int c_bf16;
-  int M, N, K;
-  const float* bias;       // [N] or null
-  const float* a_sub;      // [K] or null
-  const float* col_scale;  // [N] or null
-  int gelu;
-  const void* r1;  // [M, N] or null
-  int r1_bf16;
-  const void* r2;  // [M, N] or null
-  int r2_bf16;
-};
-
-__device__ __forceinline__ float load_a(const GemmArgs& g, int m, int k) {
-  if (m >= g.M || k >= g.K) return 0.0f;
-  float v = ld(g.A, (size_t)m * g.K + k, g.a_bf16);
-  if (g.a_sub) v -= g.a_sub[k];
-  return v;
-}
-
-__device__ __forceinline__ float load_w(const GemmArgs& g, int n, int k) {
-  return (n < g.N && k < g.K) ? g.W[(size_t)n * g.K + k] : 0.0f;
-}
-
-__device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n, float v) {
-  if (m >= g.M || n >= g.N) return;
-  if (g.bias) v += g.bias[n];
-  if (g.col_scale) v *= g.col_scale[n];
-  if (g.gelu) v = gelu_erf(v);
-  const size_t i = (size_t)m * g.N + n;
-  if (g.r1) v += ld(g.r1, i, g.r1_bf16);
-  if (g.r2) v += ld(g.r2, i, g.r2_bf16);
-  st(g.C, i, v, g.c_bf16);
-}
-
-// ---- f32 SIMT GEMM: 64x64 tile, 256 threads, 4x4 outputs a thread -------
-constexpr int F_BM = 64, F_BN = 64, F_BK = 16;
-
-__global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs g) {
-  __shared__ float As[F_BK][F_BM + 4];
-  __shared__ float Ws[F_BK][F_BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * F_BM, n0 = blockIdx.x * F_BN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < g.K; k0 += F_BK) {
-    for (int e = tid; e < F_BM * F_BK; e += 256) {
-      const int r = e / F_BK, kk = e % F_BK;
-      As[kk][r] = load_a(g, m0 + r, k0 + kk);
-      Ws[kk][r] = load_w(g, n0 + r, k0 + kk);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) epilogue(g, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
-}
-
-static inline cudaError_t launch_gemm_f32(const GemmArgs& g, cudaStream_t s) {
-  dim3 grid((g.N + F_BN - 1) / F_BN, (g.M + F_BM - 1) / F_BM);
-  gemm_f32_kernel<<<grid, 256, 0, s>>>(g);
-  return cudaGetLastError();
-}
-
-static inline GemmArgs gemm_args(const void* A, int a_bf16, const float* W, void* C, int c_bf16,
-                                 int M, int N, int K, const float* bias) {
-  GemmArgs g = {};
-  g.A = A;
-  g.a_bf16 = a_bf16;
-  g.W = W;
-  g.C = C;
-  g.c_bf16 = c_bf16;
-  g.M = M;
-  g.N = N;
-  g.K = K;
-  g.bias = bias;
-  return g;
 }
 
 // ---- row LayerNorm, one warp a row, f32 statistics ---------------------

@@ -39,12 +39,13 @@ extern "C" int arpu_gemm(const void* A, const void* W, void* C, int c_bf16, int 
 // C [M, N] f32 = epi(A [M, K] f32 @ W [N, K]^T) in 3xTF32: W as w_hi (W
 // rounded to TF32) and w_lo (W - w_hi), f32; the plan (N tile bn, ring
 // stages) from ops/cuda/tf32x3.py::gemm_plan. bias, col_scale [N] f32 or
-// null; r1 [M, N] f32 or null; r2 [M, N] or null, bf16 if r2_bf16.
+// null; r1 [M, N] f32 or null; r2 [M, N] or null, bf16 if r2_bf16; a_sub
+// [K] f32 or null, subtracted from A's columns before the split.
 extern "C" int arpu_gemm_tf32x3(const float* A, const float* w_hi, const float* w_lo, float* C,
                                 int M, int N, int K, int bn, int stages, const float* bias,
                                 const float* col_scale, int gelu, const float* r1, const void* r2,
-                                int r2_bf16, void* stream) {
+                                int r2_bf16, const float* a_sub, void* stream) {
   return static_cast<int>(arpu::gemm_tf32x3(A, arpu::Tf32x3Weight{w_hi, w_lo, bn, stages}, C, M,
                                             N, K, arpu::Epilogue{bias, col_scale, gelu, r1, r2},
-                                            r2_bf16, static_cast<cudaStream_t>(stream)));
+                                            r2_bf16, static_cast<cudaStream_t>(stream), a_sub));
 }

@@ -3,8 +3,10 @@
 //   * bf16 (gemm_bf16): the AMP GEMM of the Swin-block kernels (K2-K5). A
 //     [M, K] bf16 row-major, W [N, K] bf16 (nn.Linear layout, K-major as
 //     wgmma wants it).
-//   * 3xTF32 (gemm_tf32x3): the golden FFN products of K3 and K4 (run_ffn).
-//     A [M, K] f32; W as two f32 matrices hi and lo with hi + lo = W, hi
+//   * 3xTF32 (gemm_tf32x3): every f32 product of the golden routes of K2-K5
+//     (qkv, proj, fc1, fc2) and the ResiDual GEMMs of both modes
+//     (blocks.cuh). A [M, K] f32, optionally centred as it is read (a_sub,
+//     below); W as two f32 matrices hi and lo with hi + lo = W, hi
 //     rounded to TF32 (ops/cuda/tf32x3.py::split_tf32, once per weight
 //     version). Each K step multiplies lo_A hi_W + hi_A lo_W + hi_A hi_W on
 //     wgmma m64nNk8 .tf32 into an f32 partial sum of its 32 columns of K (the
@@ -20,7 +22,9 @@
 //     spells out a 3-pass split dot in ops/pallas/frontend.py::_split_dot).
 // f32 accumulate, C [M, N] f32 or bf16. Epilogue, in this order:
 // v += bias[n]; v *= col_scale[n]; v = gelu(v); v += r1[m, n]; v += r2[m, n]
-// (r1, r2 f32 or bf16), each step optional.
+// (r1, r2 f32 or bf16), each step optional. 3xTF32 prologue, optional: A's
+// column k less a_sub[k] (the ResiDual centring a - mean), subtracted as the
+// consumer reads A, before the split, so the split rounds |a - mean|, not |a|.
 //
 // What bounds it on the H100. bf16: bytes, at most shapes of the main paths.
 // The K4 GEMMs at HTSAT-tiny/base layers 0-2 have K = C or 4C with C <= 512:
@@ -546,19 +550,33 @@ struct WgmmaTf32<128> {
 // descriptors of W's hi and lo tiles. Commits one wgmma group, which reads
 // the fragment registers until it completes: the caller waits for it before
 // the registers are reused.
-template <int BN>
+// CENTRE: a_sub [K] is subtracted from A's columns before the split; the
+// k-tile's columns k0 .. k0 + 31, those from K on read as 0 (A's ragged K
+// edge arrives zero-filled, but a_sub past its end may hold a NaN). A
+// compile-time switch: the fragment registers that wgmma reads stay
+// straight-line code.
+template <int BN, bool CENTRE>
 __device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsigned char* a_tile,
-                                             uint64_t dhi, uint64_t dlo) {
+                                             uint64_t dhi, uint64_t dlo, const float* a_sub,
+                                             int k0, int K) {
   const int t = threadIdx.x % 128, lane = t % 32;
   const int r = 16 * (t / 32) + lane / 4, q = lane % 4, sw = lane / 4;  // sw = r % 8
+  // the thread's 8 columns of the k-tile: chunk c holds columns 4c .. 4c + 3
+  float sub[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int k = k0 + 4 * c + q;
+    sub[c] = CENTRE && k < K ? __ldg(a_sub + k) : 0.0f;
+  }
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r + 8 * (i & 1), chunk = 2 * s + (i >> 1);
-      const float x = *reinterpret_cast<const float*>(a_tile + row * ROW_BYTES +
-                                                      ((chunk ^ sw) << 4) + 4 * q);
+      float x = *reinterpret_cast<const float*>(a_tile + row * ROW_BYTES +
+                                                ((chunk ^ sw) << 4) + 4 * q);
+      if constexpr (CENTRE) x -= sub[chunk];
       split_tf32(x, hi[s][i], lo[s][i]);
     }
   fence_regs(part);
@@ -579,12 +597,14 @@ __device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsign
 // warpgroup's 64 rows (a_off bytes into each A tile). Stage s holds A at
 // a_ring + s A_BYTES and W at w_ring + s W_BYTES (3xTF32: hi, then lo
 // BN rows later). Lane 0 of each warp releases a stage once its products
-// are done; `stage` and `phase` carry over to the next tile.
-template <bool X3, int BN, int STAGES, int W_BYTES>
+// are done; `stage` and `phase` carry over to the next tile. 3xTF32 with
+// CENTRE: a_sub [K] is subtracted from A's columns (tf32x3_ktile).
+template <bool X3, int BN, int STAGES, int W_BYTES, bool CENTRE = false>
 __device__ __forceinline__ void consume_k_loop(float (&acc)[BN / 2], unsigned char* a_ring,
                                                unsigned char* w_ring, int a_off, uint64_t* full,
                                                uint64_t* empty, int k_tiles, int& stage,
-                                               uint32_t& phase) {
+                                               uint32_t& phase, const float* a_sub = nullptr,
+                                               int K = 0) {
   constexpr int A_BYTES = BM * ROW_BYTES;
   const bool signals = threadIdx.x % 32 == 0;
   int reading = -1;  // bf16: the stage the wgmma group in flight reads
@@ -598,8 +618,8 @@ __device__ __forceinline__ void consume_k_loop(float (&acc)[BN / 2], unsigned ch
       // times on the whole; this keeps the error against float64 near an
       // f32 GEMM's
       float part[BN / 2];
-      tf32x3_ktile<BN>(part, a_ring + stage * A_BYTES + a_off, smem_desc(w),
-                       smem_desc(w + BN * ROW_BYTES));
+      tf32x3_ktile<BN, CENTRE>(part, a_ring + stage * A_BYTES + a_off, smem_desc(w),
+                       smem_desc(w + BN * ROW_BYTES), a_sub, kt * BK_TF32, K);
       wgmma_wait<0>();  // the fragment registers are free, the stage is read
       fence_regs(part);
       if (signals) mbar_arrive(&empty[stage]);
@@ -724,12 +744,13 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], float* st
   warpgroup_sync(barrier);  // the buffer is free for the next tile
 }
 
-// The GEMM on one block: X3 selects 3xTF32 (f32 A; W's hi map tma_w and
-// lo map *tma_w_lo) over bf16 (A and W bf16; tma_w_lo unused).
-template <bool X3, int BN, typename OutT, typename R1T, typename R2T>
+// The GEMM on one block: X3 selects 3xTF32 (f32 A, less a_sub with CENTRE;
+// W's hi map tma_w and lo map *tma_w_lo) over bf16 (A and W bf16; tma_w_lo
+// and a_sub unused).
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtensorMap& tma_w,
                                           const CUtensorMap* tma_w_lo, OutT* C, int M, int N,
-                                          int K, const Epilogue& e) {
+                                          int K, const Epilogue& e, const float* a_sub) {
   using T = Tiles<BN, X3 ? 2 : 1>;
   constexpr int KB = X3 ? BK_TF32 : BK;  // elements a K step
   extern __shared__ unsigned char smem_raw[];
@@ -783,8 +804,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtens
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-    consume_k_loop<X3, BN, T::STAGES, T::W_BYTES>(acc, a_ring, w_ring, a_off, full, empty,
-                                                  k_tiles, stage, phase);
+    consume_k_loop<X3, BN, T::STAGES, T::W_BYTES, CENTRE>(acc, a_ring, w_ring, a_off, full,
+                                                          empty, k_tiles, stage, phase, a_sub, K);
     store_tile<BN, OutT, R1T, R2T>(acc, stage_out, C, M, N, m0 + 64 * (wg - 1), n0, e, wg);
   }
 }
@@ -794,16 +815,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 const __grid_constant__ CUtensorMap tma_w, OutT* __restrict__ C, int M, int N,
                 int K, Epilogue e) {
-  gemm_body<false, BN, OutT, R1T, R2T>(tma_a, tma_w, nullptr, C, M, N, K, e);
+  gemm_body<false, BN, OutT, R1T, R2T>(tma_a, tma_w, nullptr, C, M, N, K, e, nullptr);
 }
 
-template <int BN, typename OutT, typename R1T, typename R2T>
+template <int BN, typename OutT, typename R1T, typename R2T, bool CENTRE>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tma_a,
                        const __grid_constant__ CUtensorMap tma_hi,
                        const __grid_constant__ CUtensorMap tma_lo, OutT* __restrict__ C, int M,
-                       int N, int K, Epilogue e) {
-  gemm_body<true, BN, OutT, R1T, R2T>(tma_a, tma_hi, &tma_lo, C, M, N, K, e);
+                       int N, int K, Epilogue e, const float* __restrict__ a_sub) {
+  gemm_body<true, BN, OutT, R1T, R2T, CENTRE>(tma_a, tma_hi, &tma_lo, C, M, N, K, e, a_sub);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -871,15 +892,16 @@ static inline cudaError_t sm_count(int dev, int* sms) {
   return cudaSuccess;
 }
 
-// X3: the 3xTF32 kernel, W's hi map tw and lo map *tl; else bf16 (tl null)
-template <bool X3, int BN, typename OutT, typename R1T, typename R2T>
+// X3: the 3xTF32 kernel, W's hi map tw and lo map *tl, A less a_sub with
+// CENTRE; else bf16 (tl and a_sub null)
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false>
 static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap* tl,
                           void* C, int M, int N, int K, const Epilogue& e, int dev, int sms,
-                          cudaStream_t s) {
+                          cudaStream_t s, const float* a_sub = nullptr) {
   constexpr int smem = Tiles<BN, X3 ? 2 : 1>::SMEM;
   const void* kernel;
   if constexpr (X3) {
-    kernel = reinterpret_cast<const void*>(gemm_tf32x3_kernel<BN, OutT, R1T, R2T>);
+    kernel = reinterpret_cast<const void*>(gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE>);
   } else {
     kernel = reinterpret_cast<const void*>(gemm_kernel<BN, OutT, R1T, R2T>);
   }
@@ -893,8 +915,8 @@ static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const CU
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = tiles < sms ? tiles : sms;
   if constexpr (X3) {
-    gemm_tf32x3_kernel<BN, OutT, R1T, R2T><<<grid, THREADS, smem, s>>>(
-        ta, tw, *tl, static_cast<OutT*>(C), M, N, K, e);
+    gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE><<<grid, THREADS, smem, s>>>(
+        ta, tw, *tl, static_cast<OutT*>(C), M, N, K, e, a_sub);
   } else {
     gemm_kernel<BN, OutT, R1T, R2T><<<grid, THREADS, smem, s>>>(ta, tw, static_cast<OutT*>(C), M,
                                                                 N, K, e);
@@ -927,13 +949,20 @@ static cudaError_t launch_bn(const CUtensorMap& ta, const CUtensorMap& tw, void*
 }
 
 // the 3xTF32 GEMM writes f32 and adds an f32 r1; r2 may be bf16 (the
-// block input x of the double FFN)
+// block input x: the double FFN's, the golden proj's residual, the
+// ResiDual's). With a_sub (the ResiDual's first product) both residuals
+// are f32.
 template <int BN>
 static cudaError_t launch_tf32x3(const CUtensorMap& ta, const CUtensorMap& th,
                                  const CUtensorMap& tl, void* C, int M, int N, int K,
-                                 const Epilogue& e, int r2_bf16, int dev, int sms,
-                                 cudaStream_t s) {
+                                 const Epilogue& e, int r2_bf16, const float* a_sub, int dev,
+                                 int sms, cudaStream_t s) {
   using B = __nv_bfloat16;
+  if (a_sub) {
+    if (r2_bf16) return cudaErrorInvalidValue;
+    return launch<true, BN, float, float, float, true>(ta, th, &tl, C, M, N, K, e, dev, sms, s,
+                                                       a_sub);
+  }
   return r2_bf16 ? launch<true, BN, float, float, B>(ta, th, &tl, C, M, N, K, e, dev, sms, s)
                  : launch<true, BN, float, float, float>(ta, th, &tl, C, M, N, K, e, dev, sms, s);
 }
@@ -998,12 +1027,13 @@ struct Tf32x3Weight {
   int stages;
 };
 
-// C [M, N] f32 = epi(A [M, K] f32 @ W^T) in 3xTF32, W split as `w` says.
-// K a multiple of 4 (16-byte TMA rows), N of 8; r1 f32, r2 f32 or bf16
-// (r2_bf16); pointers 16-byte aligned. Enqueues on `s`.
+// C [M, N] f32 = epi((A [M, K] f32 - a_sub) @ W^T) in 3xTF32, W split as `w`
+// says; a_sub [K] or null. K a multiple of 4 (16-byte TMA rows), N of 8; r1
+// f32, r2 f32 or bf16 (r2_bf16; f32 with a_sub); pointers but a_sub 16-byte
+// aligned. Enqueues on `s`.
 static inline cudaError_t gemm_tf32x3(const float* A, const Tf32x3Weight& w, float* C, int M,
                                       int N, int K, const Epilogue& e, int r2_bf16,
-                                      cudaStream_t s) {
+                                      cudaStream_t s, const float* a_sub = nullptr) {
   using namespace sm90;
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 8 || !tf32x3_plan_ok(w.bn, w.stages)) {
     return cudaErrorInvalidValue;
@@ -1024,13 +1054,13 @@ static inline cudaError_t gemm_tf32x3(const float* A, const Tf32x3Weight& w, flo
   }
   switch (w.bn) {
     case 32:
-      return launch_tf32x3<32>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+      return launch_tf32x3<32>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
     case 64:
-      return launch_tf32x3<64>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+      return launch_tf32x3<64>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
     case 96:
-      return launch_tf32x3<96>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+      return launch_tf32x3<96>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
     default:
-      return launch_tf32x3<128>(ta, th, tl, C, M, N, K, e, r2_bf16, dev, sms, s);
+      return launch_tf32x3<128>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
   }
 }
 

@@ -6,12 +6,12 @@
 //
 // Two routes.
 //
-// Golden (f32): a launch sequence (blocks.cuh) -- [ResiDual GEMMs, f32 GEMM]
-// -> add+LN2 -> fc1+GELU -> fc2 + h1 [-> second pass], fc1 and fc2 on the
+// Golden (f32): a launch sequence (blocks.cuh) -- [ResiDual GEMMs] ->
+// add+LN2 -> fc1+GELU -> fc2 + h1 [-> second pass], every product on the
 // 3xTF32 TMA + wgmma GEMM (gemm_sm90.cuh::gemm_tf32x3).
 //   What bounds it on the H100: operations. At HTSAT-tiny layer 3 and B=32
 //   (2048 rows, 768 -> 3072 -> 768) fc1 and fc2 are 19.3 GFLOP, 0.29 ms at
-//   the 67 TFLOP/s of f32 on the CUDA cores, where the f32 GEMM ran them.
+//   the 67 TFLOP/s of f32 on the CUDA cores.
 //   3xTF32 runs them as three TF32 passes, 58 GFLOP at 495 TFLOP/s
 //   (0.12 ms), with about f32's accuracy: the wrapper splits the weights
 //   into hi + lo once per weight version (ops/cuda/tf32x3.py), the kernel
@@ -61,8 +61,8 @@
 //   block sends and receives (CS-1)/CS of a [128, 64 CS] bf16 chunk, ~112 KB
 //   at CS = 8) runs at distributed shared memory's bandwidth, 4-6 us a
 //   chunk. The kernel is slower than the launch sequence it replaced.
-//   ResiDual: the f32 GEMMs make h1 as in the golden route, and the kernel
-//   runs on x = h1. Double FFN: pass 1 writes y2 = h1 + FFN(h1) + x in f32,
+//   ResiDual: its two 3xTF32 GEMMs make h1 in f32 as in the golden route,
+//   and the kernel runs on x = h1. Double FFN: pass 1 writes y2 = h1 + FFN(h1) + x in f32,
 //   pass 2 computes y2 + FFN(y2).
 #include <string.h>
 
@@ -77,20 +77,22 @@ static size_t residual_ffn_ws(int R, int C, int hidden, int kr) {
   return span((size_t)R * C * 4) + ffn_ws(R, C, hidden, 0) + span((size_t)R * kr * 4);
 }
 
+// a must be f32 with a ResiDual (the first product's A operand)
 static cudaError_t residual_ffn_f32(const void* x, int x_bf16, const void* a, int a_bf16,
                                     void* out, int out_bf16, int R, int C, int hidden,
                                     const float* n2s, const float* n2b, const FfnWeights& w,
-                                    const float* bfc1, const float* bfc2, const float* rbasis,
-                                    const float* rbasis_t, const float* rmean, const float* rlam,
-                                    int kr, int double_ffn, void* ws, cudaStream_t s) {
+                                    const float* bfc1, const float* bfc2,
+                                    const ResidualWeights* res, int double_ffn, void* ws,
+                                    cudaStream_t s) {
   Arena ar{static_cast<unsigned char*>(ws)};
   float* h1 = ar.take<float>((size_t)R * C);
   const FfnScratch ffn_scratch = take_ffn(ar, R, C, hidden, 0);
-  float* proj = ar.take<float>((size_t)R * kr);
   int z_ready = 0;
-  if (rbasis) {
-    ARPU_TRY(run_residual_epilogue(a, a_bf16, x, x_bf16, h1, R, C, kr, rbasis, rbasis_t, rmean,
-                                   rlam, proj, s));
+  if (res) {
+    if (a_bf16) return cudaErrorInvalidValue;
+    float* proj = ar.take<float>((size_t)R * res->kr);
+    ARPU_TRY(run_residual_epilogue(static_cast<const float*>(a), x, x_bf16, h1, R, C, *res, proj,
+                                   s));
   } else {
     // h1 = x + a and z = LN2(h1) in one pass
     ARPU_TRY(launch_add_layernorm(x, x_bf16, a, a_bf16, h1, ffn_scratch.z, 0, n2s, n2b, R, C, s));
@@ -481,11 +483,13 @@ extern "C" size_t arpu_residual_ffn_workspace(int R, int C, int hidden, int kr) 
   return arpu::residual_ffn_ws(R, C, hidden, kr);
 }
 
-// Golden route. x, a, out [R, C] (out f32); fc1 [hidden, C] and fc2
-// [C, hidden] split for 3xTF32, hi and lo f32 in nn.Linear layout
-// (ops/cuda/tf32x3.py::split_tf32), each with its GEMM plan (N tile bn,
-// ring stages: tf32x3.py::gemm_plan, checked against this build). rbasis
-// [kr, C] and rbasis_t [C, kr] null without ResiDual. ws:
+// Golden route. x, a, out [R, C] (out f32; a f32 with a ResiDual); fc1
+// [hidden, C] and fc2 [C, hidden] split for 3xTF32, hi and lo f32 in
+// nn.Linear layout (ops/cuda/tf32x3.py::split_tf32), each with its GEMM plan
+// (N tile bn, ring stages: tf32x3.py::gemm_plan, checked against this
+// build). The ResiDual the same way: rbasis [kr, C] and rbasis_t [C, kr]
+// (hi, lo, plan), null without ResiDual; rmean [C], rlam [kr]; kr a multiple
+// of 8 (the wrapper pads it with zeros, tf32x3.py::residual_weights). ws:
 // arpu_residual_ffn_workspace bytes.
 extern "C" int arpu_residual_ffn(const void* x, int x_bf16, const void* a, int a_bf16, void* out,
                                  int out_bf16, int R, int C, int hidden, const float* n2s,
@@ -493,27 +497,34 @@ extern "C" int arpu_residual_ffn(const void* x, int x_bf16, const void* a, int a
                                  int fc1_bn, int fc1_stages, const float* bfc1,
                                  const float* w2_hi, const float* w2_lo, int fc2_bn,
                                  int fc2_stages, const float* bfc2, const float* rbasis,
-                                 const float* rbasis_t, const float* rmean, const float* rlam,
-                                 int kr, int double_ffn, void* ws, void* stream) {
+                                 const float* rbasis_lo, int rb_bn, int rb_stages,
+                                 const float* rbasis_t, const float* rbasis_t_lo, int rbt_bn,
+                                 int rbt_stages, const float* rmean, const float* rlam, int kr,
+                                 int double_ffn, void* ws, void* stream) {
   const arpu::FfnWeights w{nullptr, nullptr, {w1_hi, w1_lo, fc1_bn, fc1_stages},
                            {w2_hi, w2_lo, fc2_bn, fc2_stages}};
+  const arpu::ResidualWeights res{{rbasis, rbasis_lo, rb_bn, rb_stages},
+                                  {rbasis_t, rbasis_t_lo, rbt_bn, rbt_stages}, rmean, rlam, kr};
   return static_cast<int>(arpu::residual_ffn_f32(
-      x, x_bf16, a, a_bf16, out, out_bf16, R, C, hidden, n2s, n2b, w, bfc1, bfc2, rbasis,
-      rbasis_t, rmean, rlam, kr, double_ffn, ws, static_cast<cudaStream_t>(stream)));
+      x, x_bf16, a, a_bf16, out, out_bf16, R, C, hidden, n2s, n2b, w, bfc1, bfc2,
+      rbasis ? &res : nullptr, double_ffn, ws, static_cast<cudaStream_t>(stream)));
 }
 
-// AMP route. x, a, out [R, C] (f32 or bf16 each); the TMA maps of the bf16
-// weights W1 [hidden, C] (box rows 64) and W2 [C, hidden] (box rows C / cs)
-// from arpu_weight_map (gemm.cu); biases and LN2 f32. ResiDual as in the golden
-// route. The plan (cluster size cs, ring stages, shared bytes) comes from
-// the wrapper and must be this build's. ws: z [R, C] bf16, then with
+// AMP route. x, a, out [R, C] (f32 or bf16 each; a f32 with a ResiDual); the
+// TMA maps of the bf16 weights W1 [hidden, C] (box rows 64) and W2 [C,
+// hidden] (box rows C / cs) from arpu_weight_map (gemm.cu); biases and LN2
+// f32. ResiDual as in the golden route, on the 3xTF32 GEMM. The plan
+// (cluster size cs, ring stages, shared bytes) comes from the wrapper and
+// must be this build's. ws: z [R, C] bf16, then with
 // ResiDual h1 [R, C] and proj [R, kr] f32, then with double_ffn y2 [R, C]
 // f32, each 256-byte aligned. Returns the first CUDA error of the launches.
 extern "C" int arpu_residual_ffn_amp(const void* x, int x_bf16, const void* a, int a_bf16,
                                      void* out, int out_bf16, int R, int C, int hidden,
                                      const float* n2s, const float* n2b, const void* w1_map,
                                      const float* bfc1, const void* w2_map, const float* bfc2,
-                                     const float* rbasis, const float* rbasis_t,
+                                     const float* rbasis, const float* rbasis_lo, int rb_bn,
+                                     int rb_stages, const float* rbasis_t,
+                                     const float* rbasis_t_lo, int rbt_bn, int rbt_stages,
                                      const float* rmean, const float* rlam, int kr,
                                      int double_ffn, int cs, int stages, int smem, void* ws,
                                      void* stream) {
@@ -546,10 +557,13 @@ extern "C" int arpu_residual_ffn_amp(const void* x, int x_bf16, const void* a, i
   p.n2s = n2s, p.n2b = n2b, p.b1 = bfc1, p.b2 = bfc2, p.z = z;
   p.R = R, p.C = C, p.hidden = hidden, p.cs = cs, p.stages = stages;
   if (rbasis) {  // h1 = x + ResiDual(a), f32; the passes run on it
+    if (a_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    const ResidualWeights res{{rbasis, rbasis_lo, rb_bn, rb_stages},
+                              {rbasis_t, rbasis_t_lo, rbt_bn, rbt_stages}, rmean, rlam, kr};
     float* h1 = ar.take<float>((size_t)R * C);
     float* proj = ar.take<float>((size_t)R * kr);
-    ARPU_TRY(run_residual_epilogue(a, a_bf16, x, x_bf16, h1, R, C, kr, rbasis, rbasis_t, rmean,
-                                   rlam, proj, s));
+    ARPU_TRY(run_residual_epilogue(static_cast<const float*>(a), x, x_bf16, h1, R, C, res, proj,
+                                   s));
     p.x = h1, p.x_bf16 = 0, p.a = nullptr;
   }
   if (double_ffn) {  // pass 1: y2 = h + FFN(h) + x, f32

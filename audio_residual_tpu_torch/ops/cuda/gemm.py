@@ -5,7 +5,9 @@ f32 accumulate, then in this order ``+ bias[n]``, ``* col_scale[n]``, exact
 GELU, ``+ r1[m, n]``, ``+ r2[m, n]`` (each optional). Two operand modes:
 :func:`gemm`, bf16 operands stored as f32 or bf16, the AMP GEMM that K2-K5
 run inside their launch sequences; :func:`gemm_tf32x3`, f32 operands in
-3xTF32 (:mod:`.tf32x3`), f32 out, the golden FFN GEMM of K3 and K4. Both
+3xTF32 (:mod:`.tf32x3`), f32 out, every golden product of K2-K5 and the
+ResiDual GEMMs of both modes, with an optional prologue ``a - a_sub[k]``
+(the ResiDual centring). Both
 are one kernel design (TMA loads into a ring of shared-memory stages,
 ``wgmma``, persistent grid); these wrappers call it alone, for its tests and
 ``chip_smoke.py``. It replaces no TPU kernel by itself: on the TPU the same
@@ -79,20 +81,22 @@ def gemm(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
     return out
 
 
-def gemm_tf32x3_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None):
-    """Plain version of :func:`gemm_tf32x3`: the f32 matmul, then the
-    epilogue, in f32."""
-    return gemm_plain(a.float(), w, bias, col_scale, gelu, r1, r2, torch.float32)
+def gemm_tf32x3_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
+                      a_sub=None):
+    """Plain version of :func:`gemm_tf32x3`: ``a - a_sub``, the f32 matmul,
+    then the epilogue, in f32."""
+    a = a.float() if a_sub is None else a.float() - a_sub
+    return gemm_plain(a, w, bias, col_scale, gelu, r1, r2, torch.float32)
 
 
 def gemm_tf32x3(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None,
-                r2=None) -> torch.Tensor:
-    """``a [M, K]``, ``w [N, K]`` f32 -> ``[M, N]`` f32 in 3xTF32, ``w``
-    split once per weight version; ``r2`` f32 or bf16. CPU tensors take
-    :func:`gemm_tf32x3_plain`; on the card K must be a multiple of 4 and N
-    of 8 (:func:`.tf32x3.gemm_plan`)."""
+                r2=None, a_sub=None) -> torch.Tensor:
+    """``(a [M, K] - a_sub [K]) @ w [N, K]^T``, f32, -> ``[M, N]`` f32 in
+    3xTF32, ``w`` split once per weight version; ``r2`` f32 or bf16. CPU
+    tensors take :func:`gemm_tf32x3_plain`; on the card K must be a
+    multiple of 4 and N of 8 (:func:`.tf32x3.gemm_plan`)."""
     if a.device.type == "cpu":
-        return gemm_tf32x3_plain(a, w, bias, col_scale, gelu, r1, r2)
+        return gemm_tf32x3_plain(a, w, bias, col_scale, gelu, r1, r2, a_sub)
     if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[1]:
         raise ValueError(f"gemm_tf32x3: a must be [M, K] and w [N, K], got {tuple(a.shape)}, "
                          f"{tuple(w.shape)}")
@@ -100,19 +104,20 @@ def gemm_tf32x3(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None,
     n = w.shape[0]
     plan = tf32x3.gemm_plan(m, n, k, sm_count(a.device))
     for name, t, shape in (("bias", bias, (n,)), ("col_scale", col_scale, (n,)),
-                           ("r1", r1, (m, n)), ("r2", r2, (m, n))):
+                           ("r1", r1, (m, n)), ("r2", r2, (m, n)), ("a_sub", a_sub, (k,))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"gemm_tf32x3: {name} must be {list(shape)}, got {tuple(t.shape)}")
     build.check_cuda_inputs("gemm_tf32x3", {"a": a, "w": w, "bias": bias,
-                                            "col_scale": col_scale, "r1": r1, "r2": r2},
-                            float_only=("a", "w", "bias", "col_scale", "r1"))
+                                            "col_scale": col_scale, "r1": r1, "r2": r2,
+                                            "a_sub": a_sub},
+                            float_only=("a", "w", "bias", "col_scale", "r1", "a_sub"))
     (w_hi, w_lo), = tf32x3.split_weights(w)
     out = torch.empty(m, n, device=a.device, dtype=torch.float32)
-    fn = build.bind("gemm", "arpu_gemm_tf32x3", "pppp" "iii" "ii" "ppi" "ppi" "p")
+    fn = build.bind("gemm", "arpu_gemm_tf32x3", "pppp" "iii" "ii" "ppi" "ppi" "p" "p")
     rc = fn(a.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), out.data_ptr(), m, n, k, plan.bn,
             plan.stages, build.ptr(bias), build.ptr(col_scale), int(bool(gelu)), build.ptr(r1),
             build.ptr(r2), int(r2 is not None and r2.dtype == torch.bfloat16),
-            build.stream_of(a))
+            build.ptr(a_sub), build.stream_of(a))
     build.check("gemm", rc, "gemm_tf32x3")
     launch_counts["gemm_tf32x3"] += 1
     return out

@@ -7,14 +7,16 @@ optional ResiDual epilogue on ``a`` (f32), ``h = x + a``,
 patched-forward quirk, a second pass from ``x + y``. Weights in
 ``nn.Linear`` layout. Output in the store dtype (the caller's under AMP).
 
-Two routes: the golden one (f32) is a launch sequence whose fc1 and fc2 run
+Two routes: the golden one (f32) is a launch sequence whose products run
 ``gemm_tf32x3_kernel``, f32 products in 3xTF32 on the tensor cores
 (:mod:`.tf32x3`: the weights split once per weight version, each GEMM's
-plan from :func:`.tf32x3.gemm_plan`; the ResiDual GEMMs stay on the f32
-GEMM); the AMP one (``mxu_dtype=torch.bfloat16``) runs
-``ffn_cluster_kernel``, one clustered launch per FFN pass with the hidden
-activation exchanged through distributed shared memory, on bf16 copies of
-the weights and the launch plan of :func:`amp_plan`.
+plan from :func:`.tf32x3.gemm_plan`); the AMP one
+(``mxu_dtype=torch.bfloat16``) runs ``ffn_cluster_kernel``, one clustered
+launch per FFN pass with the hidden activation exchanged through
+distributed shared memory, on bf16 copies of the weights and the launch plan
+of :func:`amp_plan`. The ResiDual is f32 in both routes: its two products
+run ``gemm_tf32x3_kernel`` (:func:`.tf32x3.residual_operands`, any
+component count, padded to a multiple of 8), on ``a`` widened to f32.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda import tf32x3
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
-    derived,
     mxu_weights,
     sm_count,
     store_dtype,
@@ -40,7 +41,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_autograd", "amp_plan",
-           "FfnPlan", "golden_ffn_args"]
+           "FfnPlan", "residual_operands", "residual_inputs"]
 
 # the AMP kernel's constants (csrc/ln_mlp.cu, namespace ffn)
 ROWS = 128                  # rows of a cluster's tile: two consumer warpgroups of 64
@@ -148,19 +149,24 @@ def residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
                             double_ffn=double_ffn, mxu_dtype=mxu_dtype).to(store)
 
 
-def residual_pointers(rparams, c: int) -> tuple:
-    """``(basis, basis_t, mean, lam, kr)`` for the kernels; Nones without ResiDual."""
+def residual_inputs(rparams) -> dict:
+    """The ResiDual's tensors by name (None without one), for the wrappers'
+    input checks."""
+    return dict(zip(("basis", "mean", "lam"), _residual_tensors(rparams)))
+
+
+def residual_operands(rparams, c: int, rows: int, sms: int) -> tf32x3.Residual | None:
+    """The ResiDual as its two 3xTF32 products on ``rows`` rows take it
+    (:func:`.tf32x3.residual_operands`); None without ResiDual."""
     if rparams is None:
-        return None, None, None, None, 0
+        return None
     basis = rparams["basis"]
     if basis.ndim != 2 or basis.shape[1] != c:
         raise ValueError(f"ResiDual basis must be [K, {c}], got {tuple(basis.shape)}")
     kr = basis.shape[0]
     if tuple(rparams["mean"].shape) != (c,) or tuple(rparams["lam"].shape) != (kr,):
         raise ValueError("ResiDual mean must be [C] and lam [K]")
-    # basis^T for the second ResiDual GEMM, made once per basis version
-    basis_t = derived(basis, "t", lambda t: t.t().contiguous())
-    return basis, basis_t, rparams["mean"], rparams["lam"], kr
+    return tf32x3.residual_operands(basis, rparams["mean"], rparams["lam"], rows, sms)
 
 
 def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | None = None, *,
@@ -203,17 +209,6 @@ def residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, 
                            *_residual_tensors(rparams))
 
 
-def golden_ffn_args(wfc1, bfc1, wfc2, bfc2, rows: int, sms: int) -> tuple:
-    """The golden route's FFN arguments, in the order the C entries take
-    them: fc1's hi, lo, N tile and ring stages, its bias, then fc2's. The
-    weights are split for 3xTF32 once per weight version."""
-    hidden, c = wfc1.shape
-    (w1_hi, w1_lo), (w2_hi, w2_lo) = tf32x3.split_weights(wfc1, wfc2)
-    p1, p2 = tf32x3.gemm_plan(rows, hidden, c, sms), tf32x3.gemm_plan(rows, c, hidden, sms)
-    return (w1_hi.data_ptr(), w1_lo.data_ptr(), p1.bn, p1.stages, bfc1.data_ptr(),
-            w2_hi.data_ptr(), w2_lo.data_ptr(), p2.bn, p2.stages, bfc2.data_ptr())
-
-
 def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=False,
             mxu_dtype=None) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, one call, its count."""
@@ -224,24 +219,29 @@ def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=
     hidden = wfc1.shape[0]
     if tuple(wfc1.shape) != (hidden, c) or tuple(wfc2.shape) != (c, hidden):
         raise ValueError("fused_residual_ffn: fc1 must be [hidden, C] and fc2 [C, hidden]")
-    basis, basis_t, mean, lam, kr = residual_pointers(rparams, c)
     weights = {"n2s": n2s, "n2b": n2b, "wfc1": wfc1, "bfc1": bfc1, "wfc2": wfc2, "bfc2": bfc2,
-               "basis": basis, "basis_t": basis_t, "mean": mean, "lam": lam}
+               **residual_inputs(rparams)}
     build.check_cuda_inputs("fused_residual_ffn", {"x": x, "a": a, **weights},
                             float_only=tuple(weights))
+    sms = sm_count(x.device)
+    res = residual_operands(rparams, c, r, sms)
+    if res is not None:
+        a = a.float()  # the ResiDual product's A operand is f32: widening bf16 is exact
+    kr = res.kr if res is not None else 0
+    res_args = res.args() if res is not None else tf32x3.NO_RESIDUAL
     out = torch.empty(r, c, device=x.device, dtype=store)
     if mxu_dtype is None:
         ws_size = build.bind("ln_mlp", "arpu_residual_ffn_workspace", "iiii",
                              restype=ctypes.c_size_t)(r, c, hidden, kr)
         ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
+        fc1, fc2 = tf32x3.operand(wfc1, r, sms), tf32x3.operand(wfc2, r, sms)
         fn = build.bind("ln_mlp", "arpu_residual_ffn",
-                        "pipipi" "iii" "pp" "ppiip" "ppiip" "pppp" "ii" "pp")
+                        "pipipi" "iii" "pp" "ppiip" "ppiip" "ppii" "ppii" "ppi" "i" "pp")
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
                 int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
-                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(),
-                *golden_ffn_args(wfc1, bfc1, wfc2, bfc2, r, sm_count(x.device)),
-                build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam), kr,
-                int(bool(double_ffn)), ws.data_ptr(), build.stream_of(x))
+                r, c, hidden, n2s.data_ptr(), n2b.data_ptr(), *fc1.args(), bfc1.data_ptr(),
+                *fc2.args(), bfc2.data_ptr(), *res_args, int(bool(double_ffn)), ws.data_ptr(),
+                build.stream_of(x))
     else:
         plan = amp_plan(r, c, hidden)
         wfc1, wfc2 = mxu_weights(mxu_dtype, wfc1, wfc2)
@@ -249,13 +249,13 @@ def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=
         ws = torch.empty(amp_workspace_bytes(r, c, kr, double_ffn), device=x.device,
                          dtype=torch.uint8)
         fn = build.bind("ln_mlp", "arpu_residual_ffn_amp",
-                        "pipipi" "iii" "pppppp" "pppp" "ii" "iii" "pp")
+                        "pipipi" "iii" "pppppp" "ppii" "ppii" "ppi" "i" "iii" "pp")
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
                 int(a.dtype == torch.bfloat16), out.data_ptr(), int(store == torch.bfloat16),
                 r, c, hidden, n2s.data_ptr(), n2b.data_ptr(), ctypes.addressof(w1_map),
-                bfc1.data_ptr(), ctypes.addressof(w2_map), bfc2.data_ptr(), build.ptr(basis),
-                build.ptr(basis_t), build.ptr(mean), build.ptr(lam), kr, int(bool(double_ffn)),
-                plan.cs, plan.stages, plan.smem_bytes, ws.data_ptr(), build.stream_of(x))
+                bfc1.data_ptr(), ctypes.addressof(w2_map), bfc2.data_ptr(), *res_args,
+                int(bool(double_ffn)), plan.cs, plan.stages, plan.smem_bytes, ws.data_ptr(),
+                build.stream_of(x))
     build.check("ln_mlp", rc, "fused_residual_ffn")
     launch_counts["fused_residual_ffn"] += 1
     return out

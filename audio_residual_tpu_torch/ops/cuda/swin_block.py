@@ -16,9 +16,12 @@ matrices; its attention half is K2's qkv + attention kernel
 (``csrc/window_attention_tc.cuh``, with the padded bias and mask, the wqkv
 map and the plan of :func:`.window_attention.amp_plan`) and the proj GEMM,
 and it stores the intermediates that only a GEMM reads in bf16
-(``csrc/blocks.cuh``). In the golden mode its FFN half is K3's golden
-sequence: fc1 and fc2 in 3xTF32 on the tensor cores, on weights the wrapper
-splits once per weight version (:func:`.ln_mlp.golden_ffn_args`).
+(``csrc/blocks.cuh``). In the golden mode every product -- qkv, proj, fc1,
+fc2 -- runs in 3xTF32 on the tensor cores, on weights the wrapper splits
+once per weight version (:mod:`.tf32x3`), with the f32 attention core
+between qkv and proj. The ResiDual's two products run in 3xTF32 in both
+modes, its component count padded to a multiple of 8
+(:func:`.tf32x3.residual_operands`).
 
 As in the JAX package, the public function dispatches: from C =
 ``WIDE_MIN_C`` on (HTSAT-large layer 2) it runs :func:`split_block` --
@@ -33,13 +36,13 @@ import ctypes
 import torch
 
 from audio_residual_tpu_torch.ops.common import layer_norm
-from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
     fused_residual_ffn,
-    golden_ffn_args,
     residual_ffn_f32,
-    residual_pointers,
+    residual_inputs,
+    residual_operands,
 )
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
     NO_PLAN,
@@ -153,38 +156,43 @@ def _kernel(x, flat_params, nh, window, num_windows_per_image, shift, resolution
     if (tuple(wqkv.shape) != (3 * c, c) or tuple(wproj.shape) != (c, c)
             or tuple(wfc1.shape) != (hidden, c) or tuple(wfc2.shape) != (c, hidden)):
         raise ValueError("fused_swin_block: weight shapes do not match C")
-    basis, basis_t, mean, lam, kr = residual_pointers(rparams, c)
     weights = {"n1s": n1s, "n1b": n1b, "wqkv": wqkv, "bqkv": bqkv, "wproj": wproj,
                "bproj": bproj, "n2s": n2s, "n2b": n2b, "wfc1": wfc1, "bfc1": bfc1,
-               "wfc2": wfc2, "bfc2": bfc2, "rel_bias_table": table, "basis": basis,
-               "basis_t": basis_t, "mean": mean, "lam": lam}
+               "wfc2": wfc2, "bfc2": bfc2, "rel_bias_table": table,
+               **residual_inputs(rparams)}
     build.check_cuda_inputs("fused_swin_block", {"x": x, **weights}, float_only=tuple(weights))
     amp = mxu_dtype is not None
     r = wn * n
-    wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
+    sms = sm_count(x.device)
+    res = residual_operands(rparams, c, r, sms)
     if amp:  # the attention half reads LN1's bf16 output, of x's shape
+        wqkv, wproj, w1, w2 = mxu_weights(mxu_dtype, wqkv, wproj, wfc1, wfc2)
         bias, mask, plan = amp_attention_args(x, wqkv, table, nh, window, shift, resolution)
-        w1, w2 = mxu_weights(mxu_dtype, wfc1, wfc2)
-        ffn = (w1.data_ptr(), None, 0, 0, bfc1.data_ptr(), w2.data_ptr(), None, 0, 0,
-               bfc2.data_ptr())
+        mats = (wqkv.data_ptr(), *tf32x3.NO_OPERAND, bqkv.data_ptr(),
+                wproj.data_ptr(), *tf32x3.NO_OPERAND, bproj.data_ptr())
+        ffn = (w1.data_ptr(), *tf32x3.NO_OPERAND, bfc1.data_ptr(),
+               w2.data_ptr(), *tf32x3.NO_OPERAND, bfc2.data_ptr())
     else:
         bias, mask = bias_and_mask(table, window, shift, resolution)
         plan = NO_PLAN
-        ffn = golden_ffn_args(wfc1, bfc1, wfc2, bfc2, r, sm_count(x.device))
+        qkv, proj = tf32x3.operand(wqkv, r, sms), tf32x3.operand(wproj, r, sms)
+        mats = (*qkv.args(), bqkv.data_ptr(), *proj.args(), bproj.data_ptr())
+        fc1, fc2 = tf32x3.operand(wfc1, r, sms), tf32x3.operand(wfc2, r, sms)
+        ffn = (*fc1.args(), bfc1.data_ptr(), *fc2.args(), bfc2.data_ptr())
+    kr = res.kr if res is not None else 0
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
     ws_size = build.bind("swin_block", "arpu_swin_block_workspace", "iiiii",
                          restype=ctypes.c_size_t)(r, c, hidden, kr, int(amp))
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("swin_block", "arpu_swin_block",
-                    "pipi" "iiiiii" "pppppppp" "ppiip" "ppiip" "pp" "piiiii" "pppp" "iii" "pp")
+                    "pipi" "iiiiii" "pp" "ppiip" "ppiip" "pp" "ppiip" "ppiip" "pp" "piiiii"
+                    "ppii" "ppii" "ppi" "ii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, hidden,
-            n1s.data_ptr(), n1b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-            bproj.data_ptr(), n2s.data_ptr(), n2b.data_ptr(), *ffn,
+            n1s.data_ptr(), n1b.data_ptr(), *mats, n2s.data_ptr(), n2b.data_ptr(), *ffn,
             bias.data_ptr(), build.ptr(mask), *plan,
-            build.ptr(basis), build.ptr(basis_t), build.ptr(mean), build.ptr(lam),
-            kr, int(bool(double_ffn and use_residual)), int(amp),
-            ws.data_ptr(), build.stream_of(x))
+            *(res.args() if res is not None else tf32x3.NO_RESIDUAL),
+            int(bool(double_ffn and use_residual)), int(amp), ws.data_ptr(), build.stream_of(x))
     build.check("swin_block", rc, "fused_swin_block")
     launch_counts["fused_swin_block"] += 1
     return out

@@ -5,9 +5,10 @@ mantissa bits, to nearest with ties away from zero, the low 13 bits cleared,
 as ``cvt.rna.tf32.f32`` rounds), and ``lo = x - hi``, exact in f32, with
 ``|lo| <= 2^-11 |x|`` for a normal ``x``. A product ``a w`` is then
 ``lo_a hi_w + hi_a lo_w + hi_a hi_w``, summed in f32 (``lo_a lo_w``, near
-``2^-22`` of it, is dropped): the golden kernels of K1 (``csrc/logmel.cu``)
-and of K3's and K4's FFN (``csrc/gemm_sm90.cuh::gemm_tf32x3``) run that on
-``wgmma`` at three passes of the 495 TFLOP/s TF32 rate. It is the Hopper
+``2^-22`` of it, is dropped): golden K1 (``csrc/logmel.cu``) and every
+other golden product of the port -- the qkv, proj, fc1 and fc2 of K2-K5 --
+and the ResiDual GEMMs of both modes (``csrc/gemm_sm90.cuh::gemm_tf32x3``)
+run that on ``wgmma`` at three passes of the 495 TFLOP/s TF32 rate. It is the Hopper
 form of the TPU's ``Precision.HIGHEST`` (a split into bf16 passes on the
 MXU), not PyTorch's TF32 mode, which stays off. The kernels split the
 activations as they read them; the weights and the DFT basis are split here,
@@ -15,7 +16,10 @@ once per weight version (:func:`split_weights`, kept beside the weight as
 :func:`.window_attention.mxu_weights` keeps the bf16 copies).
 
 :func:`gemm_plan` is the launch plan of the 3xTF32 GEMM: the N tile and the
-ring depth, which the C entries check against their build.
+ring depth, which the C entries check against their build. :func:`operand`
+gives a weight as one product takes it (split, plan), and
+:func:`residual_operands` a ResiDual's two products, with its component
+count padded to a multiple of 8.
 """
 
 from __future__ import annotations
@@ -25,10 +29,13 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.cuda.window_attention import H100_SMS, SMEM_LIMIT, derived
 
-__all__ = ["split_tf32", "split_weights", "gemm_plan", "GemmPlan", "GEMM_BNS"]
+__all__ = ["split_tf32", "split_weights", "gemm_plan", "GemmPlan", "GEMM_BNS", "Operand",
+           "operand", "Residual", "residual_operands", "padded_components",
+           "NO_OPERAND", "NO_RESIDUAL"]
 
 _HALF_STEP = 1 << 12  # half a TF32 step, in units of the last f32 bit
 _KEEP = -(1 << 13)    # 0xffffe000 as int32: clears the 13 f32 bits TF32 drops
@@ -110,3 +117,87 @@ def gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> GemmPlan:
     _, bn, tiles = best
     stages, smem = _ring(bn)
     return GemmPlan(bn=bn, stages=stages, smem_bytes=smem, tiles=tiles, grid=min(tiles, sms))
+
+
+@dataclass(frozen=True)
+class Operand:
+    """A weight ``W [N, K]`` as one 3xTF32 product ``[rows, K] @ W^T`` takes
+    it: ``hi`` and ``lo`` and the product's plan. The wrapper holds it until
+    its launch is enqueued, so a split made for one call lives that long."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+    plan: GemmPlan
+
+    def args(self) -> tuple:
+        """``(hi, lo, N tile, ring stages)`` in the order the C entries take them."""
+        return self.hi.data_ptr(), self.lo.data_ptr(), self.plan.bn, self.plan.stages
+
+
+NO_OPERAND = (None, 0, 0)
+"""What follows a bf16 (AMP) weight's pointer where a golden one's lo part
+and plan go."""
+
+
+def operand(w: torch.Tensor, rows: int, sms: int) -> Operand:
+    """``w [N, K]`` f32 split once per weight version, with the plan of its
+    product on ``rows`` rows."""
+    ((hi, lo),) = split_weights(w)
+    return Operand(hi, lo, gemm_plan(rows, w.shape[0], w.shape[1], sms))
+
+
+def padded_components(kr: int) -> int:
+    """A ResiDual's component count as its products take it: ``kr`` rounded
+    up to a multiple of 8, the N of the first product (the epilogue's
+    8-column vectors) and the K of the second (16-byte TMA rows)."""
+    return -(-kr // 8) * 8
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(t, (0,) * (2 * t.ndim - 1) + (rows - t.shape[0],))
+
+
+@dataclass(frozen=True)
+class Residual:
+    """A ResiDual ``((a - mean) @ basis^T * lam) @ basis`` as its two 3xTF32
+    products take it, with ``kr`` padded to :func:`padded_components`:
+    ``basis [kr, C]`` with zero rows, ``basis_t [C, kr]`` with zero columns,
+    ``lam [kr]`` with zeros. A padded component's column of the first
+    product is 0 * lam = 0, and its row of ``basis`` is 0, so both products
+    give the unpadded values."""
+
+    basis: Operand
+    basis_t: Operand
+    mean: torch.Tensor
+    lam: torch.Tensor
+    kr: int
+
+    def args(self) -> tuple:
+        """In the order the C entries take them: basis (hi, lo, plan),
+        basis_t (hi, lo, plan), mean, lam, kr."""
+        return (*self.basis.args(), *self.basis_t.args(), self.mean.data_ptr(),
+                self.lam.data_ptr(), self.kr)
+
+
+NO_RESIDUAL = (None, None, 0, 0, None, None, 0, 0, None, None, 0)
+"""The C entries' ResiDual arguments without a ResiDual."""
+
+
+def residual_operands(basis: torch.Tensor, mean: torch.Tensor, lam: torch.Tensor, rows: int,
+                      sms: int) -> Residual:
+    """``basis [kr, C]``, ``mean [C]``, ``lam [kr]`` (f32) as the ResiDual's
+    products on ``rows`` rows take them: the padded basis and its transpose
+    split once per basis version, ``lam`` padded at each call (it changes
+    at every step of λ-training)."""
+    kr, c = basis.shape
+    k8 = padded_components(kr)
+
+    def split(b):
+        b8 = _pad_rows(b, k8)
+        return (*split_tf32(b8), *split_tf32(b8.t().contiguous()))
+
+    b_hi, b_lo, bt_hi, bt_lo = derived(basis, ("residual", k8), split)
+    lam8 = lam if k8 == kr else _pad_rows(lam, k8)
+    return Residual(Operand(b_hi, b_lo, gemm_plan(rows, k8, c, sms)),
+                    Operand(bt_hi, bt_lo, gemm_plan(rows, c, k8, sms)), mean, lam8.contiguous(),
+                    k8)

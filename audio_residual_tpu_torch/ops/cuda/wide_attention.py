@@ -13,14 +13,15 @@ call here.
 
 Weights in ``nn.Linear`` layout. ``mxu_dtype=torch.bfloat16`` is the AMP
 contract (bf16 GEMM and attention operands, f32 accumulate and softmax,
-output in the caller's dtype); without it the output is f32. The two
-contracts run two kernels for the qkv product and the attention: the golden
-one (``wide_qkv_attention_kernel``) on the CUDA cores in f32, one block per
-(window, head), with the weights streamed; the AMP one is K2's
-``window_attention_wgmma_kernel`` (``csrc/window_attention_tc.cuh``), TMA +
-``wgmma`` over window pairs with the attention core on the tensor cores,
-which this wrapper reaches through K2's C entry with the launch plan of
-:func:`amp_plan`.
+output in the caller's dtype); without it the output is f32. Both contracts
+run K2's routes at the wide width: the golden one, through this kernel's C
+entry (``csrc/wide_attention.cu``), is K2's golden sequence -- the qkv GEMM
+in 3xTF32 on the tensor cores, the f32 attention core, the proj GEMM in
+3xTF32, on weights split once per weight version and a bf16 ``x`` widened
+to f32; the AMP one is K2's ``window_attention_wgmma_kernel``
+(``csrc/window_attention_tc.cuh``), TMA + ``wgmma`` over window pairs with
+the attention core on the tensor cores, which this wrapper reaches through
+K2's C entry with the launch plan of :func:`amp_plan`.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import ctypes
 
 import torch
 
-from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
@@ -38,7 +39,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     bias_and_mask,
     check_window_shapes,
     padded_bias_and_mask,
-    store_dtype,
+    sm_count,
     window_attention_call,
     window_attention_plain,
 )
@@ -46,7 +47,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
 __all__ = ["wide_window_attention", "wide_attention_plain", "wide_attention_autograd",
            "amp_plan", "AmpPlan", "padded_bias_and_mask", "SMEM_LIMIT"]
 
-HEAD_DIMS = (32, 64)  # the golden kernel's; the AMP kernel takes these among others
+HEAD_DIMS = (32, 64)  # K5's, those of every shipped wide layer; the AMP kernel takes others too
 
 
 def amp_plan(windows: int, n: int, c: int, nh: int) -> AmpPlan:
@@ -97,7 +98,6 @@ def wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, win
 def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
             shift, resolution, mxu_dtype) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, one call, its count."""
-    store = store_dtype(x, mxu_dtype)
     weights = {"wqkv": wqkv, "bqkv": bqkv, "wproj": wproj, "bproj": bproj,
                "rel_bias_table": rel_bias_table}
     build.check_cuda_inputs("wide_window_attention", {"x": x, **weights},
@@ -117,16 +117,18 @@ def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows
         launch_counts["wide_window_attention"] += 1
         return out
     r = wn * n
-    out = torch.empty(wn, n, c, device=x.device, dtype=store)
+    x = x.float()  # the qkv product's A operand is f32: widening bf16 is exact
+    out = torch.empty(wn, n, c, device=x.device, dtype=torch.float32)
     ws_size = build.bind("wide_attention", "arpu_wide_attention_workspace", "ii",
                          restype=ctypes.c_size_t)(r, c)
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
-    fn = build.bind("wide_attention", "arpu_wide_attention", "pipiiiiii" "pppppp" "pp")
-    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
-            int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image,
-            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            bias.data_ptr(), build.ptr(mask), ws.data_ptr(), build.stream_of(x))
+    sms = sm_count(x.device)
+    qkv, proj = tf32x3.operand(wqkv, r, sms), tf32x3.operand(wproj, r, sms)
+    fn = build.bind("wide_attention", "arpu_wide_attention", "ppiiiii" "ppiip" "ppiip" "pp" "pp")
+    rc = fn(x.data_ptr(), out.data_ptr(), r, n, c, nh, num_windows_per_image, *qkv.args(),
+            bqkv.data_ptr(), *proj.args(), bproj.data_ptr(), bias.data_ptr(), build.ptr(mask),
+            ws.data_ptr(), build.stream_of(x))
     build.check("wide_attention", rc, "wide_window_attention")
     launch_counts["wide_window_attention"] += 1
     return out

@@ -13,7 +13,10 @@ Weights are in ``nn.Linear`` layout (``[out, in]``). ``mxu_dtype=torch.bfloat16`
 is the AMP contract: GEMM and attention operands rounded to bf16, f32
 accumulate, f32 softmax; the output keeps the caller's dtype. Without it
 the output is f32. The two contracts run two routes: the golden one a
-sequence of f32 GEMM, attention core and f32 GEMM; the AMP one
+sequence of the qkv GEMM, the f32 attention core and the proj GEMM, both
+products in 3xTF32 on the tensor cores (:mod:`.tf32x3`: the weights split
+once per weight version, each product's plan from
+:func:`.tf32x3.gemm_plan`; a bf16 ``x`` widened to f32, exactly); the AMP one
 ``window_attention_wgmma_kernel`` (``csrc/window_attention_tc.cuh``: qkv
 and attention in one launch over window pairs, q|k|v kept on chip), then
 the bf16 proj GEMM. Under AMP the wrapper hands the kernel bf16 copies of
@@ -228,7 +231,7 @@ def amp_attention_args(x, wqkv, table, nh, window, shift, resolution) -> tuple:
                         plan.stages, plan.smem_bytes, plan.blocks)
 
 
-NO_PLAN = (None, 0, 0, 0, 0, 0)  # the golden route reads no plan
+NO_PLAN = (None, 0, 0, 0, 0, 0)  # the golden route reads no attention plan
 
 
 def bias_and_mask(table: torch.Tensor, window: int, shift: int, resolution) -> tuple:
@@ -327,25 +330,32 @@ def window_attention_call(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, windo
     GEMM (K5's AMP route comes here too)."""
     store = store_dtype(x, mxu_dtype)
     wn, n, c = x.shape
+    r = wn * n
     amp = mxu_dtype is not None
-    wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
     if amp:
+        wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
         x = x.to(mxu_dtype)  # the kernel's TMA reads bf16 rows; its products round x so anyway
         bias, mask, plan = amp_attention_args(x, wqkv, rel_bias_table, nh, window, shift,
                                               resolution)
+        weights = (wqkv.data_ptr(), None, 0, 0, bqkv.data_ptr(),
+                   wproj.data_ptr(), None, 0, 0, bproj.data_ptr())
     else:
+        from audio_residual_tpu_torch.ops.cuda import tf32x3  # it builds on this module
+
+        x = x.float()  # the qkv product's A operand is f32: widening bf16 is exact
         bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
         plan = NO_PLAN
-    r = wn * n
+        sms = sm_count(x.device)
+        qkv, proj = tf32x3.operand(wqkv, r, sms), tf32x3.operand(wproj, r, sms)
+        weights = (*qkv.args(), bqkv.data_ptr(), *proj.args(), bproj.data_ptr())
     out = torch.empty(wn, n, c, device=x.device, dtype=store)
     ws_size = build.bind("window_attention", "arpu_window_attention_workspace", "iii",
                          restype=ctypes.c_size_t)(r, c, int(amp))
     ws = torch.empty(ws_size, device=x.device, dtype=torch.uint8)
     fn = build.bind("window_attention", "arpu_window_attention",
-                    "pipiiiiii" "pppppp" "i" "piiiii" "pp")
+                    "pipiiiiii" "ppiip" "ppiip" "pp" "i" "piiiii" "pp")
     rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
-            int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image,
-            wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            int(store == torch.bfloat16), r, n, c, nh, num_windows_per_image, *weights,
             bias.data_ptr(), build.ptr(mask), int(amp), *plan, ws.data_ptr(),
             build.stream_of(x))
     build.check("window_attention", rc, what)

@@ -7,10 +7,12 @@ Each ROOT (a checkout's root directory) runs in its own process and imports
 of this script. A run calls every kernel's AMP route (``mxu_dtype`` bf16,
 K1 ``dft_mode="bf16"``) and the bf16 GEMM on inputs made from one seed, at
 main-path widths with B=2 (K1 at [2, 480000]; K4 at HTSAT-tiny layers 0 and
-2 with ResiDual and the double FFN, shift 4; K2 and K3 at HTSAT-tiny layer
-3; K5 and K3 at HTSAT-base layer 3), and prints one JSON line of a SHA-256
-of each output's bytes. Exits non-zero when a run fails or when two roots'
-digests differ.
+2, shift 4, without ResiDual and with it and the double FFN; K2 and K3 at
+HTSAT-tiny layer 3; K5 and K3 at HTSAT-base layer 3, K3 without and with
+ResiDual), and prints one JSON line of a SHA-256 of each output's bytes,
+named with ``res=True`` where a ResiDual is on (its two products are f32 in
+both modes, so a change of the golden GEMM shows there). Exits non-zero when
+a run fails or when two roots' digests differ.
 """
 
 from __future__ import annotations
@@ -73,8 +75,10 @@ def run_one(root: str) -> None:
         for c, nh, nw, hw in ((96, 4, 64, (64, 64)), (384, 16, 4, (16, 16))):
             flat, res = block(c, nh)
             x = t(B * nw, 64, c, scale=0.5).to(bf16)
-            record(f"fused_swin_block C={c}", k4.fused_swin_block(
+            record(f"fused_swin_block C={c} res=True", k4.fused_swin_block(
                 x, flat + res, nh, 8, nw, 4, hw, True, True, bf16))
+            record(f"fused_swin_block C={c} res=False", k4.fused_swin_block(
+                x, flat, nh, 8, nw, 4, hw, False, False, bf16))
         for c, name, kernel in ((768, "fused_window_attention", k2.fused_window_attention),
                                 (1024, "wide_window_attention", k5.wide_window_attention)):
             flat, res = block(c, 32)
@@ -82,9 +86,11 @@ def run_one(root: str) -> None:
             a = kernel(x, *flat[2:6], flat[12], 32, 8, 1, 0, (8, 8), bf16)
             record(f"{name} C={c}", a)
             rp = dict(zip(("basis", "mean", "lam"), res))
-            record(f"fused_residual_ffn C={c}", k3.fused_residual_ffn(
+            record(f"fused_residual_ffn C={c} res=True", k3.fused_residual_ffn(
                 x.reshape(-1, c), a.reshape(-1, c), *flat[6:12], rp, double_ffn=True,
                 mxu_dtype=bf16))
+            record(f"fused_residual_ffn C={c} res=False", k3.fused_residual_ffn(
+                x.reshape(-1, c), a.reshape(-1, c), *flat[6:12], None, mxu_dtype=bf16))
         a, w = t(8192, 96, scale=0.5).to(bf16), t(384, 96, scale=0.1).to(bf16)
         record("gemm", kg.gemm(a, w, bias=t(384), gelu=True, out_dtype=bf16))
     print(json.dumps({"root": root, "digests": digests}), flush=True)

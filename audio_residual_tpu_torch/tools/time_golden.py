@@ -1,5 +1,6 @@
-"""Time the golden f32 routes of K1 (``fused_logmel``), K3
-(``fused_residual_ffn``) and K4 (``fused_swin_block``) at the main paths'
+"""Time the golden f32 routes of K1 (``fused_logmel``), K2
+(``fused_window_attention``), K3 (``fused_residual_ffn``), K4
+(``fused_swin_block``) and K5 (``wide_window_attention``) at the main paths'
 shapes, B=32, for the port found under each ROOT, to compare two checkouts
 on one card:
 
@@ -8,9 +9,11 @@ on one card:
 Each ROOT (a checkout's root directory) runs in its own process, in the
 order given, and imports ``audio_residual_tpu_torch`` from there, so an
 older checkout needs no copy of this script. Shapes: K1 at [32, 480000]
-(HTSAT-tiny's frontend); K3 at HTSAT-tiny and HTSAT-base layer 3 (2048
-rows, C = 768 and 1024); K4 at HTSAT-tiny layer 0 (131072 rows, C = 96,
-ResiDual and the double FFN, shift 4) and layer 2 (8192 rows, C = 384). A
+(HTSAT-tiny's frontend); K2 at HTSAT-tiny layer 3 (2048 rows, C = 768, 32
+heads) and K5 at HTSAT-base layer 3 (C = 1024, 32 heads); K3 at HTSAT-tiny
+and HTSAT-base layer 3 (2048 rows, C = 768 and 1024); K4 at HTSAT-tiny
+layer 0 (131072 rows, C = 96, ResiDual and the double FFN, shift 4) and
+layer 2 (8192 rows, C = 384). A
 run prints one JSON line a (kernel, shape): the median event time of one
 call, and from one ``torch.profiler`` window over ``REPS`` calls the device
 time a call of all the call's kernels and its kernels by name, with the
@@ -39,6 +42,8 @@ def run_one(root: str) -> None:
     from audio_residual_tpu_torch.ops.cuda import frontend as k1
     from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
     from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -74,6 +79,16 @@ def run_one(root: str) -> None:
         report("fused_logmel", f"[{B},480000]", lambda: k1.fused_logmel(wav, cfg, "f32"),
                lambda: k1.logmel_plain(wav, cfg, "f32"))
         del wav
+        for c, kernel, plain, name in ((768, k2.fused_window_attention, k2.window_attention_plain,
+                                        "fused_window_attention"),
+                                       (1024, k5.wide_window_attention, k5.wide_attention_plain,
+                                        "wide_window_attention")):
+            y = t(B, 64, c, scale=0.5)
+            attn = (t(3 * c, c, scale=0.02), t(3 * c, scale=0.02), t(c, c, scale=0.02),
+                    t(c, scale=0.02), t(225, 32, scale=0.02))
+            args = (y, *attn, 32, 8, 1, 0, (8, 8))
+            report(name, f"[{B}x64x{c}]", lambda args=args, kernel=kernel: kernel(*args),
+                   lambda args=args, plain=plain: plain(*args))
         for c in (768, 1024):
             x, a = t(B * 64, c, scale=0.5), t(B * 64, c, scale=0.1)
             weights = ffn_weights(c)

@@ -8,9 +8,11 @@ order given, and imports ``audio_residual_tpu_torch`` from there, so an
 older checkout needs no copy of this script. A run prints one JSON line a
 mode, golden f32 and bf16 AMP: the median event time of one call, and from
 one ``torch.profiler`` window over ``REPS`` calls the device time a call of
-launch (A) (the kernels named ``wide_*``, and under AMP from the checkout
-that moved it onto the kernel K2 and K4 share, ``window_attention_wgmma_*``)
-and of all of the call's kernels.
+the qkv + attention launch where a route has one (the kernels named
+``wide_*``, and under AMP from the checkout that moved it onto the kernel K2
+and K4 share, ``window_attention_wgmma_*``; the golden route that runs K2's
+sequence has none: its qkv product and attention core show by name), of
+all of the call's kernels, and of each kernel by name.
 Exits non-zero when a run fails or its trace holds no device time.
 """
 
@@ -26,8 +28,9 @@ B, WINDOW, C, NH = 32, 8, 1024, 32
 REPS = 20
 
 
-def _device_ms(fn, reps: int) -> tuple[float, float]:
-    """(launch (A), whole call) device ms a call, from one profiler window."""
+def _device_ms(fn, reps: int) -> tuple[float, float, dict]:
+    """(the qkv + attention launch, whole call, {kernel: ms}) device ms a
+    call, from one profiler window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -42,6 +45,9 @@ def _device_ms(fn, reps: int) -> tuple[float, float]:
         raise RuntimeError("the profiler's trace holds no device time")
     launch_a = sum(end - start for start, end, name in spans
                    if "wide_" in name or "window_attention_wgmma" in name)
+    names: dict = {}
+    for start, end, name in spans:
+        names[name[:90]] = names.get(name[:90], 0.0) + (end - start) / 1e3 / reps
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, _ in spans:
         if start > cur_end:
@@ -49,7 +55,7 @@ def _device_ms(fn, reps: int) -> tuple[float, float]:
             cur_start = start
         cur_end = max(cur_end, end)
     busy += cur_end - cur_start
-    return launch_a / 1e3 / reps, busy / 1e3 / reps
+    return launch_a / 1e3 / reps, busy / 1e3 / reps, names
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -96,10 +102,10 @@ def run_one(root: str) -> None:
             for _ in range(3):
                 call()
             event = _event_ms(call, REPS)
-            launch_a, device = _device_ms(call, REPS)
+            launch_a, device, names = _device_ms(call, REPS)
             print(json.dumps({"root": root, "mode": mode, "event_ms": event,
                               "launch_a_device_ms": launch_a, "call_device_ms": device,
-                              "max_abs_err": err}), flush=True)
+                              "kernels_device_ms": names, "max_abs_err": err}), flush=True)
 
 
 def main(argv: list[str]) -> int:

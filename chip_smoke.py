@@ -11,9 +11,12 @@ line):
                power limit, turn TF32 off for the golden path.
   2. kernels -- each of K1-K5 against its plain PyTorch version at the main
                paths' shapes (B=32), f32 and bf16, with times; the golden
-               routes of K1, K3 and K4 (3xTF32 on wgmma) also against a
-               float64 evaluation of the same function (at most 4x the
-               plain f32 version's error), each golden bound at the f32
+               routes of K1-K5 (every product 3xTF32 on wgmma) also against
+               a float64 evaluation of the same function (at most 4x the
+               plain f32 version's error; K4 with the ResiDual at all six
+               main-path layers, K5 also at HTSAT-large's layers, and the
+               ResiDual alone at a component count that is no multiple of
+               8, golden and AMP), each golden bound at the f32
                CUDA-core rate and for the 3xTF32 arithmetic the route runs,
                K1's golden yardsticks the DFT matmul and the whole function
                as torch.stft -> power -> mel -> dB; K1's routes also at
@@ -26,9 +29,9 @@ line):
                K4 also at n = 49 and 3 windows; K3's AMP kernel by device
                time (the only kernel of its call, one launch a pass); K2,
                K3 and K4 beside their function as a sequence of PyTorch
-               calls (cuBLAS, SDPA); K3's golden 3xTF32 GEMMs by device
-               time; K4's device time split by CUDA kernel (torch.profiler)
-               at its main-path shapes, AMP and golden.
+               calls (cuBLAS, SDPA); the golden 3xTF32 GEMMs of K2, K3 and
+               K5 by device time; K4's device time split by CUDA kernel
+               (torch.profiler) at its main-path shapes, AMP and golden.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -42,10 +45,13 @@ line):
                casting the weights to bf16 costs once, and one
                torch.profiler window over an AMP forward (device time by
                CUDA kernel, the device's idle share, K3's launches, the
-               qkv + attention kernel's launches and no attention_core_kernel
+               qkv + attention kernel's launches, the ResiDual's two
+               gemm_tf32x3_kernel a block and no attention_core_kernel
                under AMP), and one over a golden forward (the same split;
-               K1's one logmel_tf32x3_kernel and a gemm_tf32x3_kernel for
-               each golden fc1 and fc2).
+               K1's one logmel_tf32x3_kernel, a gemm_tf32x3_kernel for each
+               golden qkv, proj, fc1 and fc2 and each ResiDual product, and
+               no other kernel of the port but LayerNorm and the attention
+               core).
   3b. main   -- the same program through HTSAT-base, built by name from the
                model registry (ResiDual at layer 0, K=128); layer 3 (C=1024)
                runs K5.
@@ -60,8 +66,9 @@ line):
                forward, backward and Adam by CUDA events, golden and AMP,
                with its peak memory, its launches (the backward launches no
                kernel) and the uncached step beside it; λ's gradient against
-               autograd through the plain versions on the card (golden:
-               max rel err <= 1e-3; AMP: cosine >= 0.999); the JAX training
+               autograd through the plain versions on the card on 5 seeded
+               batches, each logged with the spread (golden: max rel err
+               <= 1e-3; AMP: cosine >= 0.999); the JAX training
                fixture (tests/data/torch_port_train.npz); the image cache's
                bit-equal resume; evaluate_zero_shot and the K-fold
                artifacts on a held-out batch.
@@ -109,8 +116,19 @@ PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # golden routes against float64: at most this times the plain f32 version's error
 GOLDEN_F64_RATIO = 4.0
 # a golden forward's 3xTF32 GEMMs: fc1 and fc2 of each FFN pass (layer 0's
-# blocks run two passes: ResiDual's double FFN)
-EXPECTED_GOLDEN_TF32X3 = {"tiny": 2 * (2 * 2 + 2 + 6 + 2), "base": 2 * (2 * 2 + 2 + 12 + 2)}
+# blocks run two passes: ResiDual's double FFN), qkv and proj of each K2, K4
+# and K5 call, and the ResiDual's two products in each of layer 0's blocks
+EXPECTED_GOLDEN_TF32X3 = {"tiny": 2 * (2 * 2 + 2 + 6 + 2) + 2 * (10 + 2) + 2 * 2,
+                          "base": 2 * (2 * 2 + 2 + 12 + 2) + 2 * (16 + 2) + 2 * 2}
+RESIDUAL_BLOCKS = 2  # the main paths' ResiDual: both blocks of layer 0
+GRAD_BATCHES = 5  # seeded batches of the λ-gradient checks
+# the kernels of the port by role (profiler names); any other kernel of the
+# port (namespace arpu) counts under its own name
+PORT_KERNELS = ("gemm_tf32x3_kernel", "gemm_kernel", "attention_core_kernel",
+                "add_layernorm_kernel", "window_attention_wgmma_kernel", "ffn_cluster_kernel",
+                "logmel_tf32x3_kernel", "logmel_wgmma_kernel")
+GOLDEN_KERNELS = {"logmel_tf32x3_kernel", "gemm_tf32x3_kernel", "attention_core_kernel",
+                  "add_layernorm_kernel"}
 
 
 def log(phase: str, **kv) -> None:
@@ -410,19 +428,28 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                     label = f"C={c} shift={shift} res={use_res} dffn={dffn}"
                     stats.check("fused_swin_block", label, k4.fused_swin_block(*args),
                                 k4.swin_block_plain(*args), mode)
-                    if (use_res, dffn) != ((True, True) if path_res else (False, False)):
+                    on_path = (use_res, dffn) == ((True, True) if path_res else (False, False))
+                    if md is None and not on_path and dffn and shift == 4:
+                        # every product on the 3xTF32 GEMM, the ResiDual's too, at every
+                        # main-path layer
+                        rp = dict(zip(("basis", "mean", "lam"), res))
+                        stats.check_f64("fused_swin_block", label, k4.fused_swin_block(*args),
+                                        k4.swin_block_plain(*args),
+                                        f64.block64(x, flat, rp, nh, 8, shift, hw, dffn))
+                    if not on_path:
                         continue
                     (k4_golden if md is None else k4_main).append(
                         (lambda a=args: k4.fused_swin_block(*a), per_shift))
                     passes = 2 if dffn else 1
                     ffn = passes * 4.0 * r * c * hidden
-                    attn = 8.0 * r * c * c + 4.0 * r * 64 * c
-                    flops = {"bf16": attn + ffn}
+                    gemms, core = 8.0 * r * c * c, 4.0 * r * 64 * c
+                    flops = {"bf16": gemms + core + ffn}
                     if use_res:
                         flops["f32"] = 4.0 * r * c * c
                     seq = block_sequence(args, md or torch.float32)
-                    # golden: the FFN products in 3xTF32, the rest on the CUDA cores
-                    route = {"tf32": 3 * ffn, "f32": attn + flops.get("f32", 0.0)}
+                    # golden: every product in 3xTF32 (the ResiDual's too), the
+                    # attention core on the CUDA cores
+                    route = {"tf32": 3 * (ffn + gemms + flops.get("f32", 0.0)), "f32": core}
                     stats.time("fused_swin_block", label, mode,
                                lambda: k4.fused_swin_block(*args),
                                lambda: k4.swin_block_plain(*args),
@@ -483,9 +510,9 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                          kernel_names=json.dumps(sorted(kernels)))
         elif prof is not None:
             kernels = prof[4]
-            gemms = sum(v for n, v in kernels.items() if "gemm_tf32x3_kernel" in n)
-            if any("gemm_f32_kernel" in n for n in kernels) or \
-                    (sum(kernels.values()) == want and gemms != 10):
+            ours = port_kernels(kernels)
+            if set(ours) - {"gemm_tf32x3_kernel", "add_layernorm_kernel"} or \
+                    (sum(kernels.values()) == want and ours["gemm_tf32x3_kernel"] != 10):
                 raise AssertionError(f"fused_residual_ffn {label}: golden calls launched "
                                      f"{dict(kernels)}, expected fc1 and fc2 on gemm_tf32x3")
             k_ms = sum(v for n, v in prof[1].items() if "gemm_tf32x3_kernel" in n) / 5
@@ -525,13 +552,19 @@ def phase_kernels(stats: KernelStats, dev) -> None:
             stats.time(name, f"C={c}", mode, lambda: kernel(*args), lambda: plain(*args),
                        2 * nbytes_of([y]) + nbytes_of(args[1:6]),
                        typed(mode, {"bf16": 8.0 * r * c * c + 4.0 * r * 64 * c}), launches=2,
-                       library_fn=lambda: seq(y), library_what=ATTENTION_SEQUENCE)
+                       library_fn=lambda: seq(y), library_what=ATTENTION_SEQUENCE,
+                       route_flops={"tf32": 3 * 8.0 * r * c * c, "f32": 4.0 * r * 64 * c}
+                       if md is None else None)
             log("kernels", kernel=name, shape=f"C={c}", mode=mode,
                 yardstick_rel_err=rel_err(seq(y), plain(*args)),
                 sdpa_core_ms=2 * time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=bias)))
-            if md is not None or name == "wide_window_attention":
+            if md is not None:
                 attention_launch(name, f"C={c}", mode, lambda: kernel(*args), r, c)
+            else:
+                golden_attention_launches(name, f"C={c}", lambda: kernel(*args), r, c)
+                stats.check_f64(name, f"C={c}", kernel(*args), plain(*args),
+                                f64.attention64(y, *args[1:6], nh, 8, 0, (8, 8)).reshape(y.shape))
             a = a.reshape(r, c)
             for use_res, dffn in ((False, False), (True, False), (True, True)):
                 rp = dict(zip(("basis", "mean", "lam"), res)) if use_res else None
@@ -576,10 +609,20 @@ def phase_kernels(stats: KernelStats, dev) -> None:
                              f"shift={shift} x={xin.dtype}")
                     stats.check("wide_window_attention", label, k5.wide_window_attention(*args),
                                 k5.wide_attention_plain(*args), mode)
-                    if windows >= B and shift == 0 and xin is x:  # the large model's layers
-                        attention_launch("wide_window_attention", label, mode,
-                                         lambda: k5.wide_window_attention(*args),
-                                         windows * window * window, c)
+                    if windows < B:
+                        continue
+                    # the large model's layers
+                    if md is None:
+                        stats.check_f64("wide_window_attention", label,
+                                        k5.wide_window_attention(*args),
+                                        k5.wide_attention_plain(*args),
+                                        f64.attention64(x, *flat[2:6], table, nh, window, shift,
+                                                        hw).reshape(x.shape))
+                    call, rows = (lambda: k5.wide_window_attention(*args)), windows * window ** 2
+                    if shift == 0 and xin is x and md is None:
+                        golden_attention_launches("wide_window_attention", label, call, rows, c)
+                    elif shift == 0 and xin is x:
+                        attention_launch("wide_window_attention", label, mode, call, rows, c)
 
     # the shared AMP kernel at its edges through K2 and K4: 7-wide windows
     # (n = 49 < 64, shift 3) and odd window counts, at hd 24 and 32
@@ -597,6 +640,24 @@ def phase_kernels(stats: KernelStats, dev) -> None:
         blk = (x, flat + res, nh, window, nw, shift, hw, True, True, torch.bfloat16)
         stats.check("fused_swin_block", label, k4.fused_swin_block(*blk),
                     k4.swin_block_plain(*blk), "bf16")
+
+    # the ResiDual alone, f32 in both modes, at a component count that is no
+    # multiple of 8 (its products take it padded with zeros to 16): K3 with
+    # zero FFN weights returns h1 = x + ResiDual(a) exactly (GELU(0) = 0)
+    c, kr, r = 768, 13, B * 64
+    _, res = block(c, 32)
+    zeros = (torch.zeros(4 * c, c, device=dev), torch.zeros(4 * c, device=dev),
+             torch.zeros(c, 4 * c, device=dev), torch.zeros(c, device=dev))
+    rp = {"basis": res[0][:kr].contiguous(), "mean": res[1], "lam": res[2][:kr]}
+    fargs = (t(r, c, scale=0.5), t(r, c, scale=0.1), t(c, scale=0.1, offset=1.0),
+             t(c, scale=0.1), *zeros, rp)
+    ref = f64.ffn64(*fargs, False)
+    for mode, md in modes:
+        label = f"ResiDual alone C={c} kr={kr} ({mode} route)"
+        got = k3.fused_residual_ffn(*fargs, mxu_dtype=md)
+        plain = k3.residual_ffn_plain(*fargs, mxu_dtype=md)
+        stats.check("fused_residual_ffn", label, got, plain, "f32")
+        stats.check_f64("fused_residual_ffn", label, got, plain, ref)
 
 
 FFN_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> F.linear + "
@@ -650,7 +711,7 @@ ATTENTION_SEQUENCE = ("a sequence of calls, which the port never calls: F.linear
 BLOCK_SEQUENCE = ("a sequence of calls, which the port never calls: F.layer_norm -> "
                   "F.linear -> SDPA -> F.linear [-> ResiDual] + x -> F.layer_norm -> F.linear + "
                   "F.gelu -> F.linear + add [-> the double FFN], on the same operands")
-ATTENTION_KERNELS = ("window_attention_wgmma", "wide_")  # launch (A): AMP, K5 golden
+ATTENTION_KERNELS = ("window_attention_wgmma",)  # the AMP qkv + attention launch
 
 
 def rel_err(got, ref) -> float:
@@ -712,10 +773,10 @@ def block_sequence(args, dt):
 
 
 def attention_launch(kernel, label, mode, call, r, c) -> None:
-    """The qkv + attention launch of one call by device time (2 r 3C C +
-    4 r 64 C operations), beside all of the call's kernels: the AMP
-    window_attention_wgmma_kernel of K2, K4 and K5, or K5's golden launch
-    (A), one a call. A profiler window now and then drops kernel records:
+    """The qkv + attention launch of one AMP call by device time (2 r 3C C +
+    4 r 64 C operations), beside all of the call's kernels: the
+    window_attention_wgmma_kernel of K2, K4 and K5, one a call. A profiler
+    window now and then drops kernel records:
     up to three windows are taken for one that holds all five launches,
     else the time is not measured (the card tests hold the count)."""
     ops = 6.0 * r * c * c + 4.0 * r * 64 * c
@@ -737,21 +798,60 @@ def attention_launch(kernel, label, mode, call, r, c) -> None:
         attention_launch_peak_share=ops * 1e3 / a_ms / PEAK[mode] if a_ms else None)
 
 
+def golden_attention_launches(kernel, label, call, r, c) -> None:
+    """A golden K2 or K5 call by device time: its qkv and proj products on
+    the 3xTF32 GEMM (2 r 4C C operations, three TF32 passes each) and the
+    attention core, which must be the call's only kernels of the port, two
+    and one a call. Up to three profiler windows are taken for one that
+    holds all five calls' launches."""
+    ops = 8.0 * r * c * c
+    call()
+    gemm_ms = core_ms = call_ms = None
+    ours = collections.Counter()
+    for _ in range(3):
+        prof = device_profile(lambda: [call() for _ in range(5)])
+        if prof is None:
+            continue
+        ours = port_kernels(prof[4])
+        if ours == collections.Counter({"gemm_tf32x3_kernel": 10, "attention_core_kernel": 5}):
+            gemm_ms = sum(v for n, v in prof[1].items() if "gemm_tf32x3_kernel" in n) / 5
+            core_ms = sum(v for n, v in prof[1].items() if "attention_core_kernel" in n) / 5
+            call_ms = prof[2] / 5
+            break
+        if set(ours) - GOLDEN_KERNELS:
+            raise AssertionError(f"{kernel} {label}: golden calls launched {dict(ours)}")
+    log("kernels", kernel=kernel, shape=label, mode="f32", tf32x3_gemms_device_ms=gemm_ms,
+        attention_core_device_ms=core_ms, call_device_ms=call_ms,
+        launches_in_window=json.dumps(dict(ours)),
+        tf32x3_gemms_tflops=ops / gemm_ms / 1e9 if gemm_ms else None,
+        tf32x3_peak_share=3 * ops * 1e3 / gemm_ms / PEAK["tf32"] if gemm_ms else None)
+
+
 def kernel_group(name: str) -> str:
     """The port's kernels by role; everything else is PyTorch's."""
     for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
-                       ("gemm_tf32x3_kernel", "3xTF32 GEMM (golden fc1, fc2)"),
-                       ("gemm_f32_kernel", "f32 GEMM (golden qkv, proj; ResiDual)"),
+                       ("gemm_tf32x3_kernel",
+                        "3xTF32 GEMM (golden qkv, proj, fc1, fc2; ResiDual)"),
                        ("attention_core_kernel", "attention core (golden)"),
                        ("window_attention_wgmma", "K2/K4/K5 qkv + attention, AMP (TMA + wgmma)"),
                        ("add_layernorm_kernel", "LayerNorm"),
                        ("ffn_cluster_kernel", "K3 FFN, AMP (clustered TMA + wgmma)"),
-                       ("wide_qkv_attention", "K5 qkv + attention, golden (CUDA cores)"),
                        ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
                        ("logmel_tf32x3_kernel", "K1 log-mel, golden (3xTF32 wgmma)")):
         if key in name:
             return group
     return "PyTorch (glue, casts)"
+
+
+def port_kernels(counts: dict) -> collections.Counter:
+    """{kernel name: launches} -> launches of the port's kernels by role
+    (``PORT_KERNELS``); any other kernel of the port under its full name."""
+    out = collections.Counter()
+    for name, n in counts.items():
+        key = next((k for k in PORT_KERNELS if f"{k}<" in name or f"{k}(" in name), None)
+        if key is not None or "arpu::" in name:
+            out[key or name] += n
+    return out
 
 
 def device_profile(fn):
@@ -971,8 +1071,9 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict,
         weight_mats=len(mats), weight_mb=sum(w.numel() for w in mats) * 4 / 1e6)
     # K3's AMP call is one launch a pass: its kernel, once a call; every K2,
     # K4 and K5 call runs the qkv + attention kernel once, and none the
-    # golden attention core. A profiler window now and then drops kernel
-    # records, so up to three windows are taken for one that holds them all.
+    # golden attention core; each ResiDual block its two f32 products on the
+    # 3xTF32 GEMM. A profiler window now and then drops kernel records, so up
+    # to three windows are taken for one that holds them all.
     want = sum(expected.get(k, 0) for k in ("fused_swin_block", "fused_window_attention",
                                              "wide_window_attention"))
     prof = None
@@ -984,40 +1085,46 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict,
         k3_kernels = sum(n for name, n in prof[4].items() if "ffn_cluster_kernel" in name)
         tc = sum(n for name, n in prof[4].items() if "window_attention_wgmma" in name)
         core = sum(n for name, n in prof[4].items() if "attention_core_kernel" in name)
+        res_gemms = sum(n for name, n in prof[4].items() if "gemm_tf32x3_kernel" in name)
         if k3_kernels == expected["fused_residual_ffn"] and tc == want:
             break
     log_profile("main", f"{label} bf16 forward", prof)
     if prof is not None:
         log("main", model=label, k3_ffn_cluster_launches=k3_kernels,
-            window_attention_wgmma_launches=tc, attention_core_launches=core)
+            window_attention_wgmma_launches=tc, attention_core_launches=core,
+            residual_tf32x3_gemm_launches=res_gemms)
         if k3_kernels != expected["fused_residual_ffn"]:
             raise AssertionError(f"{label}: {k3_kernels} ffn_cluster_kernel launches in the "
                                  f"AMP forward, expected {expected['fused_residual_ffn']}")
-        if tc != want or core:
+        if tc != want or core or res_gemms != 2 * RESIDUAL_BLOCKS:
             raise AssertionError(f"{label}: the AMP forward launched window_attention_wgmma "
-                                 f"{tc} times (expected {want}) and attention_core_kernel "
-                                 f"{core} times (expected 0)")
-    # the golden forward: K1 is one logmel_tf32x3_kernel, every fc1 and fc2
-    # a gemm_tf32x3_kernel
+                                 f"{tc} times (expected {want}), attention_core_kernel "
+                                 f"{core} times (expected 0) and gemm_tf32x3_kernel {res_gemms} "
+                                 f"times (expected {2 * RESIDUAL_BLOCKS}, the ResiDual's)")
+    # the golden forward: K1 is one logmel_tf32x3_kernel, every product a
+    # gemm_tf32x3_kernel, and no other kernel of the port runs but LayerNorm
+    # and the attention core
     prof = None
     for _ in range(3):
         window = device_profile(lambda: zero_shot(None))
         if window is None:
             continue
         prof = window
-        tf32x3 = sum(n for name, n in prof[4].items() if "gemm_tf32x3_kernel" in name)
-        k1_golden = sum(n for name, n in prof[4].items() if "logmel_tf32x3_kernel" in name)
-        f32_gemms = sum(n for name, n in prof[4].items() if "gemm_f32_kernel" in name)
+        ours = port_kernels(prof[4])
+        tf32x3, k1_golden = ours["gemm_tf32x3_kernel"], ours["logmel_tf32x3_kernel"]
         if tf32x3 == golden_gemms and k1_golden == 1:
             break
     log_profile("main", f"{label} f32 forward", prof)
     if prof is not None:
         log("main", model=label, golden_tf32x3_gemm_launches=tf32x3,
-            golden_logmel_tf32x3_launches=k1_golden, golden_f32_gemm_launches=f32_gemms)
-        if tf32x3 != golden_gemms or k1_golden != 1:
+            golden_logmel_tf32x3_launches=k1_golden,
+            golden_port_kernels=json.dumps(dict(ours)))
+        if tf32x3 != golden_gemms or k1_golden != 1 or set(ours) - GOLDEN_KERNELS:
             raise AssertionError(f"{label}: the golden forward launched gemm_tf32x3_kernel "
-                                 f"{tf32x3} times (expected {golden_gemms}) and "
-                                 f"logmel_tf32x3_kernel {k1_golden} times (expected 1)")
+                                 f"{tf32x3} times (expected {golden_gemms}), "
+                                 f"logmel_tf32x3_kernel {k1_golden} times (expected 1), and "
+                                 f"of the port's kernels {dict(ours)} (expected only "
+                                 f"{sorted(GOLDEN_KERNELS)})")
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())
@@ -1162,30 +1269,43 @@ def phase_train(dev, card: str) -> None:
                                  f"{TRAIN_LAUNCHES}), backward {bwd_counts} (expected none)")
 
     # λ's gradient (kernel forward, plain-version backward) against autograd
-    # through the plain versions alone, at full width
+    # through the plain versions alone, at full width, on GRAD_BATCHES
+    # seeded batches: each batch logged, then the spread
+    grad_rng = np.random.default_rng(13)
+    grad_images = tr.cache_prefix_images(model, [
+        (torch.from_numpy((0.1 * grad_rng.standard_normal((B, CLIP))).astype(np.float32)).to(dev),
+         torch.from_numpy(grad_rng.integers(0, N_CLASSES, B)).to(dev))
+        for _ in range(GRAD_BATCHES)], max_len=max_len)
     for mode, md in modes:
         lam, frozen = tr._split_residual(residual)
         _, loss_fn = tr.make_zero_shot_step(model, text, frozen, tr.adam(lam, TRAIN_LR),
                                             max_len=max_len, compute_dtype=md, image_input=True)
-        x, y = images[0]
-        loss, _ = loss_fn(lam, x, y)
-        (g,) = torch.autograd.grad(loss, [lam[0]])
-        launch_counts.clear()
-        with plain_kernels():
-            loss_p, _ = loss_fn(lam, x, y)
-            (g_p,) = torch.autograd.grad(loss_p, [lam[0]])
-        torch.cuda.synchronize()
-        rel = float((g - g_p).abs().max() / g_p.abs().max())
-        cos = float((g * g_p).sum() / (g.norm() * g_p.norm()))
-        ok = (not launch_counts and bool(torch.isfinite(g).all())
-              and (rel <= GRAD_REL if md is None else cos >= GRAD_COS))
-        log("train", grad_check=mode, loss=float(loss.detach()),
-            plain_loss=float(loss_p.detach()), grad_max_abs=float(g_p.abs().max()),
-            max_rel_err=rel, cosine=cos,
-            limit=f"max_rel_err<={GRAD_REL}" if md is None else f"cosine>={GRAD_COS}",
-            reference_launches=json.dumps(dict(launch_counts)), ok=ok)
-        if not ok:
-            raise AssertionError(f"λ-gradient ({mode}) disagrees with the plain versions'")
+        rels, coss, oks = [], [], []
+        for b, (x, y) in enumerate(grad_images):
+            loss, _ = loss_fn(lam, x, y)
+            (g,) = torch.autograd.grad(loss, [lam[0]])
+            launch_counts.clear()
+            with plain_kernels():
+                loss_p, _ = loss_fn(lam, x, y)
+                (g_p,) = torch.autograd.grad(loss_p, [lam[0]])
+            torch.cuda.synchronize()
+            rel = float((g - g_p).abs().max() / g_p.abs().max())
+            cos = float((g * g_p).sum() / (g.norm() * g_p.norm()))
+            ok = (not launch_counts and bool(torch.isfinite(g).all())
+                  and (rel <= GRAD_REL if md is None else cos >= GRAD_COS))
+            rels.append(rel), coss.append(cos), oks.append(ok)
+            log("train", grad_check=mode, batch=b, loss=float(loss.detach()),
+                plain_loss=float(loss_p.detach()), grad_max_abs=float(g_p.abs().max()),
+                max_rel_err=rel, cosine=cos,
+                limit=f"max_rel_err<={GRAD_REL}" if md is None else f"cosine>={GRAD_COS}",
+                reference_launches=json.dumps(dict(launch_counts)), ok=ok)
+        log("train", grad_check=mode, batches=len(coss), cosine_min=min(coss),
+            cosine_max=max(coss), cosine_mean=statistics.mean(coss),
+            cosine_stdev=statistics.stdev(coss), max_rel_err_min=min(rels),
+            max_rel_err_max=max(rels), ok=all(oks))
+        if not all(oks):
+            raise AssertionError(f"λ-gradient ({mode}) disagrees with the plain versions' on "
+                                 f"batches {[b for b, ok in enumerate(oks) if not ok]}")
 
     # the JAX training fixture, golden: loss, λ-gradient, λ after 3 Adam steps
     arrays = fx.load(fx.TRAIN_PATH)

@@ -7,6 +7,7 @@ card and no JAX it runs alone, without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
 import unittest.mock as mock
 
@@ -152,8 +153,9 @@ def test_residual_ffn_amp_matches_plain_on_card(dev, rows, c, variant):
 @pytest.mark.parametrize("variant", list(FFN_VARIANTS))
 def test_residual_ffn_amp_is_one_launch_a_pass(dev, variant):
     """By the profiler's kernel names: one ffn_cluster_kernel a pass (two
-    with the double FFN), the two f32 ResiDual GEMMs with a ResiDual, and
-    nothing else -- no add_layernorm_kernel, no bf16 GEMM."""
+    with the double FFN), the ResiDual's two products on the 3xTF32 GEMM
+    (f32 in both modes) with a ResiDual, and nothing else -- no
+    add_layernorm_kernel, no bf16 GEMM."""
     from torch.profiler import ProfilerActivity, profile
 
     use_res, dffn = FFN_VARIANTS[variant]
@@ -167,8 +169,8 @@ def test_residual_ffn_amp_is_one_launch_a_pass(dev, variant):
             torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     passes = 2 if dffn else 1
-    assert sum("ffn_cluster_kernel" in n for n in names) == passes, names
-    assert sum("gemm_f32_kernel" in n for n in names) == (2 if use_res else 0), names
+    want = {"ffn_cluster_kernel": passes, "gemm_tf32x3_kernel": 2 if use_res else 0}
+    assert _port_kernels(names) == +collections.Counter(want), names
     assert len(names) == passes + (2 if use_res else 0), names
 
 
@@ -388,22 +390,43 @@ def test_window_attention_amp_at_the_edges_on_card(dev, c, nh, windows, window, 
         assert _rel(k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)) < 2e-2
 
 
+PORT_KERNELS = ("gemm_tf32x3_kernel", "gemm_kernel", "attention_core_kernel",
+                "add_layernorm_kernel", "window_attention_wgmma_kernel", "ffn_cluster_kernel",
+                "logmel_tf32x3_kernel", "logmel_wgmma_kernel")
+
+
+def _port_kernels(names) -> collections.Counter:
+    """The port's kernels among the profiler's ``names``, by role; any other
+    kernel of the port (namespace ``arpu``) under its full name. An exact
+    count shows that no other kernel of the port ran."""
+    out = collections.Counter()
+    for name in names:
+        key = next((k for k in PORT_KERNELS if f"{k}<" in name or f"{k}(" in name), None)
+        if key is not None or "arpu::" in name:
+            out[key or name] += 1
+    return out
+
+
 def _device_kernels(fn) -> list:
     """The names of the kernels ``fn()`` ran, by the profiler. A window now
     and then drops its first kernel's record, so one PyTorch kernel runs
-    first and is left out."""
+    first and is left out; now and then it comes back without device
+    events at all, and then up to two more windows are taken."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").mul_(2)
+    for _ in range(3):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if spans and "arpu::" not in spans[0][1]:
-        spans = spans[1:]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").mul_(2)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans and "arpu::" not in spans[0][1]:
+            spans = spans[1:]
+        if spans:
+            break
     return [name for _, name in spans]
 
 
@@ -425,6 +448,8 @@ def test_window_attention_amp_is_one_kernel_and_the_proj_gemm(dev):
         names = _device_kernels(lambda: k4.fused_swin_block(*blk))
         assert sum("window_attention_wgmma_kernel" in n for n in names) == 1, names
         assert not any("attention_core_kernel" in n for n in names), names
+        # the ResiDual's two products are f32 under AMP too: 3xTF32
+        assert sum("gemm_tf32x3_kernel" in n for n in names) == 2, "\n".join(names)
         golden = _device_kernels(lambda: k2.fused_window_attention(*args[:-1]))
         assert sum("attention_core_kernel" in n for n in golden) == 1, golden
         assert not any("window_attention_wgmma_kernel" in n for n in golden), golden
@@ -629,7 +654,7 @@ def test_serving_is_unchanged_without_a_lambda_grad(dev):
     assert not launch_counts and res[0]["lam"].grad is not None
 
 
-# ---- the golden routes on 3xTF32 (K1, K3 and K4's FFN half) -----------------
+# ---- the golden routes on 3xTF32 (K1-K5; the ResiDual in both modes) --------
 # What they are held to: each kernel's max abs error against a float64
 # evaluation of the same function (the same f32 weights and constants) at
 # most GOLDEN_F64_RATIO times that of the plain f32 version (cuBLAS, TF32
@@ -667,19 +692,124 @@ def test_residual_ffn_golden_error_against_float64(dev, rows, c, variant):
 
 # K4 at the main paths' layer shapes, B=32 (layer 0 with ResiDual and the
 # double FFN, as the main paths run it)
-GOLDEN_BLOCKS = {"tiny-l0": (96, 4, 64, (64, 64), True), "tiny-l2": (384, 16, 4, (16, 16), False),
-                 "base-l0": (128, 4, 64, (64, 64), True), "base-l2": (512, 16, 4, (16, 16), False)}
+GOLDEN_BLOCKS = {"tiny-l0": (96, 4, 64, (64, 64), True), "tiny-l1": (192, 8, 16, (32, 32), False),
+                 "tiny-l2": (384, 16, 4, (16, 16), False),
+                 "base-l0": (128, 4, 64, (64, 64), True), "base-l1": (256, 8, 16, (32, 32), False),
+                 "base-l2": (512, 16, 4, (16, 16), False)}
 
 
 @pytest.mark.parametrize("layer", list(GOLDEN_BLOCKS))
 def test_swin_block_golden_error_against_float64(dev, layer):
+    """Every product on the 3xTF32 GEMM: as the main path runs the layer,
+    and with the ResiDual and the double FFN at every layer."""
     c, nh, nw, res, path_res = GOLDEN_BLOCKS[layer]
     flat, rp, x = _block_of(dev, c, nh, 32 * nw)
-    rpd = dict(zip(("basis", "mean", "lam"), rp)) if path_res else None
-    blk = (x, flat + (rp if path_res else ()), nh, 8, nw, 4, res, path_res, path_res)
+    rpd = dict(zip(("basis", "mean", "lam"), rp))
+    for use_res in sorted({path_res, True}):
+        blk = (x, flat + (rp if use_res else ()), nh, 8, nw, 4, res, use_res, use_res)
+        with torch.no_grad():
+            got, plain = k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)
+            ref = f64.block64(x, flat, rpd if use_res else None, nh, 8, 4, res, use_res)
+        assert _rel(got, plain) < 1e-4
+        assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+
+
+# K2 and K5 golden at B=32: HTSAT-tiny layer 3 (K2), HTSAT-base layer 3 and
+# HTSAT-large layers 2 and 3 (K5): (C, heads, windows a clip, resolution, shift)
+GOLDEN_ATTENTION = {"tiny-l3": (768, 32, 1, (8, 8), 0), "base-l3": (1024, 32, 1, (8, 8), 0),
+                    "large-l2": (1024, 16, 4, (16, 16), 4), "large-l3": (2048, 32, 1, (8, 8), 0)}
+
+
+@pytest.mark.parametrize("layer", list(GOLDEN_ATTENTION))
+def test_window_attention_golden_error_against_float64(dev, layer):
+    """qkv and proj on the 3xTF32 GEMM around the f32 attention core: within
+    1e-4 of the plain version, at most GOLDEN_F64_RATIO times its error
+    against float64."""
+    c, nh, nw, res, shift = GOLDEN_ATTENTION[layer]
+    weights, x = _wide_inputs(dev, c, nh, 32 * nw)
+    args = (x, *weights, nh, 8, nw, shift, res)
+    launch_counts.clear()
     with torch.no_grad():
-        got, plain = k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)
-        ref = f64.block64(x, flat, rpd, nh, 8, 4, res, path_res)
+        got, plain = k2.fused_window_attention(*args), k2.window_attention_plain(*args)
+    ref = f64.attention64(x, *weights, nh, 8, shift, res).reshape(x.shape)
+    assert _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+    assert dict(launch_counts) == {"wide_window_attention" if c >= k2.WIDE_MIN_C
+                                   else "fused_window_attention": 1}
+
+
+def _residual_alone(dev, rows, c, kr, seed=4):
+    """K3's inputs with zero FFN weights, so that its output is h1 = x +
+    ResiDual(a) exactly in either mode (GELU(0) = 0): the ResiDual alone,
+    through the route that runs it, with ``kr`` of C components."""
+    x, a, weights, rp = _ffn_inputs(dev, rows, c, seed)
+    zeros = tuple(torch.zeros_like(t) for t in weights[2:])
+    rp = {"basis": rp["basis"][:kr].contiguous(), "mean": rp["mean"], "lam": rp["lam"][:kr]}
+    return x, a, (*weights[:2], *zeros), rp
+
+
+@pytest.mark.parametrize("rows,c,kr", [(2048, 768, 13), (8192, 96, 7), (2048, 1024, 100)])
+def test_residual_golden_error_against_float64(dev, rows, c, kr):
+    """The ResiDual at a component count that is no multiple of 8 (padded
+    with zeros to one): golden and AMP (f32 in both) within 1e-4 of the
+    plain version, at most GOLDEN_F64_RATIO times its error against
+    float64."""
+    x, a, weights, rp = _residual_alone(dev, rows, c, kr)
+    args = (x, a, *weights, rp)
+    ref = f64.ffn64(*args, False)
+    for md in (None, torch.bfloat16):
+        with torch.no_grad():
+            got = k3.fused_residual_ffn(*args, mxu_dtype=md)
+            plain = k3.residual_ffn_plain(*args, mxu_dtype=md)
+        assert _rel(got, plain) < 1e-4
+        assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
+
+
+@pytest.mark.parametrize("c,nh", [(32, 2), (40, 2), (96, 4)])
+def test_residual_takes_every_component_count(dev, c, nh):
+    """Every kr from 1 to C plans (zero-padded to a multiple of 8) and
+    agrees with the plain version, K3 and K4, golden and -- where the width
+    has an AMP plan -- AMP; C = 40 has a ragged K step (32 + 8)."""
+    x, a, weights, rp = _ffn_inputs(dev, 64, c, seed=6)
+    flat, rpb, xb = _block_of(dev, c, nh, 2)
+    modes = [(None, 1e-4)]
+    if c % 8 == 0 and c // nh in k2.AMP_HEAD_DIMS:
+        modes.append((torch.bfloat16, 2e-2))
+    try:  # K3's clustered AMP kernel plans only some widths
+        k3_amp = bool(k3.amp_plan(64, c, 4 * c))
+    except ValueError:
+        k3_amp = False
+    with torch.no_grad():
+        for kr in range(1, c + 1):
+            sub = {"basis": rp["basis"][:kr].contiguous(), "mean": rp["mean"],
+                   "lam": rp["lam"][:kr]}
+            blk_res = (rpb[0][:kr].contiguous(), rpb[1], rpb[2][:kr])
+            for md, tol in modes:
+                blk = (xb, flat + blk_res, nh, 8, 1, 0, (8, 16), True, True, md)
+                assert _rel(k4.fused_swin_block(*blk), k4.swin_block_plain(*blk)) < tol
+                if md is None or k3_amp:
+                    args = (x, a, *weights, sub)
+                    assert _rel(k3.fused_residual_ffn(*args, double_ffn=True, mxu_dtype=md),
+                                k3.residual_ffn_plain(*args, double_ffn=True,
+                                                      mxu_dtype=md)) < tol
+
+
+def test_gemm_tf32x3_centring_masks_past_k(dev):
+    """The prologue a - a_sub at a ragged K (68 = 2 x 32 + 4): a_sub past
+    its end holds NaN, which the kernel must not read; the error against
+    float64 at most GOLDEN_F64_RATIO times the plain version's."""
+    rng = np.random.default_rng(12)
+    m, n, k = 300, 104, 68
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((n, k)) * k ** -0.5).astype(np.float32)).to(dev)
+    buf = torch.full((k + 60,), float("nan"), device=dev)
+    buf[:k] = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(dev)
+    a_sub, scale = buf[:k], torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        got = kg.gemm_tf32x3(a, w, col_scale=scale, a_sub=a_sub)
+        plain = kg.gemm_tf32x3_plain(a, w, col_scale=scale, a_sub=a_sub)
+    ref = ((a.double() - a_sub.double()) @ w.double().t()) * scale.double()
+    assert bool(torch.isfinite(got).all())
     assert _rel(got, plain) < 1e-4
     assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO
 
@@ -784,34 +914,42 @@ def test_golden_routes_give_equal_bits_twice(dev):
     x, a, weights, rp = _ffn_inputs(dev, 192, 768)
     flat, rpb, xb = _block_of(dev, 96, 4, 8)
     blk = (xb, flat + rpb, 4, 8, 4, 4, (16, 16), True, True)
+    attn = (xb, *flat[2:6], flat[12], 4, 8, 4, 4, (16, 16))
+    wide, xw = _wide_inputs(dev, 1024, 32, 2)
     with torch.no_grad():
         for call in (lambda: k1.fused_logmel(wav, fe.FrontendConfig()),
                      lambda: k3.fused_residual_ffn(x, a, *weights, rp, double_ffn=True),
-                     lambda: k4.fused_swin_block(*blk)):
+                     lambda: k4.fused_swin_block(*blk),
+                     lambda: k2.fused_window_attention(*attn),
+                     lambda: k5.wide_window_attention(xw, *wide, 32, 8, 1, 0, (8, 8))):
             assert torch.equal(call(), call())
 
 
 def test_golden_routes_run_the_3xtf32_kernels(dev):
-    """By the profiler's kernel names: golden K1 is one logmel_tf32x3_kernel
-    (after the wrapper's pad); golden K3's fc1 and fc2 are gemm_tf32x3
-    launches, with no gemm_f32_kernel but the ResiDual's two; K4's FFN half
-    the same, its qkv and proj still on the f32 GEMM."""
+    """By the profiler's kernel names, exactly the port's kernels of each
+    golden call: K1 one logmel_tf32x3_kernel (after the wrapper's pad); K2
+    and K5 the qkv and proj products on gemm_tf32x3_kernel around one
+    attention_core_kernel; K3 add+LN2 and its fc1 and fc2 on
+    gemm_tf32x3_kernel, with a ResiDual its two products there too; K4 all
+    of these (qkv, proj, the ResiDual's two, fc1 and fc2 of each FFN pass).
+    No other kernel of the port runs: no CUDA-core GEMM, no CUDA-core qkv."""
     wav = torch.zeros(2, 48000, device=dev)
     x, a, weights, rp = _ffn_inputs(dev, 256, 768)
     flat, rpb, xb = _block_of(dev, 96, 4, 8)
+    wide, xw = _wide_inputs(dev, 1024, 32, 2)
+    tf32x3, core, ln = "gemm_tf32x3_kernel", "attention_core_kernel", "add_layernorm_kernel"
+    calls = [
+        (lambda: k1.fused_logmel(wav, fe.FrontendConfig()), {"logmel_tf32x3_kernel": 1}),
+        (lambda: k2.fused_window_attention(xb, *flat[2:6], flat[12], 4, 8, 4, 4, (16, 16)),
+         {tf32x3: 2, core: 1}),
+        (lambda: k5.wide_window_attention(xw, *wide, 32, 8, 1, 0, (8, 8)), {tf32x3: 2, core: 1}),
+        (lambda: k3.fused_residual_ffn(x, a, *weights), {ln: 1, tf32x3: 2}),
+        (lambda: k3.fused_residual_ffn(x, a, *weights, rp, double_ffn=True), {ln: 2, tf32x3: 6}),
+        (lambda: k4.fused_swin_block(xb, flat + rpb, 4, 8, 4, 4, (16, 16), True, True),
+         {ln: 3, tf32x3: 8, core: 1}),
+    ]
     with torch.no_grad():
-        k1.fused_logmel(wav, fe.FrontendConfig())  # constants
-        names = _device_kernels(lambda: k1.fused_logmel(wav, fe.FrontendConfig()))
-        assert sum("logmel_tf32x3_kernel" in n for n in names) == 1, names
-        assert not any("logmel_wgmma_kernel" in n for n in names), names
-        for rpar, dffn, f32_gemms in ((None, False, 0), (rp, True, 2)):
-            k3.fused_residual_ffn(x, a, *weights, rpar, double_ffn=dffn)  # split weights
-            names = _device_kernels(lambda: k3.fused_residual_ffn(x, a, *weights, rpar,
-                                                                  double_ffn=dffn))
-            assert sum("gemm_tf32x3_kernel" in n for n in names) == (4 if dffn else 2), names
-            assert sum("gemm_f32_kernel" in n for n in names) == f32_gemms, names
-        blk = (xb, flat + rpb, 4, 8, 4, 4, (16, 16), True, True)
-        k4.fused_swin_block(*blk)
-        names = _device_kernels(lambda: k4.fused_swin_block(*blk))
-        assert sum("gemm_tf32x3_kernel" in n for n in names) == 4, names
-        assert sum("gemm_f32_kernel" in n for n in names) == 4, names  # qkv, proj, ResiDual
+        for call, want in calls:
+            call()  # constants, split weights
+            names = _device_kernels(call)
+            assert _port_kernels(names) == collections.Counter(want), names

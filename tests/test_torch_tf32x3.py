@@ -1,8 +1,9 @@
 """The 3xTF32 products of the golden routes on the CPU: the split of an f32
 value into TF32 ``hi`` and ``lo``, the launch plans, and a replay of each
 kernel's arithmetic -- K1's DFT (``csrc/logmel.cu::logmel_tf32x3_kernel``)
-and K3's fc1 and fc2 (``csrc/gemm_sm90.cuh::gemm_tf32x3``) -- held against
-the plain versions and the JAX kernels in Pallas interpret mode.
+and K3's products (``csrc/gemm_sm90.cuh::gemm_tf32x3``) -- held against the
+plain versions and the JAX kernels in Pallas interpret mode (K2, K4 and K5:
+``tests/test_torch_golden_gemms.py``).
 
 The replay computes what the tensor core is handed: ``hi`` and ``lo`` of
 each activation rounded to TF32 in the kernel (``cvt.rna``, low 13 bits
@@ -32,12 +33,12 @@ from audio_residual_tpu.ops.pallas import frontend as j_k1
 from audio_residual_tpu.ops.pallas import ln_mlp as j_k3
 from audio_residual_tpu_torch.models import factory
 from audio_residual_tpu_torch.ops import frontend as t_fe
-from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
 from audio_residual_tpu_torch.ops.cuda import gemm as kg
 from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import tf32x3
-from audio_residual_tpu_torch.residual.module import residual_apply
+
+from .torch_tf32x3_replay import ffn_replay, layer_gemms, tf32x3_matmul
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs" / "model_configs"
@@ -123,45 +124,7 @@ def test_split_of_a_tensor_keeps_shape_and_is_elementwise(rng):
         tf32x3.split_tf32(x.double())
 
 
-# ---- the replay of the kernels' arithmetic -------------------------------------
-def _read_tf32(t: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of an f32 operand: its top 19 bits."""
-    return (t.contiguous().view(torch.int32) & -(1 << 13)).view(torch.float32)
-
-
-def _tf32x3_matmul(a: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tensor:
-    """``a @ W^T`` as the kernels run it: a split as the consumer splits it
-    (hi = rna(a), lo = rna(a - hi)), W's lo read as TF32; per K step of 32
-    columns a partial sum, the small terms first, added to an f32
-    accumulator."""
-    a_hi, _ = tf32x3.split_tf32(a)
-    a_lo, _ = tf32x3.split_tf32(a - a_hi)
-    w_lo = _read_tf32(w_lo)
-    acc = torch.zeros(a.shape[0], w_hi.shape[0])
-    for k0 in range(0, a.shape[1], 32):
-        ah, al, wh, wl = (t[:, k0:k0 + 32] for t in (a_hi, a_lo, w_hi, w_lo))
-        acc += (al @ wh.t() + ah @ wl.t()) + ah @ wh.t()
-    return acc
-
-
-def _ffn_replay(x, a, n2s, n2b, w1, b1, w2, b2, rp, double_ffn):
-    """K3's golden route: [ResiDual, f32] -> add + LN2 -> fc1 + GELU -> fc2
-    + residual [-> the second pass], fc1 and fc2 in 3xTF32."""
-    (w1_hi, w1_lo), (w2_hi, w2_lo) = tf32x3.split_tf32(w1), tf32x3.split_tf32(w2)
-    av = a if rp is None else residual_apply(a, rp["basis"], rp["mean"], rp["lam"])
-    h1 = x + av
-
-    def ffn(t):
-        hid = F.gelu(_tf32x3_matmul(layer_norm(t, n2s, n2b), w1_hi, w1_lo) + b1)
-        return _tf32x3_matmul(hid, w2_hi, w2_lo) + b2
-
-    y = h1 + ffn(h1)
-    if double_ffn:
-        y2 = y + x
-        y = y2 + ffn(y2)
-    return y
-
-
+# ---- the replay of the kernels' arithmetic (tests/torch_tf32x3_replay.py) -----
 def _ffn_inputs(seed, rows, c, hidden):
     rng = np.random.default_rng(seed)
 
@@ -190,7 +153,7 @@ def test_ffn_replay_matches_plain_and_jax_kernel(variant):
     use_res, dffn = FFN_VARIANTS[variant]
     x, a, weights, rp = _ffn_inputs(4, 48, 768, 3072)
     rp = rp if use_res else None
-    got = _ffn_replay(x, a, *weights, rp, dffn)
+    got = ffn_replay(x, a, *weights, rp, dffn)
     plain = k3.residual_ffn_plain(x, a, *weights, rp, double_ffn=dffn)
     scale = float(plain.abs().max())
     assert float((got - plain).abs().max()) < 1e-4 * scale
@@ -211,7 +174,7 @@ def test_gemm_wrapper_on_the_cpu_is_its_plain_version(rng):
     got = kg.gemm_tf32x3(a, w, bias=b, gelu=True, r2=r2)
     assert torch.equal(got, F.gelu(a @ w.t() + b) + r2.float())
     hi, lo = tf32x3.split_tf32(w)
-    assert float((_tf32x3_matmul(a, hi, lo) - a @ w.t()).abs().max()) < 1e-5
+    assert float((tf32x3_matmul(a, hi, lo) - a @ w.t()).abs().max()) < 1e-5
 
 
 def _logmel_replay(wav, cfg):
@@ -222,7 +185,7 @@ def _logmel_replay(wav, cfg):
     nf = cfg.num_frames(wav.shape[1])
     frames = x.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :nf]
     hi, lo, mw = k1.tf32x3_constants(cfg, torch.device("cpu"))
-    d = _tf32x3_matmul(frames.reshape(-1, cfg.n_fft), hi, lo).reshape(*frames.shape[:2], -1)
+    d = tf32x3_matmul(frames.reshape(-1, cfg.n_fft), hi, lo).reshape(*frames.shape[:2], -1)
     power = d[..., 0::2] ** 2 + d[..., 1::2] ** 2
     mel = torch.zeros(*power.shape[:2], mw.shape[1])
     for n0 in range(0, power.shape[-1], 64):
@@ -267,10 +230,7 @@ def test_golden_basis_is_the_split_f32_basis():
 def _ffn_shapes(name: str) -> set:
     """``(C, hidden, tokens a clip)`` of every Swin layer of a registered
     HTSAT config: each runs its FFN through run_ffn (K4) or K3."""
-    cfg = factory._amodel_to_config(factory.get_model_config(name))
-    res = cfg.spec_size // cfg.patch_stride[0]
-    return {(cfg.embed_dim * 2 ** i, int(cfg.mlp_ratio * cfg.embed_dim * 2 ** i),
-             (res // 2 ** i) ** 2) for i in range(len(cfg.depths))}
+    return {(k, n, tokens) for what, n, k, tokens in layer_gemms(name) if what == "fc1"}
 
 
 HTSAT = [n for n in factory.list_models() if n.startswith("HTSAT")]

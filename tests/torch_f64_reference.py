@@ -1,4 +1,4 @@
-"""Float64 evaluations of the functions of K1, K3 and K4, on the same f32
+"""Float64 evaluations of the functions of K1-K5, on the same f32
 weights and constants as the port's kernels: what the card tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py`` measure the golden
 routes' errors against. Imports neither JAX nor the JAX package."""
@@ -44,14 +44,15 @@ def ffn64(x, a, n2s, n2b, w1, b1, w2, b2, rp, double_ffn):
     return y
 
 
-def block64(x, flat, rp, nh, window, shift, resolution, double_ffn):
-    """K4's function on windows ``x [W, n, C]``: LN1, window attention with
-    the relative bias and the shift mask, then :func:`ffn64`."""
-    n1s, n1b, wqkv, bqkv, wproj, bproj = (t.double() for t in flat[:6])
-    bias, mask = k2.bias_and_mask(flat[12], window, shift, resolution)
-    wn, n, c = x.shape
+def attention64(y, wqkv, bqkv, wproj, bproj, table, nh, window, shift, resolution):
+    """The window attention of K2 and K5 on windows ``y [W, n, C]``: qkv,
+    per-head softmax(q k^T hd^-1/2 + relative bias + shift mask) v, proj;
+    ``[W * n, C]``."""
+    wqkv, bqkv, wproj, bproj = (t.double() for t in (wqkv, bqkv, wproj, bproj))
+    bias, mask = k2.bias_and_mask(table, window, shift, resolution)
+    wn, n, c = y.shape
     hd = c // nh
-    qkv = (layer_norm64(x.double(), n1s, n1b) @ wqkv.t() + bqkv).reshape(wn, n, 3, nh, hd)
+    qkv = (y.double() @ wqkv.t() + bqkv).reshape(wn, n, 3, nh, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)
     s = (q * hd ** -0.5) @ k.transpose(-1, -2) + bias.double()[None]
     if mask is not None:
@@ -59,7 +60,15 @@ def block64(x, flat, rp, nh, window, shift, resolution, double_ffn):
         s = (s.reshape(wn // nw, nw, nh, n, n) + mask.double()[None, :, None]).reshape(
             wn, nh, n, n)
     o = (torch.softmax(s, -1) @ v).permute(0, 2, 1, 3).reshape(wn * n, c)
-    a = o @ wproj.t() + bproj
+    return o @ wproj.t() + bproj
+
+
+def block64(x, flat, rp, nh, window, shift, resolution, double_ffn):
+    """K4's function on windows ``x [W, n, C]``: LN1, :func:`attention64`,
+    then :func:`ffn64`."""
+    wn, n, c = x.shape
+    y = layer_norm64(x.double(), flat[0].double(), flat[1].double())
+    a = attention64(y, *flat[2:6], flat[12], nh, window, shift, resolution)
     return ffn64(x.reshape(-1, c), a, *flat[6:12], rp, double_ffn).reshape(wn, n, c)
 
 

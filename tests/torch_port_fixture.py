@@ -17,7 +17,8 @@ params, two batches of two clips with labels, five class-text embeddings, a
 layer-0 ResiDual and the JAX package's golden λ-training outputs: the loss
 and the λ-gradient of ``make_zero_shot_step``'s loss on batch 0, λ and the
 loss after each of three Adam steps (lr 0.01, batches 0, 1, 0) and the
-``evaluate_zero_shot`` similarities of both batches with that λ.
+``evaluate_zero_shot`` similarities of both batches with that λ; and the
+loss and λ-gradient on batch 0 under AMP (``compute_dtype=bfloat16``).
 
 ``chip_smoke.py`` runs the port's kernels on the card against all three
 without importing JAX; ``tests/test_torch_htsat.py``,
@@ -48,6 +49,7 @@ TRAIN_CLASSES = 5
 TRAIN_LR = 0.01
 TRAIN_STEPS = (0, 1, 0)  # the batch of each Adam step
 TRAIN_OUTPUT_KEYS = ("loss", "grad", "lam", "step_loss", "sims")
+TRAIN_AMP_KEYS = ("loss_bf16", "grad_bf16")  # batch 0 under AMP
 
 WIDE_PATH = PATH.with_name("torch_port_wide.npz")
 WIDE_AUDIO_KW = dict(spec_size=128, mel_bins=32, embed_dim=256, depths=(1, 1, 2),
@@ -312,6 +314,10 @@ def build_train() -> dict[str, np.ndarray]:
                                             optimizer, max_len=cfg.audio.clip_samples)
     wav, labels = jnp.asarray(inputs["wav"]), jnp.asarray(inputs["labels"])
     (loss, _), grad = jax.value_and_grad(loss_fn, has_aux=True)(lam, wav[0], labels[0])
+    _, amp_loss_fn = jtr.make_zero_shot_step(params, cfg, jnp.asarray(inputs["text"]), frozen,
+                                             optimizer, max_len=cfg.audio.clip_samples,
+                                             compute_dtype=jnp.bfloat16)
+    (loss16, _), grad16 = jax.value_and_grad(amp_loss_fn, has_aux=True)(lam, wav[0], labels[0])
     opt_state = optimizer.init(lam)
     step_loss = []
     for b in TRAIN_STEPS:
@@ -332,6 +338,8 @@ def build_train() -> dict[str, np.ndarray]:
         "out/lam": np.asarray(lam[0]),
         "out/step_loss": np.asarray(step_loss, dtype=np.float32),
         "out/sims": np.asarray(sims),
+        "out/loss_bf16": np.asarray(loss16),
+        "out/grad_bf16": np.asarray(grad16[0]),
     }
 
 
@@ -361,6 +369,26 @@ def run_port_train(arrays: dict, device, compute_dtype=None) -> dict[str, np.nda
     return {"loss": np.float32(loss.detach().cpu()), "grad": grad.cpu().numpy(),
             "lam": lam[0].detach().cpu().numpy(),
             "step_loss": np.asarray(step_loss, dtype=np.float32), "sims": sims}
+
+
+def run_port_train_amp(arrays: dict, device) -> dict[str, np.ndarray]:
+    """The port's counterpart of the AMP outputs of :func:`build_train`: the
+    loss and λ-gradient of its ``make_zero_shot_step`` on batch 0 under
+    ``compute_dtype=bfloat16``."""
+    import torch
+
+    from audio_residual_tpu_torch.training import train_residual as ttr
+
+    model, residual = _port_with_residual(arrays, device)
+    dev = residual["basis"].device
+    lam, frozen = ttr._split_residual({0: residual})
+    _, loss_fn = ttr.make_zero_shot_step(model, arrays["text"], frozen, ttr.adam(lam, TRAIN_LR),
+                                         max_len=model.cfg.audio.clip_samples,
+                                         compute_dtype=torch.bfloat16)
+    loss, _ = loss_fn(lam, torch.tensor(arrays["wav"][0], device=dev),
+                      torch.tensor(arrays["labels"][0], device=dev))
+    (grad,) = torch.autograd.grad(loss, [lam[0]])
+    return {"loss_bf16": np.float32(loss.detach().cpu()), "grad_bf16": grad.cpu().numpy()}
 
 
 def main() -> None:
