@@ -71,19 +71,21 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp(sq, min=eps * eps))
 
 
-def encode_audio(model: CLAPAudio, batch, *, residual: dict | None = None,
+def encode_audio(model: CLAPAudio, batch, *, taps=(), residual: dict | None = None,
                  double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
                  stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
     """Audio branch forward -> output dict, plus ``projected`` and
     ``normalized``. ``batch`` is ``{"waveform": [B, T]}`` or a ``[B, T]``
     tensor on the model's device, or a cached prefix (``{"image"}``,
     ``{"tokens"}``); ``stop_at_image`` / ``stop_at_layer`` return the prefix
-    (``{"image"}`` / ``{"tokens"}``) untouched. See :func:`htsat_apply`.
+    (``{"image"}`` / ``{"tokens"}``) untouched. ``taps`` (``"attention"``,
+    ``"residual"``) add ``layers_attention`` / ``layers_residuals``. See
+    :func:`htsat_apply`.
 
     The model's weights are frozen, so a forward builds an autograd graph
     only where a ResiDual ``lam`` requires grad (λ-training); callers that
     only embed need no ``torch.no_grad()``, though it saves the check."""
-    out = htsat_apply(model.audio_branch, batch, residual=residual,
+    out = htsat_apply(model.audio_branch, batch, taps=taps, residual=residual,
                       double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
                       start_layer=start_layer, stop_at_layer=stop_at_layer,
                       stop_at_image=stop_at_image)

@@ -1,8 +1,8 @@
 """HTSAT (Hierarchical Token-Semantic Audio Transformer), eval path.
 
-Port of ``audio_residual_tpu/models/htsat.py`` with its split points (no
-mel fusion, no taps, no training mode). Module attribute names give the
-reference LAION-CLAP ``state_dict`` keys
+Port of ``audio_residual_tpu/models/htsat.py`` with its split points and
+its representation taps (no mel fusion, no training mode). Module attribute
+names give the reference LAION-CLAP ``state_dict`` keys
 (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the layout
 ``audio_residual_tpu/models/convert.py`` writes.
 
@@ -15,6 +15,15 @@ the JAX package sends those widths to its weight-streaming kernel: the two
 blocks of HTSAT-base layer 3 (C=1024) run LN1, K5, K3; HTSAT-large layer 2
 (C=1024, four windows) does the same inside ``fused_swin_block``. On the
 CPU each kernel wrapper takes its plain version.
+
+Routing under taps (``taps=("residual",)`` and/or ``("attention",)``), the
+JAX package's (``htsat.py:803-806``): K4 runs in no block. Every block runs
+the split plan -- LN1, the window attention, K3 -- so the attention output
+``a`` can be read between the halves. With the residual tap alone the
+attention is K2 (K5 from C >= 1024); the attention tap needs the
+probabilities, which no kernel returns, so there the attention half is the
+model's own :func:`window_attention` (``htsat.py:311``) and the FFN half
+still K3.
 
 Shapes for HTSAT-tiny on a 10 s / 48 kHz clip: wav [B, 480000] -> logmel
 [B, 1001, 64] -> image [B, 256, 256, 1] -> tokens 4096@96 -> 1024@192 ->
@@ -34,8 +43,12 @@ from audio_residual_tpu_torch.ops import frontend, interpolate, windows
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
 from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block, split_block
+from audio_residual_tpu_torch.residual.module import residual_apply
 
-__all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img"]
+__all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img", "window_attention",
+           "TAPS"]
+
+TAPS = ("attention", "residual")
 
 
 @dataclass(frozen=True)
@@ -286,12 +299,57 @@ def _patch_merge(pm: PatchMerging, x: torch.Tensor, resolution) -> torch.Tensor:
     return F.linear(_ln(pm.norm, x), pm.reduction.weight)
 
 
+def window_attention(attn: WindowAttention, x: torch.Tensor, nh: int, window: int,
+                     mask: torch.Tensor | None = None, compute_dtype=None) -> tuple:
+    """W-MSA with relative position bias, the attention tap's model-level
+    function (``audio_residual_tpu/models/htsat.py::window_attention``):
+    ``x [B_, N, C]`` windows -> ``(out [B_, N, C] in x's dtype, probs
+    [B_, nH, N, N] f32)``. Under AMP the qkv product and its output are in
+    ``compute_dtype``, scores and softmax in f32, the probabilities rounded
+    to ``compute_dtype`` for the product with v (f32 accumulate), the
+    projection in f32, as the JAX function computes them."""
+    b_, n, c = x.shape
+    hd = c // nh
+    in_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    qkv = F.linear(x, attn.qkv.weight.to(x.dtype),
+                   attn.qkv.bias.to(x.dtype) if attn.qkv.bias is not None else None)
+    qkv = qkv.reshape(b_, n, 3, nh, hd)
+    q = qkv[:, :, 0].transpose(1, 2) * hd**-0.5
+    k = qkv[:, :, 1].transpose(1, 2)
+    v = qkv[:, :, 2].transpose(1, 2)
+    scores = q.float() @ k.float().transpose(-1, -2)
+    scores = scores + windows.gather_relative_bias(
+        attn.relative_position_bias_table.float(), window, window)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        scores = (scores.reshape(b_ // nw, nw, nh, n, n) + mask[None, :, None]).reshape(
+            b_, nh, n, n)
+    probs = torch.softmax(scores, dim=-1)
+    out = probs.to(v.dtype).float() @ v.float()
+    out = out.transpose(1, 2).reshape(b_, n, c)
+    out = F.linear(out, attn.proj.weight.float(), attn.proj.bias.float())
+    return out.to(in_dtype), probs
+
+
 def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: int, shift: int,
                residual_params: dict | None = None, double_ffn_compat: bool = True,
-               compute_dtype=None) -> torch.Tensor:
+               compute_dtype=None, taps=()) -> tuple:
     """One Swin block on tokens ``[B, H*W, C]``, with the ResiDual epilogue
     when ``residual_params`` is given. A window at least the resolution means
-    shift 0 (the reference's rule)."""
+    shift 0 (the reference's rule).
+
+    Returns ``(x, probs, residual_x)``: with the ``"attention"`` tap
+    ``probs [B*nW, nH, N, N]``, with the ``"residual"`` tap the
+    post-attention residual ``residual_x [B, H*W, C]``, taken after the
+    ResiDual when one is injected (the patched forward's ``residual_fn``);
+    None otherwise. Both are f32 in either mode, as the JAX package's tapped
+    forward gives them. Under AMP the residual tap carries the attention
+    output's store rounding: where the block input is bf16 (layers 0-2) K2
+    stores ``a`` in bf16, where the JAX package's attention gives it in f32
+    from an f32 LN1, so the tap is bf16-precise there. Taps route every
+    block through the split plan (module docstring)."""
     h, w = resolution
     b, n, c = x.shape
     if min(h, w) <= window:
@@ -306,23 +364,48 @@ def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: 
     flat = blk.flat_params()
     if use_res:
         flat = flat + (residual_params["basis"], residual_params["mean"], residual_params["lam"])
-    if nw_img > 1:
-        out = fused_swin_block(wins, flat, nh, window, nw_img, shift, (h, w), use_res,
-                               double_ffn_compat, compute_dtype)
+    args = (wins, flat, nh, window, nw_img, shift, (h, w), use_res, double_ffn_compat,
+            compute_dtype)
+    probs = residual_x = None
+    if taps or nw_img == 1:
+        attention = None
+        if "attention" in taps:
+            mask = (torch.from_numpy(windows.shift_window_mask(h, w, window, shift)).to(x.device)
+                    if shift > 0 else None)
+
+            def attention(t):
+                nonlocal probs
+                out, probs = window_attention(blk.attn, t, nh, window, mask, compute_dtype)
+                return out
+
+        out, a = split_block(*args, attention=attention)
+        if "residual" in taps:
+            a = windows.window_reverse(a, window, h, w)
+            if shift > 0:
+                a = torch.roll(a, (shift, shift), dims=(1, 2))
+            residual_x = a.reshape(b, n, c).float()
+            if use_res:
+                residual_x = residual_apply(residual_x, residual_params["basis"],
+                                            residual_params["mean"], residual_params["lam"])
     else:
-        out = split_block(wins, flat, nh, window, nw_img, shift, (h, w), use_res,
-                          double_ffn_compat, compute_dtype)
+        out = fused_swin_block(*args)
     y = windows.window_reverse(out, window, h, w)
     if shift > 0:
         y = torch.roll(y, (shift, shift), dims=(1, 2))
-    return y.reshape(b, n, c)
+    return y.reshape(b, n, c), probs, residual_x
 
 
-def htsat_apply(model: HTSAT, batch, *, residual: dict | None = None,
+def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
                 double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
                 stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
     """HTSAT forward; returns ``framewise_output``, ``clipwise_output``,
-    ``fine_grained_embedding`` and ``embedding``.
+    ``fine_grained_embedding`` and ``embedding``, and with ``taps``:
+    ``layers_attention`` (``"attention"``: per layer the mean over its blocks
+    of the probabilities ``[B*nW, nH, N, N]``) and ``layers_residuals``
+    (``"residual"``: per layer its blocks' post-attention residuals
+    ``[B, L, C]`` concatenated on the token axis, each taken after the
+    ResiDual when one is injected). Taps change the kernels' routing, not
+    the function (module docstring).
 
     ``batch``: ``{"waveform": [B, T]}`` or a bare ``[B, T]`` tensor, or a
     cached prefix to resume from: ``{"image": [B, H, W, 1]}`` (always from
@@ -346,6 +429,9 @@ def htsat_apply(model: HTSAT, batch, *, residual: dict | None = None,
     cfg = model.cfg
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+    taps = tuple(taps)
+    if set(taps) - set(TAPS):
+        raise ValueError(f"unknown taps {sorted(set(taps) - set(TAPS))}; the forward taps {TAPS}")
     if isinstance(batch, dict) and ("tokens" in batch or "image" in batch):
         if stop_at_image:
             raise ValueError("stop_at_image needs a waveform input")
@@ -365,7 +451,7 @@ def htsat_apply(model: HTSAT, batch, *, residual: dict | None = None,
             # here, where its PatchMerging already gave bf16)
             x = batch["tokens"]
             frames_num = cfg.spec_size
-        return _layers_and_head(model, x, frames_num, residual=residual,
+        return _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
                                 double_ffn_compat=double_ffn_compat,
                                 compute_dtype=compute_dtype,
                                 start_layer=start_layer if "tokens" in batch else 0,
@@ -389,30 +475,41 @@ def htsat_apply(model: HTSAT, batch, *, residual: dict | None = None,
     x = _patch_embed(model.patch_embed, x, cfg)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    return _layers_and_head(model, x, frames_num, residual=residual,
+    return _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
                             double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
                             start_layer=0, stop_at_layer=stop_at_layer)
 
 
-def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, residual,
+def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, taps=(), residual,
                      double_ffn_compat, compute_dtype, start_layer: int,
                      stop_at_layer: int | None) -> dict:
     """Swin layers ``start_layer .. stop_at_layer`` (or the end) on tokens
-    ``x``, then the head (``htsat.py::_htsat_layers_and_head``)."""
+    ``x``, then the head (``htsat.py::_htsat_layers_and_head``), with the
+    taps of :func:`htsat_apply`."""
     cfg = model.cfg
+    tap_attn, tap_res = [], []
     end_layer = stop_at_layer if stop_at_layer is not None else cfg.num_layers
     for i in range(start_layer, end_layer):
         layer = model.layers[i]
         res_i = residual.get(i) if residual is not None else None
         resolution = cfg.layer_resolution(i)
+        layer_attns, layer_residuals = [], []
         for j, blk in enumerate(layer.blocks):
-            x = swin_block(
+            x, probs, res_x = swin_block(
                 blk, x, resolution=resolution, nh=cfg.num_heads[i], window=cfg.window_size,
                 shift=0 if j % 2 == 0 else cfg.window_size // 2, residual_params=res_i,
-                double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype, taps=taps,
             )
+            if "attention" in taps:
+                layer_attns.append(probs)
+            if "residual" in taps:
+                layer_residuals.append(res_x)
         if layer.downsample is not None:
             x = _patch_merge(layer.downsample, x, resolution)
+        if "attention" in taps:
+            tap_attn.append(torch.stack(layer_attns).mean(dim=0))
+        if "residual" in taps:
+            tap_res.append(torch.cat(layer_residuals, dim=1))
     if stop_at_layer is not None:
         return {"tokens": x}
 
@@ -431,9 +528,14 @@ def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, residual
     logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
     logits_map = logits_map[:, :, 0].transpose(1, 2)  # [B, T', classes]
     fpx = interpolate.repeat_frames(torch.sigmoid(logits_map), 8 * cfg.patch_stride[1])
-    return {
+    out = {
         "framewise_output": fpx,
         "clipwise_output": torch.sigmoid(logits_map.mean(dim=1)),
         "fine_grained_embedding": fine_grained,
         "embedding": latent,
     }
+    if "attention" in taps:
+        out["layers_attention"] = tap_attn
+    if "residual" in taps:
+        out["layers_residuals"] = tap_res
+    return out

@@ -89,12 +89,19 @@ def swin_block_plain(x, flat_params, nh, window, num_windows_per_image, shift, r
 
 
 def split_block(x, flat_params, nh: int, window: int, num_windows_per_image: int, shift: int,
-                resolution, use_residual: bool, double_ffn: bool,
-                mxu_dtype=None) -> torch.Tensor:
+                resolution, use_residual: bool, double_ffn: bool, mxu_dtype=None, *,
+                attention=None) -> tuple:
     """The block as LN1 (plain PyTorch, f32 statistics), the window-attention
     kernel (K2, or K5 from ``WIDE_MIN_C``), then the residual-FFN kernel
     (K3): ``swin_block.py::_split_block``, the same function as the block
-    kernel. The attention output travels in the store dtype."""
+    kernel. The attention output travels in the store dtype.
+
+    Returns ``(out, a)``: the post-block windows and the attention output
+    ``a`` in window space, before the ResiDual (the HTSAT forward's residual
+    tap). ``attention``, a function of LN1's output ``[B*nW, n, C]`` (store
+    dtype) returning the attention output, runs in place of the
+    window-attention kernel (the attention tap's model-level attention,
+    which also returns the probabilities)."""
     (n1s, n1b, wqkv, bqkv, wproj, bproj, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
      table), rparams = _unpack(flat_params, use_residual)
     store = store_dtype(x, mxu_dtype)
@@ -104,13 +111,16 @@ def split_block(x, flat_params, nh: int, window: int, num_windows_per_image: int
     # the block input is f32 (layer 3 under AMP: PatchMerging's output); K2
     # and K5 round y to bf16 for their GEMMs themselves
     y = layer_norm(x.float(), n1s, n1b).to(store)
-    a = fused_window_attention(y, wqkv, bqkv, wproj, bproj, table, nh, window,
-                               num_windows_per_image, shift, resolution, mxu_dtype)
+    if attention is None:
+        a = fused_window_attention(y, wqkv, bqkv, wproj, bproj, table, nh, window,
+                                   num_windows_per_image, shift, resolution, mxu_dtype)
+    else:
+        a = attention(y)
     # the double-FFN quirk exists only in the ResiDual-patched forward
     out = fused_residual_ffn(x.reshape(-1, c), a.reshape(-1, c), n2s, n2b, wfc1, bfc1, wfc2,
                              bfc2, rparams, double_ffn=double_ffn and use_residual,
-                             mxu_dtype=mxu_dtype)
-    return out.reshape(wn, n, c)
+                             mxu_dtype=mxu_dtype).reshape(wn, n, c)
+    return out, a
 
 
 def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image: int,
@@ -123,7 +133,7 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
     args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
             mxu_dtype)
     if x.shape[-1] >= WIDE_MIN_C:
-        return split_block(x, flat_params, *args)
+        return split_block(x, flat_params, *args)[0]
     if x.device.type == "cpu":
         return swin_block_plain(x, flat_params, *args)
     if needs_graph(x, *flat_params):

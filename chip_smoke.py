@@ -72,6 +72,30 @@ line):
                fixture (tests/data/torch_port_train.npz); the image cache's
                bit-equal resume; evaluate_zero_shot and the K-fold
                artifacts on a held-out batch.
+  6. analysis -- the paper's pipeline on HTSAT-tiny at full width (phase 3's
+               seeded model, ResiDual and text embeddings; B=32 clips from a
+               seed): the residual-tapped forward golden and AMP (every block
+               on the split plan: K1, K2 and K3 launched, no K4) against the
+               untapped one (golden within atol=2e-3, rtol=1e-3 and cosine >
+               0.99999; AMP within the bench guard) and its taps against the
+               same forward through the plain versions (golden: atol=2e-3,
+               rtol=1e-3, probabilities atol=1e-5; AMP: max rel err 2e-2 and
+               cosine > 0.99999), each K2/K5 and K3 call of the tapped
+               forward against its plain version on the call's own inputs
+               (K3 also without its ResiDual, or with a seeded one and the
+               double FFN), with its device-time census by CUDA kernel
+               (no device time in three windows fails); the same for the
+               attention tap (the model's own attention, K3) and for
+               HTSAT-base's residual tap (K5 at layer 3); then
+               compute_pca_components at layer 0 on 2 folds -> the
+               layer_0_evalfold_{i} pickles ->
+               train_and_evaluate_residual (2 epochs), evaluate_baseline_clap,
+               train_and_eval_linear_head and compare_variants (the three
+               variants' accuracy); run_pca over the attention tap ([60,
+               4096, 4096] f32 moments), its randomized finalize against a
+               float64 eigh of one head's moments (layers 0 and 3), and the
+               CSV; each stage's time by CUDA events beside the bounds, and
+               the peak memory.
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -122,6 +146,17 @@ EXPECTED_GOLDEN_TF32X3 = {"tiny": 2 * (2 * 2 + 2 + 6 + 2) + 2 * (10 + 2) + 2 * 2
                           "base": 2 * (2 * 2 + 2 + 12 + 2) + 2 * (16 + 2) + 2 * 2}
 RESIDUAL_BLOCKS = 2  # the main paths' ResiDual: both blocks of layer 0
 GRAD_BATCHES = 5  # seeded batches of the λ-gradient checks
+# the analysis phase: seeded batches of B clips (fold i trains on all but
+# batch i and is evaluated on it), the attention PCA's batches, the folds'
+# λ-training epochs; the tapped forwards' launches (every block on the split
+# plan: HTSAT-tiny 12 blocks, HTSAT-base 18, whose layer 3 runs K5)
+ANALYSIS_BATCHES, ATTENTION_PCA_BATCHES, ANALYSIS_EPOCHS = 3, 3, 2
+TAPPED_LAUNCHES = {"fused_logmel": 1, "fused_window_attention": 12, "fused_residual_ffn": 12}
+ATTENTION_TAP_LAUNCHES = {"fused_logmel": 1, "fused_residual_ffn": 12}
+BASE_TAPPED_LAUNCHES = {"fused_logmel": 1, "fused_window_attention": 16,
+                        "wide_window_attention": 2, "fused_residual_ffn": 18}
+PCA_F64_CHECK = dict(top=32, rtol=1e-3, span=0.99)  # tests/test_pca.py:181-192
+TAP_AMP_COS = 0.99999  # AMP taps against the plain route: cosine, beside TOL["bf16"]
 # the kernels of the port by role (profiler names); any other kernel of the
 # port (namespace arpu) counts under its own name
 PORT_KERNELS = ("gemm_tf32x3_kernel", "gemm_kernel", "attention_core_kernel",
@@ -884,6 +919,29 @@ def device_profile(fn):
     return groups, names, busy / 1e3, (cur_end - spans[0][0]) / 1e3, counts
 
 
+def profile_until(fn, done, label: str):
+    """Up to three ``device_profile`` windows over ``fn()`` until
+    ``done(window)`` holds (a window now and then drops kernel records): the
+    last window that held device time. Raises when none did, so a census
+    that measured nothing fails."""
+    prof = None
+    for _ in range(3):
+        window = device_profile(fn)
+        if window is None:
+            continue
+        prof = window
+        if done(prof):
+            break
+    if prof is None:
+        raise AssertionError(f"{label}: three profiler windows held no device time")
+    return prof
+
+
+def launches_named(prof, key: str) -> int:
+    """Launches of the kernels whose name holds ``key`` in a profiler window."""
+    return sum(n for name, n in prof[4].items() if key in name)
+
+
 def device_busy_ms(fn, reps: int = 5) -> float | None:
     """Device time of one ``fn()``, the mean of ``reps`` in one profiler
     window; None when the trace holds no device time."""
@@ -1072,59 +1130,44 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict,
     # K3's AMP call is one launch a pass: its kernel, once a call; every K2,
     # K4 and K5 call runs the qkv + attention kernel once, and none the
     # golden attention core; each ResiDual block its two f32 products on the
-    # 3xTF32 GEMM. A profiler window now and then drops kernel records, so up
-    # to three windows are taken for one that holds them all.
+    # 3xTF32 GEMM
     want = sum(expected.get(k, 0) for k in ("fused_swin_block", "fused_window_attention",
                                              "wide_window_attention"))
-    prof = None
-    for _ in range(3):
-        window = device_profile(lambda: zero_shot(torch.bfloat16))
-        if window is None:
-            continue
-        prof = window
-        k3_kernels = sum(n for name, n in prof[4].items() if "ffn_cluster_kernel" in name)
-        tc = sum(n for name, n in prof[4].items() if "window_attention_wgmma" in name)
-        core = sum(n for name, n in prof[4].items() if "attention_core_kernel" in name)
-        res_gemms = sum(n for name, n in prof[4].items() if "gemm_tf32x3_kernel" in name)
-        if k3_kernels == expected["fused_residual_ffn"] and tc == want:
-            break
+    prof = profile_until(lambda: zero_shot(torch.bfloat16), lambda p: (
+        launches_named(p, "ffn_cluster_kernel") == expected["fused_residual_ffn"]
+        and launches_named(p, "window_attention_wgmma") == want), f"{label} bf16 forward")
     log_profile("main", f"{label} bf16 forward", prof)
-    if prof is not None:
-        log("main", model=label, k3_ffn_cluster_launches=k3_kernels,
-            window_attention_wgmma_launches=tc, attention_core_launches=core,
-            residual_tf32x3_gemm_launches=res_gemms)
-        if k3_kernels != expected["fused_residual_ffn"]:
-            raise AssertionError(f"{label}: {k3_kernels} ffn_cluster_kernel launches in the "
-                                 f"AMP forward, expected {expected['fused_residual_ffn']}")
-        if tc != want or core or res_gemms != 2 * RESIDUAL_BLOCKS:
-            raise AssertionError(f"{label}: the AMP forward launched window_attention_wgmma "
-                                 f"{tc} times (expected {want}), attention_core_kernel "
-                                 f"{core} times (expected 0) and gemm_tf32x3_kernel {res_gemms} "
-                                 f"times (expected {2 * RESIDUAL_BLOCKS}, the ResiDual's)")
+    k3_kernels, tc, core, res_gemms = (launches_named(prof, k) for k in (
+        "ffn_cluster_kernel", "window_attention_wgmma", "attention_core_kernel",
+        "gemm_tf32x3_kernel"))
+    log("main", model=label, k3_ffn_cluster_launches=k3_kernels,
+        window_attention_wgmma_launches=tc, attention_core_launches=core,
+        residual_tf32x3_gemm_launches=res_gemms)
+    if k3_kernels != expected["fused_residual_ffn"]:
+        raise AssertionError(f"{label}: {k3_kernels} ffn_cluster_kernel launches in the "
+                             f"AMP forward, expected {expected['fused_residual_ffn']}")
+    if tc != want or core or res_gemms != 2 * RESIDUAL_BLOCKS:
+        raise AssertionError(f"{label}: the AMP forward launched window_attention_wgmma "
+                             f"{tc} times (expected {want}), attention_core_kernel "
+                             f"{core} times (expected 0) and gemm_tf32x3_kernel {res_gemms} "
+                             f"times (expected {2 * RESIDUAL_BLOCKS}, the ResiDual's)")
     # the golden forward: K1 is one logmel_tf32x3_kernel, every product a
     # gemm_tf32x3_kernel, and no other kernel of the port runs but LayerNorm
     # and the attention core
-    prof = None
-    for _ in range(3):
-        window = device_profile(lambda: zero_shot(None))
-        if window is None:
-            continue
-        prof = window
-        ours = port_kernels(prof[4])
-        tf32x3, k1_golden = ours["gemm_tf32x3_kernel"], ours["logmel_tf32x3_kernel"]
-        if tf32x3 == golden_gemms and k1_golden == 1:
-            break
+    prof = profile_until(lambda: zero_shot(None), lambda p: (
+        port_kernels(p[4])["gemm_tf32x3_kernel"] == golden_gemms
+        and port_kernels(p[4])["logmel_tf32x3_kernel"] == 1), f"{label} f32 forward")
     log_profile("main", f"{label} f32 forward", prof)
-    if prof is not None:
-        log("main", model=label, golden_tf32x3_gemm_launches=tf32x3,
-            golden_logmel_tf32x3_launches=k1_golden,
-            golden_port_kernels=json.dumps(dict(ours)))
-        if tf32x3 != golden_gemms or k1_golden != 1 or set(ours) - GOLDEN_KERNELS:
-            raise AssertionError(f"{label}: the golden forward launched gemm_tf32x3_kernel "
-                                 f"{tf32x3} times (expected {golden_gemms}), "
-                                 f"logmel_tf32x3_kernel {k1_golden} times (expected 1), and "
-                                 f"of the port's kernels {dict(ours)} (expected only "
-                                 f"{sorted(GOLDEN_KERNELS)})")
+    ours = port_kernels(prof[4])
+    tf32x3, k1_golden = ours["gemm_tf32x3_kernel"], ours["logmel_tf32x3_kernel"]
+    log("main", model=label, golden_tf32x3_gemm_launches=tf32x3,
+        golden_logmel_tf32x3_launches=k1_golden, golden_port_kernels=json.dumps(dict(ours)))
+    if tf32x3 != golden_gemms or k1_golden != 1 or set(ours) - GOLDEN_KERNELS:
+        raise AssertionError(f"{label}: the golden forward launched gemm_tf32x3_kernel "
+                             f"{tf32x3} times (expected {golden_gemms}), "
+                             f"logmel_tf32x3_kernel {k1_golden} times (expected 1), and "
+                             f"of the port's kernels {dict(ours)} (expected only "
+                             f"{sorted(GOLDEN_KERNELS)})")
     (e32, p32), (e16, p16) = results["f32"], results["bf16"]
     cos = float((e16.float() * e32).sum(-1).min())
     agree = float((p16 == p32).float().mean())
@@ -1136,18 +1179,21 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The forward runs each kernel's plain version on the card: K4's
-    ``swin_block_plain`` for layers 0-2, the split plan's LN1 with K2's (or
-    K5's) and K3's plain versions for layer 3. The gradient check's
-    reference: autograd through the plain versions alone."""
+    """The forward runs each kernel's plain version on the card: K1's
+    ``logmel_plain``, K4's ``swin_block_plain`` for layers 0-2, and the split
+    plan -- layer 3, and every block of a tapped forward -- with K2's (or
+    K5's) and K3's plain versions after its LN1. The reference of the
+    gradient and tap checks: the plain versions alone."""
     from unittest import mock
 
     from audio_residual_tpu_torch.models import htsat
+    from audio_residual_tpu_torch.ops.cuda import frontend as k1
     from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
     from audio_residual_tpu_torch.ops.cuda import swin_block as k4
     from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
-    with mock.patch.object(htsat, "fused_swin_block", k4.swin_block_plain), \
+    with mock.patch.object(htsat, "fused_logmel", k1.logmel_plain), \
+            mock.patch.object(htsat, "fused_swin_block", k4.swin_block_plain), \
             mock.patch.object(k4, "fused_window_attention", k2.window_attention_plain), \
             mock.patch.object(k4, "fused_residual_ffn", k3.residual_ffn_plain):
         yield
@@ -1379,6 +1425,386 @@ def phase_train(dev, card: str) -> None:
         raise AssertionError("evaluate_zero_shot: malformed similarities or artifacts")
 
 
+def port_census(fn, want: dict, label: str) -> collections.Counter:
+    """The port's kernels launched by ``fn()`` (``port_kernels`` of a
+    profiler window, up to three until they are ``want``); the window's
+    split is logged."""
+    prof = profile_until(fn, lambda p: port_kernels(p[4]) == collections.Counter(want), label)
+    log_profile("analysis", label, prof)
+    return port_kernels(prof[4])
+
+
+@contextlib.contextmanager
+def checked_split_plan(stats: KernelStats, label: str):
+    """Every K2 (K5 from C >= 1024) and K3 call of the split plan checked
+    against its plain version on the same inputs (``stats.check``, ``TOL``),
+    K3 also the other way round: without the call's ResiDual, or, where the
+    call has none, with a seeded one (K = C) and the double FFN. The
+    kernels' outputs go on, so each call sees the tapped forward's own
+    inputs."""
+    from unittest import mock
+
+    import torch
+
+    from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
+    from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+    from audio_residual_tpu_torch.residual.module import init_residual_params
+
+    rng = np.random.default_rng(21)
+    seeded = {}
+
+    def attention(x, wqkv, bqkv, wproj, bproj, table, nh, window, nw, shift, resolution,
+                  mxu_dtype=None):
+        args = (x, wqkv, bqkv, wproj, bproj, table, nh, window, nw, shift, resolution,
+                mxu_dtype)
+        c = x.shape[-1]
+        got = k2.fused_window_attention(*args)
+        stats.check("wide_window_attention" if c >= k2.WIDE_MIN_C else "fused_window_attention",
+                    f"{label} C={c} windows={x.shape[0]} nW={nw} shift={shift}", got,
+                    k2.window_attention_plain(*args), "f32" if mxu_dtype is None else "bf16")
+        return got
+
+    def ffn(x, a, *weights, double_ffn=False, mxu_dtype=None):
+        *weights, rparams = weights
+        c = x.shape[-1]
+        if rparams is None and c not in seeded:
+            q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+            seeded[c] = init_residual_params(q, rng.standard_normal(c) * 0.01, device=x.device)
+            lam = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+            seeded[c]["lam"] = torch.from_numpy(lam).to(x.device)
+        got = None
+        for rp, dffn in ((rparams, double_ffn),
+                         (None, False) if rparams is not None else (seeded.get(c), True)):
+            out = k3.fused_residual_ffn(x, a, *weights, rp, double_ffn=dffn, mxu_dtype=mxu_dtype)
+            stats.check("fused_residual_ffn", f"{label} rows={x.shape[0]} C={c} "
+                        f"residual={rp is not None} double_ffn={dffn}", out,
+                        k3.residual_ffn_plain(x, a, *weights, rp, double_ffn=dffn,
+                                              mxu_dtype=mxu_dtype),
+                        "f32" if mxu_dtype is None else "bf16")
+            got = out if got is None else got
+        return got
+
+    with mock.patch.object(k4, "fused_window_attention", attention), \
+            mock.patch.object(k4, "fused_residual_ffn", ffn):
+        yield
+
+
+def tap_check(label: str, got: dict, ref: dict, keys, golden: bool) -> None:
+    """Each tap (and each listed output) of ``got`` against ``ref``: golden
+    within atol=2e-3, rtol=1e-3, the attention probabilities within
+    atol=1e-5 (the CPU tests' bounds against the JAX package); AMP within
+    ``TOL["bf16"]`` of max |ref| and cosine > ``TAP_AMP_COS``."""
+    import torch
+
+    for key in keys:
+        pairs = list(zip(got[key], ref[key])) if key.startswith("layers_") else [
+            (got[key], ref[key])]
+        atol, rtol = (1e-5, 0.0) if key == "layers_attention" else (2e-3, 1e-3)
+        for i, (g, r) in enumerate(pairs):
+            g, r = g.float(), r.float()
+            err = float((g - r).abs().max())
+            rel = err / float(r.abs().max())
+            cos = float((g.flatten() @ r.flatten()) / (g.norm() * r.norm()))
+            close = (bool(torch.allclose(g, r, atol=atol, rtol=rtol)) if golden
+                     else rel <= TOL["bf16"] and cos > TAP_AMP_COS)
+            ok = g.shape == r.shape and bool(torch.isfinite(g).all()) and close
+            log("analysis", check=f"{label} {key}[{i}]", shape=tuple(g.shape), max_abs_err=err,
+                max_rel_err=rel, cosine=cos,
+                tol=(f"atol={atol},rtol={rtol}" if golden
+                     else f"max_rel_err<={TOL['bf16']},cosine>{TAP_AMP_COS}"), ok=ok)
+            if not ok:
+                raise AssertionError(f"{label}: {key}[{i}] disagrees with its reference")
+
+
+def embedding_check(label: str, got, ref, text, golden: bool) -> None:
+    """A tapped forward's embeddings against the untapped golden ones:
+    golden within atol=2e-3, rtol=1e-3 and cosine > 0.99999; AMP within the
+    bench guard (minimum cosine > 0.999, argmax agreement 1.0)."""
+    import torch
+
+    cos = float((got.float() * ref).sum(-1).min())
+    agree = float(((got.float() @ text.t()).argmax(-1) == (ref @ text.t()).argmax(-1))
+                  .float().mean())
+    err = float((got.float() - ref).abs().max())
+    ok = (bool(torch.allclose(got, ref, atol=2e-3, rtol=1e-3)) and cos > 0.99999 if golden
+          else cos > 0.999 and agree == 1.0)
+    log("analysis", check=f"{label} embedding against the untapped golden forward",
+        max_abs_err=err, min_cosine=cos, argmax_agreement=agree,
+        tol="atol=2e-3,rtol=1e-3,cosine>0.99999" if golden else "cosine>0.999,argmax=1.0",
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the tapped embedding leaves the untapped one")
+
+
+def tapped_forward(stats, label, model, batch, residual, text, md, taps, launches, census):
+    """One tapped forward's checks: its launches, its embedding against the
+    untapped golden forward, its taps and embedding against the same forward
+    through the plain versions, each K2/K5 and K3 call against its plain
+    version on the call's own inputs (``checked_split_plan``), its kernels
+    by name (``census``), and its time beside the untapped forward's (CUDA
+    events)."""
+    import torch
+
+    from audio_residual_tpu_torch.models.clap import encode_audio
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+
+    def run(taps_=taps, md_=md):
+        return encode_audio(model, batch, taps=taps_, residual=residual, compute_dtype=md_)
+
+    golden = md is None
+    untapped = run((), None)["normalized"]
+    launch_counts.clear()
+    out = run()
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    log("analysis", forward=label, launches=json.dumps(counts))
+    if counts != launches:
+        raise AssertionError(f"{label}: launched {counts}, expected {launches}")
+    embedding_check(label, out["normalized"], untapped, text, golden)
+    launch_counts.clear()
+    with plain_kernels():
+        ref = run()
+    torch.cuda.synchronize()
+    if launch_counts:
+        raise AssertionError(f"{label}: the plain route launched {dict(launch_counts)}")
+    keys = [k for k in ("layers_attention", "layers_residuals") if k in out]
+    tap_check(f"{label} against the plain versions", out, ref, [*keys, "normalized"], golden)
+    with checked_split_plan(stats, f"{label} tapped"):
+        run()
+    ours = port_census(run, census, f"{label} forward")
+    log("analysis", forward=label, port_kernels=json.dumps(dict(ours)),
+        expected=json.dumps(census))
+    if ours != collections.Counter(census):
+        raise AssertionError(f"{label}: the port's kernels {dict(ours)}, expected {census}")
+    ms, plain_ms = time_ms(run, reps=5, warmup=1), time_ms(lambda: run((), md), reps=5, warmup=1)
+    log("analysis", forward=label, tapped_ms=ms, untapped_ms=plain_ms, batch=B)
+
+
+def attention_pca_flops(cfg) -> float:
+    """One batch's moment updates: per layer heads x rows (B x windows) x
+    2 x (window^4)^2."""
+    d = cfg.window_size ** 4
+    return sum(2.0 * nh * B * (res // cfg.window_size) ** 2 * d * d
+               for nh, res in zip(cfg.num_heads, (cfg.layer_resolution(i)[0]
+                                                  for i in range(cfg.num_layers))))
+
+
+def phase_analysis(stats: KernelStats, dev, card: str) -> None:
+    """The paper's analysis pipeline on HTSAT-tiny at full width (the main
+    path's seeded model, ResiDual and text embeddings; B=32 clips from a
+    seed): tapped forwards, the residual PCA that λ-training reads, the three
+    variants compared, the attention PCA checked against float64. Any miss
+    raises."""
+    import tempfile
+
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.evaluate import harness
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio, encode_audio
+    from audio_residual_tpu_torch.models.factory import create_audio_model
+    from audio_residual_tpu_torch.ops import pca as pca_ops
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu_torch.residual import analyze
+    from audio_residual_tpu_torch.training import linear_probe
+    from audio_residual_tpu_torch.training import train_residual as tr
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = CLAPConfig()
+    model = build_clap_audio(cfg, seed=0, device=dev)
+    residual, text, wav = main_inputs(cfg, dev)
+    max_len = cfg.audio.clip_samples
+    batch = featurize_batch(quantize_roundtrip(wav), max_len)
+    blocks = sum(cfg.audio.depths)
+    # the port's kernels a tapped forward launches, by name: K1; in every
+    # block K3, a FFN pass (golden: add+LN2, fc1, fc2; AMP: one clustered
+    # launch) and a second one in each ResiDual block (the double FFN), the
+    # ResiDual's two 3xTF32 products there; under the residual tap K2 (golden:
+    # qkv, the attention core, proj; AMP: the qkv + attention kernel and the
+    # bf16 proj GEMM); nothing else -- no K4, whose LN1 is add_layernorm_kernel
+    passes, res_gemms = blocks + RESIDUAL_BLOCKS, 2 * RESIDUAL_BLOCKS
+    census = {
+        ("residual", "f32"): {"logmel_tf32x3_kernel": 1, "attention_core_kernel": blocks,
+                              "gemm_tf32x3_kernel": 2 * blocks + 2 * passes + res_gemms,
+                              "add_layernorm_kernel": passes},
+        ("residual", "bf16"): {"logmel_wgmma_kernel": 1, "window_attention_wgmma_kernel": blocks,
+                               "gemm_kernel": blocks, "ffn_cluster_kernel": passes,
+                               "gemm_tf32x3_kernel": res_gemms},
+        ("attention", "f32"): {"logmel_tf32x3_kernel": 1,
+                               "gemm_tf32x3_kernel": 2 * passes + res_gemms,
+                               "add_layernorm_kernel": passes},
+        ("attention", "bf16"): {"logmel_wgmma_kernel": 1, "ffn_cluster_kernel": passes,
+                                "gemm_tf32x3_kernel": res_gemms},
+    }
+    for taps, launches in ((("residual",), TAPPED_LAUNCHES),
+                           (("attention",), ATTENTION_TAP_LAUNCHES)):
+        for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+            tapped_forward(stats, f"HTSAT-tiny taps={taps[0]} {mode}", model, batch, residual,
+                           text, md, taps, launches, census[(taps[0], mode)])
+    base, base_cfg, _ = create_audio_model("HTSAT-base", seed=0, device=dev)
+    base_res, base_text, _ = main_inputs(base_cfg, dev)
+    # K2 and K5 launch the same kernels
+    base_blocks = sum(base_cfg.audio.depths)
+    passes = base_blocks + RESIDUAL_BLOCKS
+    tapped_forward(stats, "HTSAT-base taps=residual bf16", base, batch, base_res, base_text,
+                   torch.bfloat16, ("residual",), BASE_TAPPED_LAUNCHES,
+                   {"logmel_wgmma_kernel": 1, "window_attention_wgmma_kernel": base_blocks,
+                    "gemm_kernel": base_blocks, "ffn_cluster_kernel": passes,
+                    "gemm_tf32x3_kernel": res_gemms})
+    tapped_forward(stats, "HTSAT-base taps=residual f32", base, batch, base_res, base_text, None,
+                   ("residual",), BASE_TAPPED_LAUNCHES,
+                   {"logmel_tf32x3_kernel": 1, "attention_core_kernel": base_blocks,
+                    "gemm_tf32x3_kernel": 2 * base_blocks + 2 * passes + res_gemms,
+                    "add_layernorm_kernel": passes})
+    del base
+
+    # the pipeline: residual PCA per fold -> λ-training from its pickles,
+    # the zero-shot baseline, the linear probe, the three variants
+    rng = np.random.default_rng(17)
+    wavs = [torch.from_numpy((0.1 * rng.standard_normal((B, CLIP))).astype(np.float32)).to(dev)
+            for _ in range(ANALYSIS_BATCHES)]
+    labels = [torch.from_numpy(rng.integers(0, N_CLASSES, B)).to(dev)
+              for _ in range(ANALYSIS_BATCHES)]
+
+    def split(idx):
+        return lambda: iter([(wavs[i], labels[i]) for i in idx])
+
+    folds = [(split([j for j in range(ANALYSIS_BATCHES) if j != i]), split([i]))
+             for i in range(2)]
+
+    def encode_residual(w):
+        return encode_audio(model, featurize_batch(w, max_len), taps=("residual",))
+
+    def encode_attention(w):
+        return encode_audio(model, featurize_batch(w, max_len), taps=("attention",))
+
+    c0 = cfg.audio.layer_dim(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        pca_dir, out_dir = os.path.join(tmp, "pca"), os.path.join(tmp, "results")
+        for i, (train, _) in enumerate(folds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = analyze.compute_pca_components(
+                encode_residual, [w for w, _ in train()], 0, c0, device=dev,
+                save_path=os.path.join(pca_dir, "ESC50", f"layer_0_evalfold_{i}"))
+            seconds = time.perf_counter() - t0
+            comps = res["components"]
+            ortho = float(np.abs(comps @ comps.T - np.eye(c0)).max())
+            rows = int(res["num_samples"])
+            ok = (comps.shape == (c0, c0) and ortho < 1e-10
+                  and rows == (ANALYSIS_BATCHES - 1) * B * cfg.audio.depths[0]
+                  * cfg.audio.layer_resolution(0)[0] ** 2
+                  and abs(float(res["explained_variance_ratio"].sum()) - 1.0) < 1e-9)
+            log("analysis", stage=f"compute_pca_components fold {i}", layer=0, rows=rows,
+                seconds=seconds, top_ratio=float(res["explained_variance_ratio"][0]),
+                intrinsic_dim=analyze.intrinsic_dim(res["explained_variance_ratio"]),
+                orthonormality_err=ortho, ok=ok)
+            if not ok:
+                raise AssertionError(f"compute_pca_components fold {i}: malformed result")
+        t0 = time.perf_counter()
+        results = tr.train_and_evaluate_residual(model, "ESC50", folds, text, pca_dir, out_dir,
+                                                 epochs=ANALYSIS_EPOCHS, lr=TRAIN_LR)
+        log("analysis", stage="train_and_evaluate_residual from the pickles",
+            seconds=time.perf_counter() - t0,
+            accuracy=json.dumps([r["accuracy"] for r in results]),
+            loss=json.dumps([[h["train_loss"] for h in r["history"]] for r in results]))
+        t0 = time.perf_counter()
+        tr.evaluate_baseline_clap(model, "ESC50", folds, text, out_dir)
+        log("analysis", stage="evaluate_baseline_clap", seconds=time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe = linear_probe.train_and_eval_linear_head(model, "ESC50", folds, N_CLASSES,
+                                                        out_dir)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        feats = np.random.default_rng(18).standard_normal((2 * B, 512)).astype(np.float32)
+        head_ms = cuda_ms_split([lambda: linear_probe.train_linear_head(
+            0, feats, np.arange(2 * B) % N_CLASSES, N_CLASSES, device=dev)])[0]
+        log("analysis", stage="train_and_eval_linear_head", seconds=probe_s,
+            accuracy=json.dumps([r["accuracy"] for r in probe]),
+            train_linear_head_ms=head_ms, head_rows=2 * B, epochs=20)
+        table = harness.compare_variants(out_dir, "ESC50")
+        for name in ("Baseline", "ResiDual", "Linear"):
+            m = table.get(name)
+            log("analysis", compare_variants=name, folds=m and m["folds"],
+                accuracy_mean=m and m["accuracy_mean"], accuracy_std=m and m["accuracy_std"],
+                top5_accuracy=m and m["top5_accuracy"])
+        if set(table) != {"Baseline", "ResiDual", "Linear"} or any(
+                m["folds"] != 2 for m in table.values()):
+            raise AssertionError(f"compare_variants found {sorted(table)}")
+
+        # the attention PCA: run_pca over the attention tap, then the moment
+        # update and the finalize timed alone on the same batches
+        heads = cfg.audio.num_heads
+        attn_wavs = wavs[:ATTENTION_PCA_BATCHES]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spectra = analyze.run_pca(encode_attention, attn_wavs, cfg.audio.num_layers, heads,
+                                  device=dev)
+        torch.cuda.synchronize()
+        run_pca_s = time.perf_counter() - t0
+        ap = analyze.AttentionPCA(heads, device=dev)
+        update_ms = []
+        for w in attn_wavs:
+            with torch.no_grad():
+                taps_out = encode_attention(w)["layers_attention"]
+            update_ms.append(cuda_ms_split([lambda: ap.update(taps_out)])[0])
+        flops = attention_pca_flops(cfg.audio)
+        moments_gb = sum(st.outer.numel() * 4 for st in ap.states) / 1e9
+        log("analysis", stage="attention PCA update a batch", ms=json.dumps(update_ms),
+            median_ms=statistics.median(update_ms), gflop=flops / 1e9,
+            f32_bound_ms=1e3 * flops / PEAK["f32"], moments_gb=moments_gb,
+            run_pca_seconds=run_pca_s)
+        finalized = {}
+        finalize_ms = cuda_ms_split([lambda: finalized.update(ap.finalize())])[0]
+        same = all(np.allclose(finalized[k]["explained_variance"],
+                               spectra[k]["explained_variance"], rtol=1e-9, atol=0)
+                   for k in spectra)
+        k = spectra[(0, 0)]["n_components"]
+        log("analysis", stage="attention PCA randomized finalize", ms=finalize_ms,
+            heads=len(spectra), k=k, float64_gflop=sum(
+                h * 8 * 2.0 * (4096 ** 2) * (k + 16) for h in heads) / 1e9,
+            same_as_run_pca=same)
+        if not same or set(spectra) != {(i, h) for i, nh in enumerate(heads) for h in range(nh)}:
+            raise AssertionError("run_pca and the timed AttentionPCA disagree")
+        for layer in (0, cfg.audio.num_layers - 1):
+            st = ap.states[layer]
+            n = st.n[0].double()
+            mean = st.sum[0].double() / n
+            cov = (st.outer[0].double() - n * torch.outer(mean, mean)) / (n - 1)
+            w64, v64 = torch.linalg.eigh(cov)
+            top = PCA_F64_CHECK["top"]
+            w64, v64 = w64.flip(-1)[:top].cpu().numpy(), v64.flip(-1)[:, :top].cpu().numpy()
+            got = pca_ops.pca_finalize(pca_ops.PCAState(*(t[:1] for t in st)))
+            ev = got["explained_variance"][0][:top]
+            span = np.linalg.norm(got["components"][0][:top] @ v64, axis=1)
+            rel = float(np.abs(ev / w64 - 1).max())
+            ok = rel <= PCA_F64_CHECK["rtol"] and float(span.min()) > PCA_F64_CHECK["span"]
+            log("analysis", check=f"attention PCA layer {layer} head 0 against float64 eigh",
+                rows=int(n), top=top, eigenvalue_max_rel_err=rel, span_norm_min=float(span.min()),
+                top_eigenvalue=float(w64[0]), last_checked_eigenvalue=float(w64[-1]),
+                tol=f"rtol={PCA_F64_CHECK['rtol']},span>{PCA_F64_CHECK['span']}", ok=ok)
+            if not ok:
+                raise AssertionError(f"attention PCA layer {layer}: the randomized finalize "
+                                     "leaves the float64 eigh")
+        path = analyze.save_pca_results_on_file(tmp, "ESC50", 0, spectra)
+        back = analyze.load_pca_csv_results(path)
+        ok = set(back) == set(spectra) and all(
+            len(back[key]["explained_variance"]) == k for key in back)
+        for layer, nh in enumerate(heads):
+            log("analysis", attention_pca_layer=layer, heads=nh,
+                intrinsic_dim_mean=statistics.mean(back[(layer, h)]["intrinsic_dim"]
+                                                   for h in range(nh)),
+                participation_ratio_mean=statistics.mean(back[(layer, h)]["participation_ratio"]
+                                                         for h in range(nh)))
+        log("analysis", csv_rows=sum(len(v["explained_variance"]) for v in back.values()),
+            csv_read_back=ok, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=card)
+        if not ok:
+            raise AssertionError("the attention PCA's CSV does not read back")
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include."""
@@ -1454,6 +1880,7 @@ def main() -> int:
     phase_fixture(fx.PATH, "fixture")
     phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
     phase_train(dev, card)
+    phase_analysis(stats, dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

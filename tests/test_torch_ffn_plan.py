@@ -68,6 +68,48 @@ def test_plan_of_every_shipped_shape(b, c, hidden, tokens):
     assert plan.grid == -(-rows // 128) * plan.cs
 
 
+def _tapped_k3_shapes(name: str) -> set:
+    """``(C, hidden, tokens a clip)`` of every layer of a registered HTSAT
+    config: under taps every block runs the split plan, so K3 meets every
+    layer (the K2 calls there are ``test_torch_window_plan.py``'s shipped
+    window layers, which it plans)."""
+    cfg = factory._amodel_to_config(factory.get_model_config(name))
+    res = cfg.spec_size // cfg.patch_stride[0]
+    return {(cfg.embed_dim * 2 ** i, int(cfg.mlp_ratio * cfg.embed_dim * 2 ** i),
+             (res // 2 ** i) ** 2) for i in range(len(cfg.depths))}
+
+
+TAPPED = {(96, 384, 4096), (192, 768, 1024), (384, 1536, 256), (768, 3072, 64),
+          (128, 512, 4096), (256, 1024, 1024), (512, 2048, 256), (1024, 4096, 64),
+          (256, 1024, 4096), (512, 2048, 1024), (1024, 4096, 256), (2048, 8192, 64)}
+
+
+def test_shipped_configs_meet_only_the_tapped_shapes():
+    seen = set()
+    for name in factory.list_models():
+        if name.startswith("HTSAT"):
+            seen |= _tapped_k3_shapes(name)
+    assert seen == TAPPED and SHIPPED <= TAPPED
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("c,hidden,tokens", sorted(TAPPED))
+def test_plan_of_every_tapped_shape(b, c, hidden, tokens):
+    """The tapped forward's K3 calls (every block of every layer, B*4096
+    rows of 96 at HTSAT-tiny layer 0) plan: a block's output width is one the
+    kernel is built for, the chunk divides the hidden width, and shared
+    memory holds the hid chunk and a ring of at least 2 stages; the narrow
+    layers take small clusters (C = 96: one block, 192: two, 128: two)."""
+    rows = b * tokens
+    plan = k3.amp_plan(rows, c, hidden)
+    assert plan.n_out in k3.OUT_WIDTHS and plan.n_out * plan.cs == c
+    assert plan.chunk == 64 * plan.cs and hidden % plan.chunk == 0
+    assert plan.stages >= 2 and plan.smem_bytes <= SMEM_LIMIT
+    assert plan.grid == -(-rows // 128) * plan.cs
+    assert plan.cs == {96: 1, 192: 2, 384: 6, 768: 6, 128: 2, 256: 4, 512: 8, 1024: 8,
+                       2048: 8}[c]
+
+
 @pytest.mark.parametrize("rows,c,hidden,cs", [(512, 96, 384, 1), (128, 64, 256, 1),
                                               (192, 256, 1024, 4), (256, 128, 512, 2),
                                               (192, 384, 1536, 6)])

@@ -129,7 +129,7 @@ def test_split_block_keeps_attention_output_f32(use_res, dffn):
     p, r, x = _params(2)
     args = (torch.from_numpy(x), _port_flat(p, r, use_res), NH, WINDOW, NW, 0, RES, use_res,
             dffn)
-    got = t_k4.split_block(*args, mxu_dtype=BF16)
+    got, _ = t_k4.split_block(*args, mxu_dtype=BF16)
     assert got.dtype == torch.float32
     assert torch.equal(got, t_k4.swin_block_plain(*args, mxu_dtype=BF16))
 
