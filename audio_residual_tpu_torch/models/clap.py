@@ -1,33 +1,78 @@
-"""CLAP audio side: HTSAT branch + two-layer MLP projection into the joint
-space, and the L2 normalisation.
+"""CLAP dual-tower model: HTSAT audio branch + a text branch (RoBERTa, BERT,
+BART or the CLIP transformer), two-layer MLP projections into the joint
+space, the MLP "transform" heads and the learnable logit scales.
 
-Port of the audio half of ``audio_residual_tpu/models/clap.py``
-(``CLAPConfig`` audio fields, ``apply_projection``, ``l2_normalize``,
-``encode_audio``). The text towers are a later slice.
+Port of ``audio_residual_tpu/models/clap.py``. :class:`CLAPAudio` is the
+audio half (what the bench, λ-training and the analysis path build, through
+:func:`build_clap_audio`); :class:`CLAP` adds the text half on top of it,
+so every caller of the audio half also takes a full model.
+:func:`clap_apply` is the reference ``forward`` contract (`model.py:650-693`)
+in eval mode.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from audio_residual_tpu_torch import resolve_device
+from audio_residual_tpu_torch.models.bart import Bart, bart_apply
+from audio_residual_tpu_torch.models.clip_text import (Transformer, add_text_embeddings,
+                                                       clip_text_apply)
 from audio_residual_tpu_torch.models.htsat import HTSAT, HTSATConfig, htsat_apply
+from audio_residual_tpu_torch.models.roberta import Roberta, RobertaConfig, roberta_apply
 
-__all__ = ["CLAPConfig", "CLAPAudio", "build_clap_audio", "apply_projection", "l2_normalize",
-           "encode_audio"]
+__all__ = ["CLAPConfig", "CLAPAudio", "CLAP", "build_clap_audio", "build_clap",
+           "text_tower_width", "apply_projection", "apply_transform", "l2_normalize",
+           "encode_audio", "encode_text", "clap_apply"]
+
+TEXT_MODEL_TYPES = ("roberta", "bert", "transformer", "bart")
 
 
 @dataclass(frozen=True)
 class CLAPConfig:
-    """Audio fields of the CLAP config (HTSAT-tiny defaults)."""
+    """The CLAP config (HTSAT-tiny + roberta defaults, `HTSAT-tiny.json`).
+    ``text`` is a ``RobertaConfig`` (roberta, bert), a ``ClipTextConfig``
+    (transformer) or a ``BartConfig`` (bart), matching
+    ``text_model_type``."""
 
     embed_dim: int = 768  # audio tower output width
     joint_embed_shape: int = 512
     mlp_act: str = "relu"
     audio: HTSATConfig = field(default_factory=HTSATConfig)
+    text: Any = field(default_factory=RobertaConfig)
+    text_model_type: str = "roberta"  # roberta | bert | transformer | bart
+    audio_model_type: str = "HTSAT"
+    context_length: int = 77
+
+
+def text_tower_width(cfg: CLAPConfig) -> int:
+    """Input width of the text projection: the CLIP tower's ``width``, the
+    HF towers' ``hidden_size`` / ``d_model`` (`model.py:486-527`)."""
+    t = cfg.text_model_type
+    if t == "transformer":
+        return cfg.text.width
+    if t in ("roberta", "bert"):
+        return cfg.text.hidden_size
+    if t == "bart":
+        return cfg.text.d_model
+    raise RuntimeError(f"Model config for {t} not found.")
+
+
+def _mlp(d_in: int, j: int, act: nn.Module, gen: torch.Generator) -> nn.Sequential:
+    """Linear -> act -> Linear, weights U(+-1/sqrt(fan_in)), biases 0."""
+    seq = nn.Sequential(nn.Linear(d_in, j), act, nn.Linear(j, j))
+    with torch.no_grad():
+        for lin in (seq[0], seq[2]):
+            lim = 1.0 / lin.in_features**0.5
+            nn.init.uniform_(lin.weight, -lim, lim, generator=gen)
+            lin.bias.zero_()
+    return seq
 
 
 class CLAPAudio(nn.Module):
@@ -40,15 +85,54 @@ class CLAPAudio(nn.Module):
         if cfg.mlp_act not in ("relu", "gelu"):
             raise ValueError(cfg.mlp_act)
         self.cfg = cfg
+        if cfg.audio_model_type != "HTSAT":
+            raise NotImplementedError(
+                f"{cfg.audio_model_type} audio towers are not ported yet (ROADMAP, slice 6)")
         self.audio_branch = HTSAT(cfg.audio, gen)
+        act = nn.ReLU() if cfg.mlp_act == "relu" else nn.GELU()
+        self.audio_projection = _mlp(cfg.embed_dim, cfg.joint_embed_shape, act, gen)
+
+
+class _MLPLayers(nn.Module):
+    """The reference's ``MLPLayers([j, j, j], dropout=0.1)``: ``sequential`` =
+    Linear, ReLU, Dropout, Linear (`model.py:27-44`, the trailing ReLU and
+    Dropout stripped), keys ``sequential.0`` / ``.3``."""
+
+    def __init__(self, j: int, gen: torch.Generator):
+        super().__init__()
+        mlp = _mlp(j, j, nn.ReLU(), gen)
+        self.sequential = nn.Sequential(mlp[0], mlp[1], nn.Dropout(0.1), mlp[2])
+
+
+class CLAP(CLAPAudio):
+    """The full model: :class:`CLAPAudio` plus ``text_branch``,
+    ``text_projection``, ``audio_transform``, ``text_transform`` and
+    ``logit_scale_a`` / ``logit_scale_t`` (``log(1/0.07)``), the reference
+    checkpoint's keys. A ``transformer`` text tower also puts
+    ``token_embedding``, ``positional_embedding`` and ``ln_final`` on the
+    root, as the reference does. The audio half draws from ``generator``
+    first, so a seed gives the audio weights :class:`CLAPAudio` gives."""
+
+    def __init__(self, cfg: CLAPConfig = CLAPConfig(), generator: torch.Generator | None = None):
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        super().__init__(cfg, gen)
+        t = cfg.text_model_type
+        if t in ("roberta", "bert"):
+            self.text_branch = Roberta(cfg.text, gen)
+        elif t == "transformer":
+            self.text_branch = Transformer(cfg.text, gen)
+            add_text_embeddings(self, cfg.text, gen)
+        elif t == "bart":
+            self.text_branch = Bart(cfg.text, gen)
+        else:
+            raise RuntimeError(f"Model config for {t} not found.")
         j = cfg.joint_embed_shape
         act = nn.ReLU() if cfg.mlp_act == "relu" else nn.GELU()
-        self.audio_projection = nn.Sequential(nn.Linear(cfg.embed_dim, j), act, nn.Linear(j, j))
-        with torch.no_grad():
-            for lin in (self.audio_projection[0], self.audio_projection[2]):
-                lim = 1.0 / lin.in_features**0.5
-                nn.init.uniform_(lin.weight, -lim, lim, generator=gen)
-                lin.bias.zero_()
+        self.text_projection = _mlp(text_tower_width(cfg), j, act, gen)
+        self.audio_transform = _MLPLayers(j, gen)
+        self.text_transform = _MLPLayers(j, gen)
+        self.logit_scale_a = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        self.logit_scale_t = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
 
 def build_clap_audio(cfg: CLAPConfig = CLAPConfig(), *, seed: int = 0,
@@ -60,9 +144,34 @@ def build_clap_audio(cfg: CLAPConfig = CLAPConfig(), *, seed: int = 0,
     return model.to(dev).eval().requires_grad_(False)
 
 
+def build_clap(cfg: CLAPConfig = CLAPConfig(), *, seed: int = 0,
+               device: str | torch.device | None = None) -> CLAP:
+    """Random-init full model from ``seed`` on ``device`` (the card unless
+    ``device="cpu"``), in eval mode with frozen parameters."""
+    dev = resolve_device(device)
+    model = CLAP(cfg, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval().requires_grad_(False)
+
+
 def apply_projection(model: CLAPAudio, x: torch.Tensor) -> torch.Tensor:
-    """Linear -> act -> Linear."""
+    """The audio projection: Linear -> act -> Linear."""
     return model.audio_projection(x)
+
+
+def apply_transform(transform: nn.Module, x: torch.Tensor, *, train: bool = False,
+                    generator: torch.Generator | None = None, drop: float = 0.1
+                    ) -> torch.Tensor:
+    """An :class:`_MLPLayers` head (``model.audio_transform`` /
+    ``model.text_transform``): Linear -> ReLU -> Dropout -> Linear, dropout
+    only in training, its mask drawn from ``generator`` on the generator's
+    device."""
+    seq = transform.sequential
+    h = F.relu(seq[0](x))
+    if train and drop > 0:
+        keep = torch.rand(h.shape, generator=generator,
+                          device=generator.device if generator is not None else h.device)
+        h = h * (keep.to(h.device) < 1 - drop) / (1 - drop)
+    return seq[3](h)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -95,3 +204,49 @@ def encode_audio(model: CLAPAudio, batch, *, taps=(), residual: dict | None = No
     out["projected"] = proj
     out["normalized"] = l2_normalize(proj)
     return out
+
+
+def encode_text(model: CLAP, input_ids, attention_mask=None, *, normalize: bool = True,
+                compute_dtype=None) -> torch.Tensor:
+    """Text branch -> tower feature -> projection (-> L2 normalise),
+    dispatched on ``cfg.text_model_type`` (`model.py:602-648`): roberta /
+    bert take the pooler output, transformer the EOT token's feature, bart
+    the **unmasked** mean over all positions (the reference averages the
+    padding too). ``compute_dtype`` reaches the roberta / bert tower only;
+    the others run f32 whatever it is."""
+    cfg = model.cfg
+    t = cfg.text_model_type
+    if t in ("roberta", "bert"):
+        pooled = roberta_apply(model.text_branch, input_ids, attention_mask,
+                               compute_dtype=compute_dtype)["pooler_output"]
+    elif t == "transformer":
+        pooled = clip_text_apply(model.text_branch, model, input_ids, cfg.text)
+    elif t == "bart":
+        hidden = bart_apply(model.text_branch, input_ids,
+                            attention_mask)["encoder_last_hidden_state"]
+        pooled = hidden.mean(dim=1)
+    else:
+        raise RuntimeError(f"Model type {t} not found.")
+    x = model.text_projection(pooled)
+    return l2_normalize(x) if normalize else x
+
+
+def clap_apply(model: CLAP, audio_batch, input_ids, attention_mask=None, *,
+               train: bool = False, compute_dtype=None) -> dict:
+    """The contrastive forward (`model.py:650-693`) in eval mode: normalised
+    audio and text features, their MLP-transformed variants and the exp'd
+    logit scales, the inputs of the CLIP loss."""
+    if train:
+        raise NotImplementedError(
+            "clap_apply(train=True) needs HTSAT's train mode (drop_path, SpecAugment, bn0 "
+            "batch statistics), which is not ported yet (ROADMAP, slice 5)")
+    audio_features = encode_audio(model, audio_batch, compute_dtype=compute_dtype)["normalized"]
+    text_features = encode_text(model, input_ids, attention_mask, compute_dtype=compute_dtype)
+    return {
+        "audio_features": audio_features,
+        "text_features": text_features,
+        "audio_features_mlp": apply_transform(model.audio_transform, audio_features),
+        "text_features_mlp": apply_transform(model.text_transform, text_features),
+        "logit_scale_a": torch.exp(model.logit_scale_a),
+        "logit_scale_t": torch.exp(model.logit_scale_t),
+    }

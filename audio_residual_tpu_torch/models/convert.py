@@ -1,14 +1,21 @@
 """Weights into the port's modules: reference checkpoints and the JAX bridge.
 
 :func:`load_audio_checkpoint` loads the audio side of a reference torch
-checkpoint (the port's modules use its ``state_dict`` layout).
+checkpoint, :func:`load_clap_checkpoint` a whole one (the port's modules use
+its ``state_dict`` layout).
 
-:func:`load_jax_params` is the counterpart of the audio side of
+:func:`load_jax_params` is the counterpart of
 ``audio_residual_tpu/models/convert.py::clap_params_to_state_dict``, kept
-here so the port imports nothing of the JAX package. Input is the JAX CLAP
-param pytree as nested dicts/lists of numpy arrays (``audio_branch``,
-``audio_projection``; other keys are ignored). Linear kernels ``[in, out]``
-are transposed to ``[out, in]``; HWIO convolution kernels become OIHW.
+here so the port imports nothing of the JAX package, and extended to every
+text tower: the JAX package has the roberta/bert mapping one way each
+(``convert_roberta_state_dict`` and its inverse
+``roberta_params_to_state_dict``), and bart and the CLIP transformer only
+from a checkpoint (``convert_bart_state_dict``,
+``models/openai.py::convert_openai_text_tower``); :func:`bart_state_dict`
+and :func:`clip_text_state_dict` are their inverses. Input is the JAX CLAP
+param pytree as nested dicts/lists of numpy arrays. Linear kernels ``[in,
+out]`` are transposed to ``[out, in]``; HWIO convolution kernels become
+OIHW.
 """
 
 from __future__ import annotations
@@ -16,17 +23,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["clap_audio_state_dict", "load_jax_params", "load_torch_checkpoint",
-           "load_audio_checkpoint"]
+from audio_residual_tpu_torch.models.clap import CLAP
+
+__all__ = ["clap_audio_state_dict", "roberta_state_dict", "bart_state_dict",
+           "clip_text_state_dict", "clap_state_dict", "load_jax_params", "load_torch_checkpoint",
+           "load_audio_checkpoint", "load_clap_checkpoint"]
 
 # keys of a reference checkpoint that the audio side does not load: the text
-# side, the training-only transform heads, and buffers the port derives (DSP
+# side (a CLIP tower's embeddings and ln_final sit on the root), the
+# training-only transform heads, and buffers the port derives (DSP
 # extractors, BatchNorm's step count, the Swin relative-position index and
 # shift masks)
 _NOT_AUDIO = ("text_branch.", "text_projection.", "logit_scale", "audio_transform.",
-              "text_transform.")
-_DERIVED = ("position_ids", "spectrogram_extractor.", "logmel_extractor.",
-            "num_batches_tracked", "relative_position_index", "attn_mask")
+              "text_transform.", "token_embedding.", "positional_embedding", "ln_final.")
+DERIVED_KEYS = ("position_ids", "spectrogram_extractor.", "logmel_extractor.",
+                "num_batches_tracked", "relative_position_index", "attn_mask")
 
 
 def _lin(sd: dict, dst: str, p: dict) -> None:
@@ -80,14 +91,98 @@ def clap_audio_state_dict(params: dict) -> dict[str, np.ndarray]:
     return sd
 
 
+def roberta_state_dict(params: dict, prefix: str = "text_branch.") -> dict[str, np.ndarray]:
+    """A JAX roberta/bert pytree -> HF names (the JAX package's
+    ``roberta_params_to_state_dict``)."""
+    sd: dict = {}
+    emb = params["embeddings"]
+    sd[prefix + "embeddings.word_embeddings.weight"] = np.asarray(emb["word"])
+    sd[prefix + "embeddings.position_embeddings.weight"] = np.asarray(emb["position"])
+    sd[prefix + "embeddings.token_type_embeddings.weight"] = np.asarray(emb["token_type"])
+    _ln(sd, prefix + "embeddings.LayerNorm", emb["ln"])
+    for i, lp in enumerate(params["layers"]):
+        b = f"{prefix}encoder.layer.{i}."
+        for name, key in (("attention.self.query", "q"), ("attention.self.key", "k"),
+                          ("attention.self.value", "v"), ("attention.output.dense", "out")):
+            _lin(sd, b + name, lp["attn"][key])
+        _ln(sd, b + "attention.output.LayerNorm", lp["ln1"])
+        _lin(sd, b + "intermediate.dense", lp["mlp"]["fc1"])
+        _lin(sd, b + "output.dense", lp["mlp"]["fc2"])
+        _ln(sd, b + "output.LayerNorm", lp["ln2"])
+    _lin(sd, prefix + "pooler.dense", params["pooler"])
+    return sd
+
+
+def bart_state_dict(params: dict, prefix: str = "text_branch.") -> dict[str, np.ndarray]:
+    """A JAX bart pytree -> HF ``BartModel`` encoder names (the inverse of
+    the JAX package's ``convert_bart_state_dict``)."""
+    e = prefix + "encoder."
+    sd: dict = {e + "embed_tokens.weight": np.asarray(params["embed_tokens"]),
+                e + "embed_positions.weight": np.asarray(params["embed_positions"])}
+    _ln(sd, e + "layernorm_embedding", params["ln_emb"])
+    for i, lp in enumerate(params["layers"]):
+        b = f"{e}layers.{i}."
+        for key in ("q", "k", "v", "out"):
+            _lin(sd, f"{b}self_attn.{key}_proj", lp["attn"][key])
+        _ln(sd, b + "self_attn_layer_norm", lp["ln1"])
+        _lin(sd, b + "fc1", lp["fc1"])
+        _lin(sd, b + "fc2", lp["fc2"])
+        _ln(sd, b + "final_layer_norm", lp["ln2"])
+    return sd
+
+
+def clip_text_state_dict(params: dict, blocks: str = "text_branch.",
+                         root: str = "") -> dict[str, np.ndarray]:
+    """A JAX clip_text pytree -> reference names: the blocks under
+    ``blocks`` (``text_branch.`` in a CLAP checkpoint, ``transformer.`` in
+    an OpenAI one), the embeddings and ``ln_final`` under ``root`` (the
+    inverse of ``models/openai.py::convert_openai_text_tower``)."""
+    sd: dict = {root + "token_embedding.weight": np.asarray(params["token_embedding"]),
+                root + "positional_embedding": np.asarray(params["positional_embedding"])}
+    _ln(sd, root + "ln_final", params["ln_final"])
+    for i, bp in enumerate(params["blocks"]):
+        b = f"{blocks}resblocks.{i}."
+        _ln(sd, b + "ln_1", bp["ln1"])
+        sd[b + "attn.in_proj_weight"] = np.asarray(bp["attn"]["in_proj"]["kernel"]).T
+        sd[b + "attn.in_proj_bias"] = np.asarray(bp["attn"]["in_proj"]["bias"])
+        _lin(sd, b + "attn.out_proj", bp["attn"]["out_proj"])
+        _ln(sd, b + "ln_2", bp["ln2"])
+        _lin(sd, b + "mlp.c_fc", bp["mlp"]["c_fc"])
+        _lin(sd, b + "mlp.c_proj", bp["mlp"]["c_proj"])
+    return sd
+
+
+def clap_state_dict(params: dict, text_model_type: str = "roberta") -> dict[str, np.ndarray]:
+    """A full JAX CLAP pytree -> the reference CLAP checkpoint's names."""
+    sd = clap_audio_state_dict(params)
+    if text_model_type in ("roberta", "bert"):
+        sd.update(roberta_state_dict(params["text_branch"]))
+    elif text_model_type == "bart":
+        sd.update(bart_state_dict(params["text_branch"]))
+    elif text_model_type == "transformer":
+        sd.update(clip_text_state_dict(params["text_branch"]))
+    else:
+        raise RuntimeError(f"Model type {text_model_type} not found.")
+    # nn.Sequential(Linear, act, Linear) -> 0 / 2; MLPLayers -> sequential.0 / .3
+    _lin(sd, "text_projection.0", params["text_projection"]["fc1"])
+    _lin(sd, "text_projection.2", params["text_projection"]["fc2"])
+    for side in ("audio", "text"):
+        _lin(sd, f"{side}_transform.sequential.0", params[f"{side}_transform"]["fc1"])
+        _lin(sd, f"{side}_transform.sequential.3", params[f"{side}_transform"]["fc2"])
+    sd["logit_scale_a"] = np.asarray(params["logit_scale_a"])
+    sd["logit_scale_t"] = np.asarray(params["logit_scale_t"])
+    return sd
+
+
 def load_jax_params(model: torch.nn.Module, params: dict) -> torch.nn.Module:
     """Load a JAX CLAP param pytree (numpy leaves) into a
-    :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio`, strictly."""
-    sd = {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
-        for k, v in clap_audio_state_dict(params).items()
-    }
-    model.load_state_dict(sd, strict=True)
+    :class:`~audio_residual_tpu_torch.models.clap.CLAP` (every key) or a
+    :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio` (the audio
+    side), strictly."""
+    sd = (clap_state_dict(params, model.cfg.text_model_type) if isinstance(model, CLAP)
+          else clap_audio_state_dict(params))
+    model.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                           for k, v in sd.items()}, strict=True)
     return model
 
 
@@ -104,7 +199,9 @@ def load_torch_checkpoint(path) -> dict[str, torch.Tensor]:
 
 def load_audio_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
     """Load the audio side of a reference checkpoint into a
-    :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio`.
+    :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio` (or the audio
+    side of a :class:`~audio_residual_tpu_torch.models.clap.CLAP`, whose
+    text side stays as built).
 
     ``sed_model.`` (HTS-AT codebase) keys are read as ``audio_branch.``; the
     text side, the transform heads and derived buffers are skipped; every
@@ -114,10 +211,33 @@ def load_audio_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
     built, as the JAX loader keeps its fresh one."""
     sd = load_torch_checkpoint(path)
     sd = {k.replace("sed_model.", "audio_branch."): v for k, v in sd.items()
-          if not k.startswith(_NOT_AUDIO) and not any(p in k for p in _DERIVED)}
+          if not k.startswith(_NOT_AUDIO) and not any(p in k for p in DERIVED_KEYS)}
     tower_only = not any(k.startswith("audio_projection.") for k in sd)
     missing, unexpected = model.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not (tower_only and k.startswith("audio_projection."))]
+    missing = [k for k in missing if not k.startswith(_NOT_AUDIO)
+               and not (tower_only and k.startswith("audio_projection."))]
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint {path} does not fit the model: missing {missing}, "
+                           f"unexpected {unexpected}")
+    return model
+
+
+# keys of a full reference checkpoint that no module of the port holds: the
+# BART decoder and its shared embedding, which CLAP never runs
+# (`model.py:637-645` reads the encoder's output only)
+_BART_DECODER = ("text_branch.decoder.", "text_branch.shared.")
+
+
+def load_clap_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load a whole reference CLAP checkpoint into a
+    :class:`~audio_residual_tpu_torch.models.clap.CLAP`: ``module.``
+    prefixes stripped, derived buffers (``text_branch.embeddings.position_ids``,
+    the DSP extractors, BatchNorm's step count, the Swin relative-position
+    index and masks) and a BART decoder skipped; every other key must match
+    the model's, and every key of the model must be there."""
+    sd = {k: v for k, v in load_torch_checkpoint(path).items()
+          if not k.startswith(_BART_DECODER) and not any(p in k for p in DERIVED_KEYS)}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
     if missing or unexpected:
         raise RuntimeError(f"checkpoint {path} does not fit the model: missing {missing}, "
                            f"unexpected {unexpected}")

@@ -96,6 +96,24 @@ line):
                float64 eigh of one head's moments (layers 0 and 3), and the
                CSV; each stage's time by CUDA events beside the bounds, and
                the peak memory.
+  7. clap    -- ESC-50 zero-shot with a real text classifier: CLAPModule
+               (HTSAT-tiny + RoBERTa-base at full width, seed 0,
+               HashTokenizer), golden and AMP. The text tower at the 50
+               prompts and at 32 texts of 77 tokens: golden against a
+               float64 copy on the card (atol=2e-3, rtol=1e-3, cosine >
+               0.99999), AMP against golden (cosine > 0.999) with its 73
+               bf16 GEMM launches; the bf16 GEMM at the text shapes
+               against its plain version (phase 2b's loop); evaluate_zeroshot
+               on 2 seeded batches of B=32 clips (the audio launches per
+               forward, the profiler census of K1, K4, K2 and K3 by kernel,
+               the bench guard between the modules, the metrics, clips/s
+               with the classifier built once); clap_apply at 32 clips + 32
+               texts (its features bit-equal to encode_audio's and
+               encode_text's, logit scales 1/0.07, the transform heads
+               against float64); the text tower's ms beside its bound, the
+               AMP text forward by CUDA kernel, peak memory; the JAX CLAP
+               fixture (tests/data/torch_port_clap.npz) for the roberta,
+               bert, bart and transformer towers ([fixture-clap] lines).
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -156,6 +174,23 @@ ATTENTION_TAP_LAUNCHES = {"fused_logmel": 1, "fused_residual_ffn": 12}
 BASE_TAPPED_LAUNCHES = {"fused_logmel": 1, "fused_window_attention": 16,
                         "wide_window_attention": 2, "fused_residual_ffn": 18}
 PCA_F64_CHECK = dict(top=32, rtol=1e-3, span=0.99)  # tests/test_pca.py:181-192
+# the CLAP phase: RoBERTa's context, the zero-shot batches of B clips; the
+# AMP text forward's bf16 GEMMs (q, k, v, out, fc1, fc2 a layer, the pooler);
+# the port's kernels of one audio forward without a ResiDual by profiler
+# name (golden: K4's LN1 and LN2 and K3's add+LN2, a core and the qkv and
+# proj products a K2/K4 call, fc1 and fc2 a FFN pass; AMP: K4's two LNs,
+# its proj, fc1 and fc2 and K2's proj on the bf16 GEMM, one clustered launch
+# a K3 call)
+TEXT_CONTEXT, CLAP_BATCHES = 77, 2
+TEXT_GEMMS = 6 * 12 + 1
+CLAP_CENSUS = {
+    "f32": {"logmel_tf32x3_kernel": 1, "add_layernorm_kernel": 2 * 10 + 2,
+            "attention_core_kernel": 12, "gemm_tf32x3_kernel": 2 * 12 + 2 * 12},
+    "bf16": {"logmel_wgmma_kernel": 1, "add_layernorm_kernel": 2 * 10,
+             "window_attention_wgmma_kernel": 12, "gemm_kernel": 3 * 10 + 2,
+             "ffn_cluster_kernel": 2},
+}
+GOLDEN_TEXT = dict(atol=2e-3, rtol=1e-3, cos=0.99999)  # PERF.md §2's golden parity
 TAP_AMP_COS = 0.99999  # AMP taps against the plain route: cosine, beside TOL["bf16"]
 # the kernels of the port by role (profiler names); any other kernel of the
 # port (namespace arpu) counts under its own name
@@ -996,16 +1031,38 @@ def gemm_specs():
     return specs
 
 
-def phase_gemm(dev) -> None:
-    """The AMP GEMM alone at each main-path shape: against its plain version,
-    timed beside its bound and one torch.matmul of the same bf16 operands."""
+def text_gemm_specs(layers: int = 12, d: int = 768, ff: int = 3072):
+    """``gemm_specs``' rows for RoBERTa-base's AMP forward (phase 7): each
+    layer's q, k, v, the attention output (+ the residual), fc1 (GELU, a
+    bf16 store: its one reader rounds it to bf16) and fc2 (+ the residual),
+    and the pooler, at the 50 prompts' and at 32 texts' 77 tokens."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = []
+    for b in (N_CLASSES, B):
+        m = b * TEXT_CONTEXT
+        tag = f"RoBERTa B={b}"
+        specs += [(f"{tag} q|k|v", m, d, d, dict(bias=True, out=f32), 3 * layers),
+                  (f"{tag} out+x", m, d, d, dict(bias=True, r1=f32, out=f32), layers),
+                  (f"{tag} fc1", m, ff, d, dict(bias=True, gelu=True, out=bf16), layers),
+                  (f"{tag} fc2+x", m, d, ff, dict(bias=True, r1=f32, out=f32), layers),
+                  (f"{tag} pooler", b, d, d, dict(bias=True, out=f32), 1)]
+    return specs
+
+
+def phase_gemm(dev, specs=None, phase: str = "gemm",
+               total_label: str = "summed over one AMP forward of each main path") -> None:
+    """The AMP GEMM alone at each of ``specs`` (default: every main-path
+    shape, ``gemm_specs()``): against its plain version, timed beside its
+    bound and one torch.matmul of the same bf16 operands."""
     import torch
 
     from audio_residual_tpu_torch.ops.cuda import gemm as kg
 
     rng = np.random.default_rng(3)
     total = collections.Counter()
-    for label, m, n, k, e, launches in gemm_specs():
+    for label, m, n, k, e, launches in specs if specs is not None else gemm_specs():
         def t(*shape, scale=1.0):
             a = (scale * rng.standard_normal(shape)).astype(np.float32)
             return torch.from_numpy(a).to(dev)
@@ -1031,7 +1088,7 @@ def phase_gemm(dev) -> None:
         # device time alone: the events above also hold each call's host work
         dev_ms, lib_dev_ms = (device_busy_ms(f) for f in (lambda: kg.gemm(a, w, **args),
                                                           lambda: torch.matmul(a, w.t())))
-        log("gemm", shape=f"{label} [{m}x{k}]@[{n}x{k}]^T", launches=launches, max_abs_err=err,
+        log(phase, shape=f"{label} [{m}x{k}]@[{n}x{k}]^T", launches=launches, max_abs_err=err,
             max_rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain, bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations", matmul_ms=lib,
             device_ms=dev_ms, matmul_device_ms=lib_dev_ms,
@@ -1047,7 +1104,7 @@ def phase_gemm(dev) -> None:
         else:
             total["shapes_without_device_time"] += 1
         total["launches"] += launches
-    log("gemm", total="summed over one AMP forward of each main path",
+    log(phase, total=total_label,
         **{k: total[k] for k in ("launches", "ms", "plain_ms", "bound_ms", "matmul_ms",
                                  "device_ms", "matmul_device_ms",
                                  "shapes_without_device_time")})
@@ -1425,12 +1482,12 @@ def phase_train(dev, card: str) -> None:
         raise AssertionError("evaluate_zero_shot: malformed similarities or artifacts")
 
 
-def port_census(fn, want: dict, label: str) -> collections.Counter:
+def port_census(fn, want: dict, label: str, phase: str = "analysis") -> collections.Counter:
     """The port's kernels launched by ``fn()`` (``port_kernels`` of a
     profiler window, up to three until they are ``want``); the window's
     split is logged."""
     prof = profile_until(fn, lambda p: port_kernels(p[4]) == collections.Counter(want), label)
-    log_profile("analysis", label, prof)
+    log_profile(phase, label, prof)
     return port_kernels(prof[4])
 
 
@@ -1805,6 +1862,241 @@ def phase_analysis(stats: KernelStats, dev, card: str) -> None:
             raise AssertionError("the attention PCA's CSV does not read back")
 
 
+def text_flops(cfg, tokens: int, texts: int) -> dict:
+    """The operations of ``encode_text`` on RoBERTa/BERT at ``texts`` rows
+    of ``tokens / texts`` tokens, by kind: the dense products (and the
+    pooler and projection) and the attention's two products a head."""
+    t = cfg.text
+    d, ff, layers = t.hidden_size, t.intermediate_size, t.num_layers
+    length = tokens // texts
+    dense = 2 * tokens * layers * (4 * d * d + 2 * d * ff)
+    dense += 2 * texts * (d * d + d * cfg.joint_embed_shape + cfg.joint_embed_shape ** 2)
+    attention = 2 * 2 * texts * layers * length * length * d
+    return {"dense": dense, "attention": attention}
+
+
+def text_bound_ms(cfg, tokens: int, texts: int, amp: bool) -> tuple[float, str]:
+    """``encode_text``'s bound on the card: the larger of its weights and
+    activations over HBM and its operations over the peak of their type
+    (dense products bf16 under AMP, f32 golden; the attention products f32
+    in both modes: bf16-rounded operands in an f32 product)."""
+    f = text_flops(cfg, tokens, texts)
+    ops_ms = 1e3 * (f["dense"] / PEAK["bf16" if amp else "f32"] + f["attention"] / PEAK["f32"])
+    t = cfg.text
+    weights = 4 * t.num_layers * (4 * t.hidden_size ** 2 + 2 * t.hidden_size * t.intermediate_size)
+    bytes_ms = 1e3 * (weights / (2 if amp else 1) + 4 * tokens * t.hidden_size * 2) / HBM_BYTES_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def text_check(label: str, got, ref, golden: bool) -> None:
+    """Text features against a reference: golden within ``GOLDEN_TEXT``
+    (float64 reference); AMP within the bench guard's cosine > 0.999."""
+    import torch
+
+    g, r = got.double(), ref.double()
+    cos = float(((g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1))).min())
+    err = float((g - r).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    if golden:
+        ok = finite and bool(torch.allclose(g, r, atol=GOLDEN_TEXT["atol"],
+                                            rtol=GOLDEN_TEXT["rtol"])) and cos > GOLDEN_TEXT["cos"]
+        tol = "atol=2e-3,rtol=1e-3,cosine>0.99999"
+    else:
+        ok, tol = finite and cos > 0.999, "cosine>0.999"
+    log("clap", check=label, shape=list(got.shape), max_abs_err=err, min_cosine=cos, tol=tol,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"{label}: outside {tol}")
+
+
+def clap_batches() -> list:
+    """Phase 7's zero-shot data: CLAP_BATCHES seeded batches of B
+    ESC-50-length clips (numpy, as a user hands them to ``CLAPModule``) with
+    seeded labels."""
+    rng = np.random.default_rng(29)
+    return [((rng.standard_normal((B, CLIP)) * 0.1).astype(np.float32),
+             rng.integers(0, N_CLASSES, B)) for _ in range(CLAP_BATCHES)]
+
+
+def phase_clap(dev, card: str) -> None:
+    """ESC-50 zero-shot with a real text classifier, the slice's path:
+    ``CLAPModule`` (HTSAT-tiny + RoBERTa-base at full width, seed 0), the 50
+    prompts through the text tower, two seeded batches of B clips through
+    K1, K4, K2, K3, ``evaluate_zeroshot``; golden and AMP modules. Beside it
+    the text tower against float64, the AMP text route's bf16 GEMMs at their
+    shapes, ``clap_apply`` at B clips + B texts, the JAX CLAP fixture for
+    every tower, times and peak memory. Any miss raises."""
+    import copy
+
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.evaluate.zero_shot import (PROMPT_TEMPLATES,
+                                                             build_text_classifier,
+                                                             evaluate_zeroshot)
+    from audio_residual_tpu_torch.models.clap import (apply_transform, clap_apply, encode_audio,
+                                                      encode_text)
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+    from tests import torch_port_fixture as fx
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tok = HashTokenizer(context_length=TEXT_CONTEXT)
+    golden = CLAPModule(device=dev, seed=0, tokenizer=tok)
+    amp = CLAPModule(device=dev, seed=0, tokenizer=tok, compute_dtype=torch.bfloat16)
+    model, cfg = golden.model, golden.cfg
+    with open(os.path.join(REPO, "class_labels", "ESC50_class_labels_indices_space.json")) as f:
+        labels = list(json.load(f))
+    prompts = [PROMPT_TEMPLATES["default"].format(c) for c in labels]
+    texts = {N_CLASSES: tok(prompts), B: tok([f"{p} {i}" for i, p in enumerate(prompts[:B])])}
+    texts = {b: {k: torch.from_numpy(v).to(dev) for k, v in enc.items()}
+             for b, enc in texts.items()}
+    log("clap", modules="CLAPModule(HTSAT-tiny, roberta) golden + AMP", tokenizer="HashTokenizer",
+        prompts=len(prompts), context=TEXT_CONTEXT,
+        text_params=sum(p.numel() for p in model.text_branch.parameters()),
+        setup_s=time.perf_counter() - t0)
+
+    with torch.no_grad():
+        # the text tower at full width: golden against a float64 copy on the
+        # card, AMP against golden; the AMP route's bf16 GEMM launches
+        ref64 = copy.deepcopy(model).double()
+        golden_text = {}
+        for b, enc in texts.items():
+            args = (enc["input_ids"], enc["attention_mask"])
+            launch_counts.clear()
+            golden_text[b] = encode_text(model, *args)
+            torch.cuda.synchronize()
+            if launch_counts:
+                raise AssertionError(f"golden text forward launched {dict(launch_counts)}")
+            text_check(f"golden text B={b} against float64", golden_text[b],
+                       encode_text(ref64, *args), golden=True)
+            launch_counts.clear()
+            amp_text = encode_text(model, *args, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            got = dict(launch_counts)
+            log("clap", text_b=b, amp_launches=json.dumps(got), expected={"gemm": TEXT_GEMMS})
+            if got != {"gemm": TEXT_GEMMS}:
+                raise AssertionError(f"AMP text forward launched {got}, expected "
+                                     f"{TEXT_GEMMS} bf16 GEMMs")
+            text_check(f"AMP text B={b} against golden", amp_text, golden_text[b], golden=False)
+        classifier = build_text_classifier(golden, labels)
+        if not np.array_equal(classifier, golden_text[N_CLASSES].cpu().numpy()):
+            raise AssertionError("build_text_classifier differs from encode_text's features")
+        del ref64
+    phase_gemm(dev, text_gemm_specs(cfg.text.num_layers, cfg.text.hidden_size,
+                                    cfg.text.intermediate_size),
+               "clap", "summed over one AMP text forward of 50 prompts and one of 32 texts")
+
+    # the path: evaluate_zeroshot on seeded batches, golden and AMP modules
+    batches = clap_batches()
+    embeds, metrics = {}, {}
+    for mode, module in (("f32", golden), ("bf16", amp)):
+        launch_counts.clear()
+        metrics[mode] = evaluate_zeroshot(module, batches, labels)
+        torch.cuda.synchronize()
+        got = dict(launch_counts)
+        want = {k: CLAP_BATCHES * v for k, v in EXPECTED_LAUNCHES.items()}
+        log("clap", mode=mode, evaluate_zeroshot_launches=json.dumps(got),
+            expected=json.dumps(want))
+        if got != want:
+            raise AssertionError(f"evaluate_zeroshot ({mode}) launched {got}, expected {want}")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            evaluate_zeroshot(module, batches, labels)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        wall = statistics.median(walls[1:])
+        log("clap", mode=mode, evaluate_zeroshot_ms=1e3 * wall,
+            clips_per_s=CLAP_BATCHES * B / wall, classifier_builds=1, card=card,
+            metrics=json.dumps({k: v for k, v in metrics[mode].items() if np.isscalar(v)}))
+        wav = batches[0][0]
+        embeds[mode] = module.get_audio_embedding_from_data(wav)
+        want_census = CLAP_CENSUS[mode]
+        census = port_census(lambda: module.get_audio_embedding_from_data(wav), want_census,
+                             f"{mode} audio forward of CLAPModule", "clap")
+        log("clap", mode=mode, census=json.dumps(dict(census)))
+        if census != collections.Counter(want_census):
+            raise AssertionError(f"{mode} audio forward ran {dict(census)}, expected "
+                                 f"{want_census}")
+    cos = float((embeds["f32"] * embeds["bf16"]).sum(-1).min())
+    agree = float(((embeds["f32"] @ classifier.T).argmax(-1)
+                   == (embeds["bf16"] @ classifier.T).argmax(-1)).mean())
+    log("clap", guard_min_embed_cos=cos, guard_argmax_agreement=agree)
+    if not (cos > 0.999 and agree == 1.0):
+        raise AssertionError(f"CLAPModule AMP guard failed: min cos {cos}, argmax {agree}")
+    if not np.array_equal(amp.get_text_embedding(prompts), classifier):
+        raise AssertionError("the AMP module's text side is not the golden module's")
+
+    with torch.no_grad():
+        # clap_apply at B clips + B texts: its features are encode_audio's and
+        # encode_text's in the same mode, bit for bit
+        wav = torch.from_numpy(batches[0][0]).to(dev)
+        batch = featurize_batch(quantize_roundtrip(wav), cfg.audio.clip_samples)
+        enc = texts[B]
+        heads = {side: copy.deepcopy(getattr(model, f"{side}_transform")).double()
+                 for side in ("audio", "text")}
+        for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+            out = clap_apply(model, batch, enc["input_ids"], enc["attention_mask"],
+                             compute_dtype=md)
+            same = (torch.equal(out["audio_features"],
+                                encode_audio(model, batch, compute_dtype=md)["normalized"])
+                    and torch.equal(out["text_features"],
+                                    encode_text(model, enc["input_ids"], enc["attention_mask"],
+                                                compute_dtype=md)))
+            scales = [float(out[k]) for k in ("logit_scale_a", "logit_scale_t")]
+            scales_ok = all(abs(v * 0.07 - 1) < 1e-6 for v in scales)
+            log("clap", mode=mode, clap_apply_features_equal=same, logit_scales=scales,
+                ok=same and scales_ok)
+            if not (same and scales_ok):
+                raise AssertionError(f"clap_apply ({mode}) features or logit scales are off")
+            for side in ("audio", "text"):
+                ref = apply_transform(heads[side], out[f"{side}_features"].double())
+                text_check(f"clap_apply {mode} {side}_features_mlp against float64",
+                           out[f"{side}_features_mlp"], ref, golden=True)
+            log("clap", mode=mode, clap_apply_ms=time_ms(lambda: clap_apply(
+                model, batch, enc["input_ids"], enc["attention_mask"], compute_dtype=md), reps=5),
+                batch=B, texts=B, card=card)
+
+        # times of the text tower beside its bound, and the AMP text forward
+        # by CUDA kernel
+        for b, enc in texts.items():
+            args = (enc["input_ids"], enc["attention_mask"])
+            for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+                bound, by = text_bound_ms(cfg, b * TEXT_CONTEXT, b, md is not None)
+                log("clap", text_b=b, tokens=b * TEXT_CONTEXT, mode=mode,
+                    ms=time_ms(lambda: encode_text(model, *args, compute_dtype=md)),
+                    bound_ms=bound, bound_by=by,
+                    tflop=sum(text_flops(cfg, b * TEXT_CONTEXT, b).values()) / 1e12, card=card)
+        enc = texts[N_CLASSES]
+        prof = profile_until(
+            lambda: encode_text(model, enc["input_ids"], enc["attention_mask"],
+                                compute_dtype=torch.bfloat16),
+            lambda p: port_kernels(p[4])["gemm_kernel"] == TEXT_GEMMS, "AMP text forward")
+        log_profile("clap", "AMP text forward, 50 prompts", prof)
+        if port_kernels(prof[4])["gemm_kernel"] != TEXT_GEMMS:
+            raise AssertionError(f"AMP text forward: {dict(port_kernels(prof[4]))} in the "
+                                 f"profile, expected {TEXT_GEMMS} gemm_kernel")
+    log("clap", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+    # the JAX CLAP fixture, every text tower, golden
+    arrays = fx.load(fx.CLAP_PATH)
+    for tmodel in fx.CLAP_TEXT_KW:
+        got = fx.run_port_clap(arrays, tmodel, dev)
+        for key in fx.CLAP_APPLY_KEYS:
+            ref = arrays[f"out/{tmodel}/{key}"]
+            err = float(np.abs(got[key] - ref).max())
+            ok = bool(np.allclose(got[key], ref, atol=2e-3, rtol=1e-3))
+            log("fixture-clap", tower=tmodel, output=key, max_abs_err=err,
+                tol="atol=2e-3,rtol=1e-3", ok=ok)
+            if not ok:
+                raise AssertionError(f"fixture-clap {tmodel} {key} disagrees with the JAX package")
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include."""
@@ -1881,6 +2173,7 @@ def main() -> int:
     phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
     phase_train(dev, card)
     phase_analysis(stats, dev, card)
+    phase_clap(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

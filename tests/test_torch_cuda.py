@@ -1087,3 +1087,113 @@ def test_randomized_finalize_on_card_matches_dense(dev):
     want = pca.pca_finalize(state, k, method="dense")
     np.testing.assert_allclose(got["explained_variance"], want["explained_variance"], rtol=1e-6)
     assert np.abs(np.sum(got["components"] * want["components"], axis=-1)).min() > 0.999
+
+
+TEXT_MODELS = ("roberta", "bert", "bart", "transformer")
+
+
+def _texts(n: int, vocab_size: int) -> dict:
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    words = ("dog", "rain", "sea waves", "crackling fire", "crying baby", "clock tick",
+             "helicopter", "chainsaw", "church bells", "keyboard typing")
+    return HashTokenizer(vocab_size=vocab_size)(
+        [f"This is a sound of {words[i % len(words)]} number {i}." for i in range(n)])
+
+
+def _cos_min(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+
+
+@pytest.mark.parametrize("tmodel", TEXT_MODELS)
+def test_text_towers_against_float64_on_card(dev, tmodel):
+    """Each text tower at full width (``create_model``, seed 0), golden
+    ``encode_text`` on the card against a float64 copy evaluated on the
+    card: atol=2e-3, rtol=1e-3, cosine > 0.99999 (golden parity)."""
+    import copy
+
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import factory as t_factory
+
+    model, cfg, _ = t_factory.create_model("HTSAT-tiny", tmodel, device=dev)
+    enc = _texts(8, cfg.text.vocab_size)
+    with torch.no_grad():
+        got = t_clap.encode_text(model, enc["input_ids"], enc["attention_mask"])
+        ref = t_clap.encode_text(copy.deepcopy(model).double(), enc["input_ids"],
+                                 enc["attention_mask"])
+    assert got.dtype == torch.float32 and got.shape == (8, cfg.joint_embed_shape)
+    torch.testing.assert_close(got.double(), ref, atol=2e-3, rtol=1e-3)
+    assert _cos_min(got, ref) > 0.99999
+
+
+def test_roberta_amp_runs_the_bf16_gemm_on_card(dev):
+    """RoBERTa-base under AMP at 32 texts of 77 tokens: one bf16 GEMM launch
+    for each of the 6 dense products of a layer and the pooler, and no plain
+    GEMM; the features against the same forward through the plain GEMM
+    (max rel err 2e-2; cosine > 0.9999: at 12 layers a change of summation
+    order alone moves the AMP features to cosine 0.99999, as f32 against
+    f64 accumulation of the same bf16 products shows on the CPU, because
+    it flips the bf16 rounding of stored inputs) and against golden (the
+    bench guard's cosine > 0.999)."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import factory as t_factory
+    from audio_residual_tpu_torch.models import roberta as t_roberta
+
+    model, cfg, _ = t_factory.create_model("HTSAT-tiny", "roberta", device=dev)
+    enc = _texts(32, cfg.text.vocab_size)
+    args = (model, enc["input_ids"], enc["attention_mask"])
+    with torch.no_grad():
+        golden = t_clap.encode_text(*args)
+        launch_counts.clear()
+        with mock.patch.object(kg, "gemm_plain", side_effect=AssertionError("plain GEMM")):
+            amp = t_clap.encode_text(*args, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert dict(launch_counts) == {"gemm": 6 * cfg.text.num_layers + 1}
+        with mock.patch.object(t_roberta, "gemm", kg.gemm_plain):
+            plain = t_clap.encode_text(*args, compute_dtype=torch.bfloat16)
+    assert _rel(amp, plain) <= 2e-2 and _cos_min(amp, plain) > 0.9999
+    assert _cos_min(amp, golden) > 0.999
+
+
+@pytest.mark.parametrize("tmodel", TEXT_MODELS)
+def test_clap_fixture_on_card(dev, tmodel):
+    """The JAX CLAP fixture through the port on the card, golden:
+    atol=2e-3, rtol=1e-3 (the fixtures' limit on the card)."""
+    arrays = fx.load(fx.CLAP_PATH)
+    got = fx.run_port_clap(arrays, tmodel, dev)
+    for key in fx.CLAP_APPLY_KEYS:
+        np.testing.assert_allclose(got[key], arrays[f"out/{tmodel}/{key}"], atol=2e-3, rtol=1e-3,
+                                   err_msg=key)
+
+
+def test_clap_module_on_card(dev):
+    """``CLAPModule`` with its defaults on the card: 50 ESC-50 prompts ->
+    unit ``[50, 512]`` text embeddings; 4 ESC-50-length clips -> the main
+    path's launches (K1 1, K4 10, K2 2, K3 2); an AMP module's text
+    embeddings equal the golden module's (the text side stays f32) and its
+    audio embeddings hold the bench guard."""
+    import json
+    from pathlib import Path
+
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    labels = Path(__file__).resolve().parents[1] / "class_labels" / \
+        "ESC50_class_labels_indices_space.json"
+    prompts = [f"This is a sound of {c}." for c in json.loads(labels.read_text())]
+    golden = CLAPModule(device=dev, tokenizer=HashTokenizer())
+    text = golden.get_text_embedding(prompts)
+    assert text.shape == (50, 512) and np.isfinite(text).all()
+    np.testing.assert_allclose(np.linalg.norm(text, axis=-1), 1.0, atol=1e-5)
+    wav = (np.random.default_rng(16).standard_normal((4, 240000)) * 0.1).astype(np.float32)
+    launch_counts.clear()
+    emb = golden.get_audio_embedding_from_data(wav)
+    torch.cuda.synchronize()
+    assert dict(launch_counts) == {"fused_logmel": 1, "fused_swin_block": 10,
+                                   "fused_window_attention": 2, "fused_residual_ffn": 2}
+    amp = CLAPModule(device=dev, tokenizer=HashTokenizer(), compute_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(amp.get_text_embedding(prompts), text)
+    emb16 = amp.get_audio_embedding_from_data(wav)
+    assert (emb * emb16).sum(-1).min() > 0.999
+    assert ((emb @ text.T).argmax(-1) == (emb16 @ text.T).argmax(-1)).all()

@@ -118,6 +118,12 @@ def test_port_imports_no_jax():
 
 
 def test_entry_point_without_device_needs_a_card(monkeypatch):
+    """``device=None`` means the card: every entry point that builds a model
+    raises without one, the full CLAP's (``build_clap``, ``create_model``,
+    ``CLAPModule``) too."""
+    from audio_residual_tpu_torch.models import factory as t_factory
+    from audio_residual_tpu_torch.module import CLAPModule
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(**fx.AUDIO_KW), **fx.CLAP_KW)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -125,3 +131,12 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_residual_params(np.eye(4), np.zeros(4))
     assert t_clap.build_clap_audio(cfg, device="cpu").cfg == cfg
+    full = fx.port_clap_config("bart")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_clap.build_clap(full)
+    assert t_clap.build_clap(full, device="cpu").cfg == full
+    with torch.device("meta"):  # the check comes before any weight is made
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_factory.create_model("HTSAT-tiny", "bart")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CLAPModule(tmodel="bart")

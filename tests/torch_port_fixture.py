@@ -20,13 +20,24 @@ loss after each of three Adam steps (lr 0.01, batches 0, 1, 0) and the
 ``evaluate_zero_shot`` similarities of both batches with that λ; and the
 loss and λ-gradient on batch 0 under AMP (``compute_dtype=bfloat16``).
 
-``chip_smoke.py`` runs the port's kernels on the card against all three
+``tests/data/torch_port_clap.npz`` holds the full CLAP at narrow widths
+(the tiny fixture's HTSAT, each text tower with 2 layers of width 64,
+vocab 1000, context 16) for each ``text_model_type`` (roberta, bert, bart,
+transformer). It stores no weights: they are made from the config's
+``seed`` in the reference ``state_dict`` layout and reach the JAX package
+through its ``convert_clap_state_dict``. It holds the config, a 2-clip
+input, each tower's token ids and masks, and the JAX f32 outputs of
+``encode_text`` and ``clap_apply``, plus roberta's ``encode_text`` under
+AMP (``compute_dtype=bfloat16``).
+
+``chip_smoke.py`` runs the port's kernels on the card against all four
 without importing JAX; ``tests/test_torch_htsat.py``,
-``tests/test_torch_wide_attention.py`` and
-``tests/test_torch_train_residual.py`` regenerate them and compare with the
+``tests/test_torch_wide_attention.py``, ``tests/test_torch_train_residual.py``
+and ``tests/test_torch_clap.py`` regenerate them and compare with the
 committed files, so they cannot drift.
 
-Regenerate with ``python -m tests.torch_port_fixture`` from the repo root.
+Regenerate with ``python -m tests.torch_port_fixture [tiny|wide|train|clap
+...]`` from the repo root (all four without an argument).
 """
 
 from __future__ import annotations
@@ -59,6 +70,24 @@ WIDE_SEED = 0
 WIDE_K = 64  # ResiDual components at layer 0 (C=256)
 # fine_grained_embedding ([2, 1024, 1024] here) is left out to keep the file small
 WIDE_OUTPUT_KEYS = ("embedding", "clipwise_output", "framewise_output", "normalized")
+
+
+CLAP_PATH = PATH.with_name("torch_port_clap.npz")
+CLAP_SEED = 0
+CLAP_CONTEXT = 16
+CLAP_TEXT_KW = {
+    "roberta": dict(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
+                    intermediate_size=256, max_position_embeddings=CLAP_CONTEXT + 2),
+    "bert": dict(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
+                 intermediate_size=256, max_position_embeddings=CLAP_CONTEXT, type_vocab_size=2,
+                 pad_token_id=0, style="bert"),
+    "bart": dict(vocab_size=1000, d_model=64, num_layers=2, num_heads=4, ffn_dim=256,
+                 max_position_embeddings=CLAP_CONTEXT),
+    "transformer": dict(vocab_size=1000, width=64, heads=4, layers=2,
+                        context_length=CLAP_CONTEXT),
+}
+CLAP_APPLY_KEYS = ("audio_features", "text_features", "audio_features_mlp",
+                   "text_features_mlp", "logit_scale_a", "logit_scale_t")
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -163,7 +192,7 @@ def seeded_state_dict(shapes: dict[str, tuple], seed: int) -> dict[str, np.ndarr
             v = 0.02 * z
         else:
             v = z / np.sqrt(np.prod(shape[1:]))
-        sd[key] = v.astype(np.float32)
+        sd[key] = np.asarray(v, dtype=np.float32)
     return sd
 
 
@@ -391,15 +420,122 @@ def run_port_train_amp(arrays: dict, device) -> dict[str, np.ndarray]:
     return {"loss_bf16": np.float32(loss.detach().cpu()), "grad_bf16": grad.cpu().numpy()}
 
 
-def main() -> None:
+def text_inputs(tmodel: str, batch: int = 4, seed: int = 5) -> dict[str, np.ndarray]:
+    """``input_ids`` and ``attention_mask`` ``[batch, CLAP_CONTEXT]`` of a
+    tower's token rules, rows of lengths from 3 to the context: HF towers
+    ``<s> ... </s>`` then padding (pad 1; bert pad 0), the CLIP tower SOT
+    ... EOT (the vocab's two largest ids, EOT the row's argmax) then zeros."""
+    rng = np.random.default_rng(seed)
+    vocab = CLAP_TEXT_KW[tmodel]["vocab_size"]
+    lengths = np.linspace(3, CLAP_CONTEXT, batch).astype(int)
+    if tmodel == "transformer":
+        bos, eos, pad = vocab - 2, vocab - 1, 0
+    else:
+        bos, eos, pad = (101, 102, 0) if tmodel == "bert" else (0, 2, 1)
+    ids = np.full((batch, CLAP_CONTEXT), pad, np.int64)
+    mask = np.zeros((batch, CLAP_CONTEXT), np.int64)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = [bos, *rng.integers(4, vocab - 2, n - 2), eos]
+        mask[i, :n] = 1
+    return {"input_ids": ids, "attention_mask": mask}
+
+
+def port_clap_config(tmodel: str):
+    """The port's CLAPConfig of the CLAP fixture's ``tmodel``."""
+    from audio_residual_tpu_torch.models import bart, clap, clip_text, htsat, roberta
+
+    text_cls = {"roberta": roberta.RobertaConfig, "bert": roberta.RobertaConfig,
+                "bart": bart.BartConfig, "transformer": clip_text.ClipTextConfig}[tmodel]
+    return clap.CLAPConfig(audio=htsat.HTSATConfig(**AUDIO_KW),
+                           text=text_cls(**CLAP_TEXT_KW[tmodel]), text_model_type=tmodel,
+                           context_length=CLAP_CONTEXT, **CLAP_KW)
+
+
+def clap_weights(tmodel: str) -> dict[str, np.ndarray]:
+    """The CLAP fixture's seeded reference-layout weights of ``tmodel``."""
+    from audio_residual_tpu_torch.models import clap
+
+    return _seeded_weights(clap.build_clap(port_clap_config(tmodel), device="cpu"), CLAP_SEED)
+
+
+def jax_clap_config(tmodel: str):
+    """The JAX package's CLAPConfig of the CLAP fixture's ``tmodel``."""
+    from audio_residual_tpu.models import bart, clap, clip_text, roberta
+    from audio_residual_tpu.models.htsat import HTSATConfig
+
+    text_cls = {"roberta": roberta.RobertaConfig, "bert": roberta.RobertaConfig,
+                "bart": bart.BartConfig, "transformer": clip_text.ClipTextConfig}[tmodel]
+    return clap.CLAPConfig(audio=HTSATConfig(**AUDIO_KW), text=text_cls(**CLAP_TEXT_KW[tmodel]),
+                           text_model_type=tmodel, context_length=CLAP_CONTEXT, **CLAP_KW)
+
+
+def build_clap() -> dict[str, np.ndarray]:
+    """The CLAP fixture's arrays: ``config``, ``wav``, ``text/<tmodel>/*``
+    and ``out/<tmodel>/<key>``."""
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.data.featurize import featurize_batch
+    from audio_residual_tpu.models import clap, convert
+    from audio_residual_tpu.ops.quantize import quantize_roundtrip
+
+    rng = np.random.default_rng(CLAP_SEED)
+    wav = (rng.standard_normal((2, AUDIO_KW["clip_samples"] // 2)) * 0.1).astype(np.float32)
+    arrays = {"config": np.asarray(json.dumps({"audio": AUDIO_KW, **CLAP_KW, "seed": CLAP_SEED,
+                                               "text": CLAP_TEXT_KW})),
+              "wav": wav}
+    for tmodel in CLAP_TEXT_KW:
+        cfg = jax_clap_config(tmodel)
+        params = convert.convert_clap_state_dict(clap_weights(tmodel), AUDIO_KW["depths"])
+        text = text_inputs(tmodel)
+        ids, mask = jnp.asarray(text["input_ids"]), jnp.asarray(text["attention_mask"])
+        batch = featurize_batch(quantize_roundtrip(jnp.asarray(wav)), cfg.audio.clip_samples)
+        out = clap.clap_apply(params, batch, ids, mask, cfg)
+        arrays.update({f"text/{tmodel}/{k}": v for k, v in text.items()})
+        arrays.update({f"out/{tmodel}/{k}": np.asarray(out[k]) for k in CLAP_APPLY_KEYS})
+        if tmodel == "roberta":
+            arrays["out/roberta/text_features_bf16"] = np.asarray(clap.encode_text(
+                params, ids, mask, cfg, compute_dtype=jnp.bfloat16))
+    return arrays
+
+
+def run_port_clap(arrays: dict, tmodel: str, device, compute_dtype=None) -> dict[str, np.ndarray]:
+    """The port's ``clap_apply`` outputs on the CLAP fixture's input for
+    ``tmodel`` (weights from the seed), quantize -> featurize first; with
+    ``compute_dtype`` the AMP mode. Imports torch and the port only."""
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.models import clap
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+
+    model = clap.build_clap(port_clap_config(tmodel), device=device)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in clap_weights(tmodel).items()})
+    dev = model.logit_scale_a.device
+    wav = torch.tensor(arrays["wav"], device=dev)
+    batch = featurize_batch(quantize_roundtrip(wav), model.cfg.audio.clip_samples)
+    with torch.no_grad():
+        out = clap.clap_apply(model, batch, arrays[f"text/{tmodel}/input_ids"],
+                              arrays[f"text/{tmodel}/attention_mask"],
+                              compute_dtype=compute_dtype)
+    return {k: out[k].float().cpu().numpy() for k in CLAP_APPLY_KEYS}
+
+
+FIXTURES = {"tiny": (PATH, build), "wide": (WIDE_PATH, build_wide),
+            "train": (TRAIN_PATH, build_train), "clap": (CLAP_PATH, build_clap)}
+
+
+def main(names=()) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")  # the tests' f32 CPU reference
     PATH.parent.mkdir(parents=True, exist_ok=True)
-    for path, make in ((PATH, build), (WIDE_PATH, build_wide), (TRAIN_PATH, build_train)):
+    for name in names or FIXTURES:
+        path, make = FIXTURES[name]
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(sys.argv[1:])
