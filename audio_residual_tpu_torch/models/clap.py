@@ -6,8 +6,12 @@ Port of ``audio_residual_tpu/models/clap.py``. :class:`CLAPAudio` is the
 audio half (what the bench, λ-training and the analysis path build, through
 :func:`build_clap_audio`); :class:`CLAP` adds the text half on top of it,
 so every caller of the audio half also takes a full model.
-:func:`clap_apply` is the reference ``forward`` contract (`model.py:650-693`)
-in eval mode.
+:func:`clap_apply` is the reference ``forward`` contract (`model.py:650-693`),
+in eval and in training mode. Training draws its randomness from one
+``torch.Generator``, split into the audio tower's, the audio transform's and
+the text transform's streams (:func:`split_generator`), where the JAX package
+splits a ``jax.random`` key three ways; the text towers have no training
+mode (the JAX package's neither: ``encode_text`` takes no ``train``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from audio_residual_tpu_torch.models.roberta import Roberta, RobertaConfig, robe
 
 __all__ = ["CLAPConfig", "CLAPAudio", "CLAP", "build_clap_audio", "build_clap",
            "text_tower_width", "apply_projection", "apply_transform", "l2_normalize",
-           "encode_audio", "encode_text", "clap_apply"]
+           "encode_audio", "encode_text", "clap_apply", "split_generator"]
 
 TEXT_MODEL_TYPES = ("roberta", "bert", "transformer", "bart")
 
@@ -163,13 +167,12 @@ def apply_transform(transform: nn.Module, x: torch.Tensor, *, train: bool = Fals
                     ) -> torch.Tensor:
     """An :class:`_MLPLayers` head (``model.audio_transform`` /
     ``model.text_transform``): Linear -> ReLU -> Dropout -> Linear, dropout
-    only in training, its mask drawn from ``generator`` on the generator's
-    device."""
+    only in training with a ``generator`` (the JAX package's ``train and
+    rng is not None``), its mask drawn on the generator's device."""
     seq = transform.sequential
     h = F.relu(seq[0](x))
-    if train and drop > 0:
-        keep = torch.rand(h.shape, generator=generator,
-                          device=generator.device if generator is not None else h.device)
+    if train and generator is not None and drop > 0:
+        keep = torch.rand(h.shape, generator=generator, device=generator.device)
         h = h * (keep.to(h.device) < 1 - drop) / (1 - drop)
     return seq[3](h)
 
@@ -180,21 +183,26 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp(sq, min=eps * eps))
 
 
-def encode_audio(model: CLAPAudio, batch, *, taps=(), residual: dict | None = None,
-                 double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
-                 stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
+def encode_audio(model: CLAPAudio, batch, *, train: bool = False,
+                 generator: torch.Generator | None = None, bn_group=None, taps=(),
+                 residual: dict | None = None, double_ffn_compat: bool = True,
+                 compute_dtype=None, start_layer: int = 0, stop_at_layer: int | None = None,
+                 stop_at_image: bool = False) -> dict:
     """Audio branch forward -> output dict, plus ``projected`` and
     ``normalized``. ``batch`` is ``{"waveform": [B, T]}`` or a ``[B, T]``
     tensor on the model's device, or a cached prefix (``{"image"}``,
     ``{"tokens"}``); ``stop_at_image`` / ``stop_at_layer`` return the prefix
     (``{"image"}`` / ``{"tokens"}``) untouched. ``taps`` (``"attention"``,
-    ``"residual"``) add ``layers_attention`` / ``layers_residuals``. See
-    :func:`htsat_apply`.
+    ``"residual"``) add ``layers_attention`` / ``layers_residuals``;
+    ``train``, ``generator`` and ``bn_group`` select the training forward.
+    See :func:`htsat_apply`.
 
-    The model's weights are frozen, so a forward builds an autograd graph
-    only where a ResiDual ``lam`` requires grad (λ-training); callers that
+    Built models hold frozen weights, so a forward builds an autograd graph
+    only where a ResiDual ``lam`` requires grad (λ-training) or the caller
+    made the weights trainable (``training/train_clap.py``); callers that
     only embed need no ``torch.no_grad()``, though it saves the check."""
-    out = htsat_apply(model.audio_branch, batch, taps=taps, residual=residual,
+    out = htsat_apply(model.audio_branch, batch, train=train, generator=generator,
+                      bn_group=bn_group, taps=taps, residual=residual,
                       double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
                       start_layer=start_layer, stop_at_layer=stop_at_layer,
                       stop_at_image=stop_at_image)
@@ -231,22 +239,45 @@ def encode_text(model: CLAP, input_ids, attention_mask=None, *, normalize: bool 
     return l2_normalize(x) if normalize else x
 
 
+def split_generator(generator: torch.Generator, n: int, device=None) -> list:
+    """``n`` generators on ``device`` (the generator's by default), seeded
+    from ``n`` draws of ``generator``: the counterpart of
+    ``jax.random.split``."""
+    seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
+    dev = torch.device(device) if device is not None else generator.device
+    return [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds.tolist()]
+
+
 def clap_apply(model: CLAP, audio_batch, input_ids, attention_mask=None, *,
-               train: bool = False, compute_dtype=None) -> dict:
-    """The contrastive forward (`model.py:650-693`) in eval mode: normalised
-    audio and text features, their MLP-transformed variants and the exp'd
-    logit scales, the inputs of the CLIP loss."""
-    if train:
-        raise NotImplementedError(
-            "clap_apply(train=True) needs HTSAT's train mode (drop_path, SpecAugment, bn0 "
-            "batch statistics), which is not ported yet (ROADMAP, slice 5)")
-    audio_features = encode_audio(model, audio_batch, compute_dtype=compute_dtype)["normalized"]
+               train: bool = False, generator: torch.Generator | None = None, bn_group=None,
+               compute_dtype=None) -> dict:
+    """The contrastive forward (`model.py:650-693`): normalised audio and
+    text features, their MLP-transformed variants and the exp'd logit
+    scales, the inputs of the CLIP loss.
+
+    ``train=True`` runs the audio tower's training forward and adds
+    ``bn0_state``, bn0's updated running statistics, for the train step to
+    merge; with ``generator`` it also draws SpecAugment, drop-path and the
+    transform heads' dropout from it, split three ways on the model's
+    device. Without one nothing random happens (the JAX package's
+    ``rng=None``). ``bn_group`` takes bn0's statistics over every rank of a
+    ``torch.distributed`` process group."""
+    g_audio = g_at = g_tt = None
+    if train and generator is not None:
+        g_audio, g_at, g_tt = split_generator(generator, 3, model.logit_scale_a.device)
+    audio_out = encode_audio(model, audio_batch, train=train, generator=g_audio,
+                             bn_group=bn_group, compute_dtype=compute_dtype)
+    audio_features = audio_out["normalized"]
     text_features = encode_text(model, input_ids, attention_mask, compute_dtype=compute_dtype)
+    extra = {"bn0_state": audio_out["bn0_state"]} if train and "bn0_state" in audio_out else {}
     return {
+        **extra,
         "audio_features": audio_features,
         "text_features": text_features,
-        "audio_features_mlp": apply_transform(model.audio_transform, audio_features),
-        "text_features_mlp": apply_transform(model.text_transform, text_features),
+        "audio_features_mlp": apply_transform(model.audio_transform, audio_features,
+                                              train=train, generator=g_at),
+        "text_features_mlp": apply_transform(model.text_transform, text_features,
+                                             train=train, generator=g_tt),
         "logit_scale_a": torch.exp(model.logit_scale_a),
         "logit_scale_t": torch.exp(model.logit_scale_t),
     }

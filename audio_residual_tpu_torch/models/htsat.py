@@ -1,7 +1,7 @@
-"""HTSAT (Hierarchical Token-Semantic Audio Transformer), eval path.
+"""HTSAT (Hierarchical Token-Semantic Audio Transformer).
 
-Port of ``audio_residual_tpu/models/htsat.py`` with its split points and
-its representation taps (no mel fusion, no training mode). Module attribute
+Port of ``audio_residual_tpu/models/htsat.py`` with its split points, its
+representation taps and its training mode (no mel fusion). Module attribute
 names give the reference LAION-CLAP ``state_dict`` keys
 (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the layout
 ``audio_residual_tpu/models/convert.py`` writes.
@@ -25,6 +25,20 @@ probabilities, which no kernel returns, so there the attention half is the
 model's own :func:`window_attention` (``htsat.py:311``) and the FFN half
 still K3.
 
+Training mode (``train=True``, ``htsat.py:301-308,380-384,423-462,
+704-707``): bn0 normalises with the batch statistics and returns the
+updated running statistics as ``bn0_state``; with a ``generator``,
+SpecAugment masks the normalised log-mel and drop-path drops whole samples
+of each block's two branches, block ``k`` at rate ``dpr[k] =
+linspace(0, drop_path_rate, sum(depths))[k]``. Without a generator nothing
+random happens (the JAX package's ``rng=None``). The kernel routing follows
+the JAX package's: K4 runs only in a block where ``not (train and dpr >
+0)`` (block 0 at the default rate 0.1); every other block runs LN1 in
+PyTorch, K2 (K5 from C >= 1024), drop-path, then the FFN in plain PyTorch,
+so K3 runs in no such block. Random draws are split from the mask
+arithmetic (:func:`drop_path` takes its mask, :func:`sample_drop_path`
+draws it), so a test can feed the JAX package's masks.
+
 Shapes for HTSAT-tiny on a 10 s / 48 kHz clip: wav [B, 480000] -> logmel
 [B, 1001, 64] -> image [B, 256, 256, 1] -> tokens 4096@96 -> 1024@192 ->
 256@384 -> 64@768 -> embedding [B, 768].
@@ -35,6 +49,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,10 +58,12 @@ from audio_residual_tpu_torch.ops import frontend, interpolate, windows
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
 from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block, split_block
+from audio_residual_tpu_torch.ops.cuda.window_attention import fused_window_attention
+from audio_residual_tpu_torch.ops.spec_augment import sample_spec_augment, spec_augment
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img", "window_attention",
-           "TAPS"]
+           "TAPS", "drop_path", "sample_drop_path", "drop_path_rates"]
 
 TAPS = ("attention", "residual")
 
@@ -66,6 +83,7 @@ class HTSATConfig:
     window_size: int = 8
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    drop_path_rate: float = 0.1
     patch_norm: bool = True
     sample_rate: int = 48000
     clip_samples: int = 480000
@@ -143,7 +161,8 @@ def _linear(d_in: int, d_out: int, gen: torch.Generator, bias: bool = True) -> n
 
 
 class BatchNormMel(nn.Module):
-    """``bn0``: eval-statistics BatchNorm over the mel axis. The reference's
+    """``bn0``: BatchNorm over the mel axis, eval statistics in ``forward``,
+    batch statistics in :meth:`train_forward`. The reference's
     ``num_batches_tracked`` buffer is not kept (the converter drops it)."""
 
     def __init__(self, n: int):
@@ -156,6 +175,15 @@ class BatchNormMel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return frontend.batch_norm_mel(x, self.weight, self.bias, self.running_mean,
                                        self.running_var)
+
+    def train_forward(self, x: torch.Tensor, group=None) -> tuple:
+        """``(y, {"mean", "var"})``: normalised with the batch statistics,
+        and the running statistics they update (not written here: the train
+        step merges them, as the JAX package's does)."""
+        y, mean, var = frontend.batch_norm_mel_train(x, self.weight, self.bias,
+                                                     self.running_mean, self.running_var,
+                                                     group=group)
+        return y, {"mean": mean, "var": var}
 
 
 class PatchEmbed(nn.Module):
@@ -333,9 +361,81 @@ def window_attention(attn: WindowAttention, x: torch.Tensor, nh: int, window: in
     return out.to(in_dtype), probs
 
 
+def drop_path_rates(cfg: HTSATConfig) -> np.ndarray:
+    """Each block's drop-path rate, in block order over the layers
+    (``htsat.py:773``)."""
+    return np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths))
+
+
+def drop_path(x: torch.Tensor, mask: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """Stochastic depth per sample (``htsat.py:301-308``): ``x / (1 - rate)
+    * mask``, ``mask [B]`` of zeros and ones; ``mask=None`` is the
+    identity."""
+    if mask is None or rate == 0.0:
+        return x
+    return x / (1.0 - rate) * mask.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def sample_drop_path(generator: torch.Generator, b: int, rate: float, device=None
+                     ) -> torch.Tensor:
+    """A drop-path mask ``[B]``: ``floor(1 - rate + U[0, 1))``, one in
+    ``1 - rate`` of the samples kept."""
+    u = torch.rand(b, generator=generator,
+                   device=device if device is not None else generator.device)
+    return torch.floor((1.0 - rate) + u)
+
+
+def _mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(F.gelu(F.linear(x, mlp.fc1.weight, mlp.fc1.bias)), mlp.fc2.weight,
+                    mlp.fc2.bias)
+
+
+def _train_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: int,
+                 shift: int, rate: float, masks, residual_params, double_ffn_compat,
+                 compute_dtype) -> torch.Tensor:
+    """A block with drop-path in training (``htsat.py:423-462``): LN1 in
+    PyTorch, the window attention kernel (K2, K5 from C >= 1024), drop-path,
+    the ResiDual when one is given, then the FFN in plain PyTorch. The
+    arithmetic follows the JAX package's dtypes: LN1's f32 parameters
+    promote its output to f32, so the attention gives f32 and the FFN runs
+    in f32 under AMP too."""
+    h, w = resolution
+    b, n, c = x.shape
+    shortcut = x
+    y = layer_norm(x.float(), blk.norm1.weight, blk.norm1.bias).reshape(b, h, w, c)
+    if shift > 0:
+        y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+    wins = windows.window_partition(y, window).contiguous()
+    attn = blk.attn
+    a = fused_window_attention(wins, attn.qkv.weight, attn.qkv.bias, attn.proj.weight,
+                               attn.proj.bias, attn.relative_position_bias_table, nh, window,
+                               (h // window) * (w // window), shift, (h, w), compute_dtype)
+    y = windows.window_reverse(a, window, h, w)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), dims=(1, 2))
+    y = y.reshape(b, n, c)
+    m1, m2 = masks if masks is not None else (None, None)
+    residual_x = drop_path(y, m1, rate)
+    if residual_params is not None:
+        residual_x = residual_apply(residual_x, residual_params["basis"],
+                                    residual_params["mean"], residual_params["lam"])
+
+    def ffn(t):
+        return _mlp(blk.mlp, layer_norm(t, blk.norm2.weight, blk.norm2.bias))
+
+    x = shortcut + residual_x
+    x = x + drop_path(ffn(x), m2, rate)
+    if residual_params is not None and double_ffn_compat:
+        # the ResiDual-patched forward's quirk (src/residual.py:95-96)
+        x = shortcut + drop_path(x, m2, rate)
+        x = x + drop_path(ffn(x), m2, rate)
+    return x
+
+
 def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: int, shift: int,
                residual_params: dict | None = None, double_ffn_compat: bool = True,
-               compute_dtype=None, taps=()) -> tuple:
+               compute_dtype=None, taps=(), drop_path_rate: float = 0.0, train: bool = False,
+               drop_masks=None) -> tuple:
     """One Swin block on tokens ``[B, H*W, C]``, with the ResiDual epilogue
     when ``residual_params`` is given. A window at least the resolution means
     shift 0 (the reference's rule).
@@ -349,12 +449,23 @@ def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: 
     output's store rounding: where the block input is bf16 (layers 0-2) K2
     stores ``a`` in bf16, where the JAX package's attention gives it in f32
     from an f32 LN1, so the tap is bf16-precise there. Taps route every
-    block through the split plan (module docstring)."""
+    block through the split plan (module docstring).
+
+    ``train`` with ``drop_path_rate > 0`` runs the training block (LN1, the
+    window attention kernel, drop-path with ``drop_masks``, a ``(mask1,
+    mask2)`` pair of ``[B]`` masks or None, and the FFN in PyTorch), as the
+    JAX package's block does where its block kernel is not taken."""
     h, w = resolution
     b, n, c = x.shape
     if min(h, w) <= window:
         shift = 0
         window = min(h, w)
+    if train and drop_path_rate > 0.0:
+        return _train_block(blk, x, resolution=resolution, nh=nh, window=window, shift=shift,
+                            rate=drop_path_rate, masks=drop_masks,
+                            residual_params=residual_params,
+                            double_ffn_compat=double_ffn_compat,
+                            compute_dtype=compute_dtype), None, None
     y = x.reshape(b, h, w, c)
     if shift > 0:
         y = torch.roll(y, (-shift, -shift), dims=(1, 2))
@@ -395,9 +506,11 @@ def swin_block(blk: SwinBlock, x: torch.Tensor, *, resolution, nh: int, window: 
     return y.reshape(b, n, c), probs, residual_x
 
 
-def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
-                double_ffn_compat: bool = True, compute_dtype=None, start_layer: int = 0,
-                stop_at_layer: int | None = None, stop_at_image: bool = False) -> dict:
+def htsat_apply(model: HTSAT, batch, *, train: bool = False,
+                generator: torch.Generator | None = None, bn_group=None, taps=(),
+                residual: dict | None = None, double_ffn_compat: bool = True,
+                compute_dtype=None, start_layer: int = 0, stop_at_layer: int | None = None,
+                stop_at_image: bool = False) -> dict:
     """HTSAT forward; returns ``framewise_output``, ``clipwise_output``,
     ``fine_grained_embedding`` and ``embedding``, and with ``taps``:
     ``layers_attention`` (``"attention"``: per layer the mean over its blocks
@@ -425,8 +538,17 @@ def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
     the frontend's DFT in bf16, LN/softmax/ResiDual in f32. ``cfg.dft_mode``
     ("f32" or "bf16"), when set, picks the DFT's mode whatever
     ``compute_dtype`` is (``audio_residual_tpu/models/htsat.py:698-700``).
+
+    ``train=True`` is the training forward (module docstring): bn0's batch
+    statistics (over every rank of ``bn_group``, a ``torch.distributed``
+    process group, when one is given), ``bn0_state`` in the output for a
+    waveform input, and with ``generator`` SpecAugment and drop-path drawn
+    from it on its device, in that order. Taps are eval-time outputs and
+    are not taken in training.
     """
     cfg = model.cfg
+    if train and taps:
+        raise ValueError("taps are eval-time outputs; the training forward takes none")
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
     taps = tuple(taps)
@@ -455,7 +577,7 @@ def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
                                 double_ffn_compat=double_ffn_compat,
                                 compute_dtype=compute_dtype,
                                 start_layer=start_layer if "tokens" in batch else 0,
-                                stop_at_layer=stop_at_layer)
+                                stop_at_layer=stop_at_layer, train=train, generator=generator)
 
     wav = batch["waveform"] if isinstance(batch, dict) else batch
     # the frontend's DFT follows the AMP mode (single-pass bf16 under AMP)
@@ -465,7 +587,15 @@ def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
         raise ValueError("dft_mode 'bf16x3': the split dot is a TPU-only workaround (Mosaic has "
                          "no Precision.HIGH) and is not carried over; use 'f32' or 'bf16'")
     x = fused_logmel(wav.float().contiguous(), cfg.frontend_config, dft_mode=dft)
-    x = model.bn0(x)
+    bn0_state = None
+    if train:
+        # batch statistics in f32 over [B, T, F], then SpecAugment, before
+        # the AMP cast (htsat.py:704-707)
+        x, bn0_state = model.bn0.train_forward(x, group=bn_group)
+        if generator is not None:
+            x = spec_augment(x, *sample_spec_augment(generator, x.shape, device=x.device))
+    else:
+        x = model.bn0(x)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     x = reshape_wav2img(x, cfg)
@@ -475,31 +605,45 @@ def htsat_apply(model: HTSAT, batch, *, taps=(), residual: dict | None = None,
     x = _patch_embed(model.patch_embed, x, cfg)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    return _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
-                            double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
-                            start_layer=0, stop_at_layer=stop_at_layer)
+    out = _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
+                           double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                           start_layer=0, stop_at_layer=stop_at_layer, train=train,
+                           generator=generator)
+    if bn0_state is not None and stop_at_layer is None:
+        out["bn0_state"] = bn0_state
+    return out
 
 
 def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, taps=(), residual,
                      double_ffn_compat, compute_dtype, start_layer: int,
-                     stop_at_layer: int | None) -> dict:
+                     stop_at_layer: int | None, train: bool = False,
+                     generator: torch.Generator | None = None) -> dict:
     """Swin layers ``start_layer .. stop_at_layer`` (or the end) on tokens
     ``x``, then the head (``htsat.py::_htsat_layers_and_head``), with the
-    taps of :func:`htsat_apply`."""
+    taps and the training mode of :func:`htsat_apply`."""
     cfg = model.cfg
     tap_attn, tap_res = [], []
     end_layer = stop_at_layer if stop_at_layer is not None else cfg.num_layers
+    dpr = drop_path_rates(cfg)
+    blk_idx = sum(cfg.depths[:start_layer])
     for i in range(start_layer, end_layer):
         layer = model.layers[i]
         res_i = residual.get(i) if residual is not None else None
         resolution = cfg.layer_resolution(i)
         layer_attns, layer_residuals = [], []
         for j, blk in enumerate(layer.blocks):
+            rate = float(dpr[blk_idx])
+            masks = None
+            if train and generator is not None and rate > 0.0:
+                masks = tuple(sample_drop_path(generator, x.shape[0], rate, x.device)
+                              for _ in range(2))
             x, probs, res_x = swin_block(
                 blk, x, resolution=resolution, nh=cfg.num_heads[i], window=cfg.window_size,
                 shift=0 if j % 2 == 0 else cfg.window_size // 2, residual_params=res_i,
                 double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype, taps=taps,
+                drop_path_rate=rate, train=train, drop_masks=masks,
             )
+            blk_idx += 1
             if "attention" in taps:
                 layer_attns.append(probs)
             if "residual" in taps:

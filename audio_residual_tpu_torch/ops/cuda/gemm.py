@@ -11,7 +11,10 @@ ResiDual GEMMs of both modes, with an optional prologue ``a - a_sub[k]``
 are one kernel design (TMA loads into a ring of shared-memory stages,
 ``wgmma``, persistent grid); these wrappers call it alone, for its tests and
 ``chip_smoke.py``. It replaces no TPU kernel by itself: on the TPU the same
-products are the MXU dots inside the Pallas block kernels.
+products are the MXU dots inside the Pallas block kernels. RoBERTa's AMP
+dense products call :func:`gemm` directly; in training, where an input
+requires grad, it takes :func:`gemm_autograd` (the kernel forward, the plain
+version's backward, :mod:`.autograd`).
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
 
-__all__ = ["gemm", "gemm_plain", "gemm_tf32x3", "gemm_tf32x3_plain"]
+__all__ = ["gemm", "gemm_plain", "gemm_autograd", "gemm_tf32x3", "gemm_tf32x3_plain"]
 
 
 def gemm_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
@@ -45,10 +49,28 @@ def gemm_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=
 def gemm(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
          out_dtype=torch.float32) -> torch.Tensor:
     """``a [M, K]``, ``w [N, K]`` bf16 -> ``[M, N]`` in ``out_dtype``. CPU
-    tensors take :func:`gemm_plain`; on the card K and N must be multiples
-    of 8."""
+    tensors take :func:`gemm_plain`; CUDA tensors with an input that
+    requires grad (in grad mode) :func:`gemm_autograd`; on the card K and N
+    must be multiples of 8."""
     if a.device.type == "cpu":
         return gemm_plain(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+    if needs_graph(a, w, bias, col_scale, r1, r2):
+        return gemm_autograd(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+    return _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+
+
+def gemm_autograd(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`gemm` under autograd: the kernel forward (the plain version for
+    CPU tensors), :func:`gemm_plain`'s backward."""
+    kernel = gemm_plain if a.device.type == "cpu" else _kernel
+    op = Op(lambda *t: kernel(*t[:4], gelu, *t[4:], out_dtype),
+            lambda *t: gemm_plain(*t[:4], gelu, *t[4:], out_dtype))
+    return Recompute.apply(op, a, w, bias, col_scale, r1, r2)
+
+
+def _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, one call, its count."""
     if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[1]:
         raise ValueError(f"gemm: a must be [M, K] and w [N, K], got {tuple(a.shape)}, "
                          f"{tuple(w.shape)}")

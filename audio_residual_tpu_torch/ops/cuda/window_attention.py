@@ -84,8 +84,11 @@ def derived(t: torch.Tensor, what, make):
     ``p.data = new`` swap or a move changes them). Not seen: an in-place
     write through ``p.data`` (``p.data.copy_(...)``), which bumps the
     counter of a separate view only. An inference tensor tracks no version,
-    and a value derived from a tensor that requires grad carries its graph:
-    for both the value is made at every call."""
+    and a tensor that requires grad is a weight in training: for both the
+    value is made at every call. (In grad mode such a value carries its
+    graph; outside it, an optimizer may still update the weight without a
+    version bump: ``torch.optim.AdamW(fused=True)`` bumps none, where the
+    foreach update does.)"""
     if t.is_inference() or t.requires_grad:
         return make(t)
     key = (id(t), what)
@@ -94,7 +97,7 @@ def derived(t: torch.Tensor, what, make):
     if hit is not None and hit[0]() is t and hit[1] == stamp:
         return hit[2]
     # the entry goes when the tensor does, so a reused id never finds it
-    ref = weakref.ref(t, lambda _, key=key: _derived.pop(key, None))
+    ref = weakref.ref(t, lambda _, key=key, cache=_derived: cache.pop(key, None))
     value = make(t)
     _derived[key] = (ref, stamp, value)
     return value

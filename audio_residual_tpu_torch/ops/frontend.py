@@ -31,6 +31,7 @@ __all__ = [
     "power_to_db",
     "logmel",
     "batch_norm_mel",
+    "batch_norm_mel_train",
 ]
 
 
@@ -182,3 +183,33 @@ def batch_norm_mel(x: torch.Tensor, scale, bias, mean, var, eps: float = 1e-5) -
     """The reference's ``bn0`` with eval statistics: per-mel-bin affine
     normalisation of the last axis of ``[B, frames, n_mels]``."""
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def batch_norm_mel_train(x: torch.Tensor, scale, bias, mean, var, *, eps: float = 1e-5,
+                         momentum: float = 0.1, group=None) -> tuple:
+    """``bn0`` in training (``audio_residual_tpu/ops/frontend.py::
+    batch_norm_mel(train=True)``): normalise with the batch statistics of
+    every axis but the last (the biased variance, two-pass), and return
+    ``(y, new_mean, new_var)``, the running statistics updated with
+    ``momentum`` and the unbiased variance. In f32 whatever the caller's
+    AMP mode. ``group``, a ``torch.distributed`` process group, takes the
+    statistics over the batch of every rank (the JAX package's global batch
+    under its data mesh) through differentiable all-reduces."""
+    x = x.float()
+    axes = tuple(range(x.ndim - 1))
+    n = x.numel() // x.shape[-1]
+    if group is None:
+        batch_mean = x.mean(dim=axes)
+        batch_var = ((x - batch_mean) ** 2).mean(dim=axes)
+    else:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        n = n * dist.get_world_size(group)
+        batch_mean = all_reduce(x.sum(dim=axes), group=group) / n
+        batch_var = all_reduce(((x - batch_mean) ** 2).sum(dim=axes), group=group) / n
+    unbiased = batch_var.detach() * (n / max(n - 1, 1))
+    new_mean = (1 - momentum) * mean + momentum * batch_mean.detach()
+    new_var = (1 - momentum) * var + momentum * unbiased
+    y = (x - batch_mean) * torch.rsqrt(batch_var + eps) * scale + bias
+    return y, new_mean, new_var

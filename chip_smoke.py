@@ -114,6 +114,32 @@ line):
                AMP text forward by CUDA kernel, peak memory; the JAX CLAP
                fixture (tests/data/torch_port_clap.npz) for the roberta,
                bert, bart and transformer towers ([fixture-clap] lines).
+  8. contrastive -- CLAP training on CLAPModule()'s model (HTSAT-tiny +
+               RoBERTa-base at full width, seed 0, HashTokenizer, 77-token
+               context), B=32 ESC-50-length clips (repeat-padded) and 32
+               texts from a seed, golden f32 and bf16 AMP: every
+               parameter's gradient of one step against the same step on
+               the plain route on the card (golden: max rel err <= 1e-3 a
+               tower; AMP: cosine >= 0.999 a tower, or >= the plain
+               route's own cosine against the golden step where bf16 moves
+               it further, as it does RoBERTa's at random weights; the
+               worst parameter named); the launch census of one training
+               forward against the JAX package's dispatch
+               (tests/torch_port_fixture.py::expected_launches: K1 1, K4 1,
+               K2 11; AMP also RoBERTa's 73 bf16 GEMMs; no other kernel); the loop main runs per epoch
+               (training/main.py::train_one_epoch) for 4 AdamW steps under
+               the cosine schedule with the epoch's generator (SpecAugment,
+               drop-path, dropout), counts set to 0 before it and read
+               after; every step's loss finite, the fixed batch's loss
+               without randomness lower after the loop than before, the
+               logit scale <= ln(100), bn0's running buffers moved, the
+               launches 4x the census; every K4 and K2 call
+               of a forward at the updated weights against its plain
+               version on its own inputs, and the derived-weight caches not
+               growing; step ms by CUDA events split into forward, backward
+               and optimizer, peak memory, one profiler window (idle share);
+               a checkpoint save -> resume that reproduces the next step bit
+               for bit (golden, deterministic algorithms on).
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -1239,20 +1265,24 @@ def plain_kernels():
     """The forward runs each kernel's plain version on the card: K1's
     ``logmel_plain``, K4's ``swin_block_plain`` for layers 0-2, and the split
     plan -- layer 3, and every block of a tapped forward -- with K2's (or
-    K5's) and K3's plain versions after its LN1. The reference of the
-    gradient and tap checks: the plain versions alone."""
+    K5's) and K3's plain versions after its LN1; a training block with
+    drop-path K2's plain version; RoBERTa's AMP products ``gemm_plain``. The
+    reference of the gradient and tap checks: the plain versions alone."""
     from unittest import mock
 
-    from audio_residual_tpu_torch.models import htsat
+    from audio_residual_tpu_torch.models import htsat, roberta
     from audio_residual_tpu_torch.ops.cuda import frontend as k1
+    from audio_residual_tpu_torch.ops.cuda import gemm as kg
     from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
     from audio_residual_tpu_torch.ops.cuda import swin_block as k4
     from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
     with mock.patch.object(htsat, "fused_logmel", k1.logmel_plain), \
             mock.patch.object(htsat, "fused_swin_block", k4.swin_block_plain), \
+            mock.patch.object(htsat, "fused_window_attention", k2.window_attention_plain), \
             mock.patch.object(k4, "fused_window_attention", k2.window_attention_plain), \
-            mock.patch.object(k4, "fused_residual_ffn", k3.residual_ffn_plain):
+            mock.patch.object(k4, "fused_residual_ffn", k3.residual_ffn_plain), \
+            mock.patch.object(roberta, "gemm", kg.gemm_plain):
         yield
 
 
@@ -2097,6 +2127,327 @@ def phase_clap(dev, card: str) -> None:
                 raise AssertionError(f"fixture-clap {tmodel} {key} disagrees with the JAX package")
 
 
+CONTRASTIVE_STEPS = 4  # AdamW steps of the loop, each mode
+CONTRASTIVE_TIMED = 3  # timed steps, each split
+# a rate small enough for the first-order decrease to rule at random weights:
+# Adam moves each of the 157M weights by about the rate (at 1e-4 the loop's
+# loss jumps about on the card)
+CONTRASTIVE_OPT = dict(lr=3e-6, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.2, warmup=1,
+                       total_steps=20)
+
+
+def contrastive_batch(tok, dev) -> dict:
+    """Phase 8's fixed batch, B pairs that differ from each other, as a
+    contrastive batch's do: B ESC-50-length clips from seed 31, each three
+    tones of its own (log-uniform 100 Hz - 8 kHz) under an envelope of its
+    own over white noise, repeat-padded to the model's 10 s; and the names
+    of the first B ESC-50 classes, 77 tokens each (at random weights
+    RoBERTa's pooled features of texts that share most words lie within
+    cosine 0.99 of each other, where bf16's rounding moves them by 2e-5)."""
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+
+    rng = np.random.default_rng(31)
+    t = np.arange(CLIP) / 48000.0
+    freqs = np.exp(rng.uniform(np.log(100.0), np.log(8000.0), (B, 3, 1)))
+    tones = (rng.uniform(0.02, 0.1, (B, 3, 1))
+             * np.sin(2 * np.pi * freqs * t + rng.uniform(0, 2 * np.pi, (B, 3, 1)))).sum(1)
+    envelope = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.2, 4.0, (B, 1)) * t)
+    wav = (tones * envelope + 0.02 * rng.standard_normal((B, CLIP))).astype(np.float32)
+    with open(os.path.join(REPO, "class_labels", "ESC50_class_labels_indices_space.json")) as f:
+        labels = list(json.load(f))[:B]
+    enc = tok(labels)
+    return {"waveform": featurize_batch(torch.from_numpy(wav).to(dev), 480000)["waveform"],
+            **{k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in enc.items()}}
+
+
+def mean_pair_cosine(f) -> float:
+    """The mean cosine between the batch's distinct rows of ``f``: how far
+    apart the pairs the loss tells apart lie."""
+    f = f.detach().double()
+    f = f / f.norm(dim=-1, keepdim=True)
+    n = f.shape[0]
+    return float(((f @ f.T).sum() - n) / (n * (n - 1)))
+
+
+def tower_of(name: str) -> str:
+    if name.startswith("logit_scale"):
+        return "logit_scales"
+    return "audio" if name.startswith("audio_") else "text"
+
+
+def grads_of(model, towers, batch, plain: bool) -> tuple:
+    """Loss and every parameter's gradient of one step's forward and
+    backward, no randomness; on the plain route with ``plain``."""
+    import torch
+
+    from audio_residual_tpu_torch.training.losses import clip_loss
+
+    model.zero_grad(set_to_none=True)
+    with plain_kernels() if plain else contextlib.nullcontext():
+        out = towers(batch["waveform"], batch["input_ids"], batch["attention_mask"], None)
+        loss = clip_loss(out)
+        loss.backward()
+    torch.cuda.synchronize()
+    spread = {k: mean_pair_cosine(out[k]) for k in ("audio_features", "text_features")}
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                  if p.grad is not None}, spread
+
+
+def _cosine(g, h, names) -> float:
+    dot = sum(float((g[n].double() * h[n].double()).sum()) for n in names)
+    ng = sum(float(g[n].double().pow(2).sum()) for n in names) ** 0.5
+    nh = sum(float(h[n].double().pow(2).sum()) for n in names) ** 0.5
+    return dot / (ng * nh) if ng * nh > 0 else 1.0
+
+
+def contrastive_grad_check(model, towers, batch, mode: str, golden: bool,
+                           golden_grads=None) -> dict:
+    """One step's gradients, kernels against the plain route on the card, a
+    tower at a time; the worst parameter named. Golden: max rel err <=
+    GRAD_REL. AMP: cosine >= GRAD_COS, or, where bf16 alone moves the plain
+    route further from ``golden_grads`` (the golden step's gradients) than
+    that, >= the plain route's own cosine against them: at random weights
+    RoBERTa's gradient moves by a cosine of 0.99 under bf16 rounding on the
+    card, and no bf16 route can be held closer to another than that. Returns the kernel route's gradients."""
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+
+    loss, g, spread = grads_of(model, towers, batch, plain=False)
+    launch_counts.clear()
+    loss_p, g_p, _ = grads_of(model, towers, batch, plain=True)
+    log("contrastive", grad_check=mode, features_mean_pair_cosine=json.dumps(spread))
+    plain_launches = dict(launch_counts)
+    if set(g) != set(g_p) or plain_launches:
+        raise AssertionError(f"contrastive {mode}: gradients of {sorted(set(g) ^ set(g_p))} "
+                             f"differ in presence; plain route launched {plain_launches}")
+    oks = []
+    for tower in ("audio", "text", "logit_scales"):
+        names = [n for n in g if tower_of(n) == tower]
+        diff = max(float((g[n] - g_p[n]).abs().max()) for n in names)
+        scale = max(float(g_p[n].abs().max()) for n in names)
+        cos = _cosine(g, g_p, names)
+        floor = {}
+        limit = GRAD_COS
+        if golden_grads is not None:
+            floor = {"kernel_route_against_golden": _cosine(g, golden_grads, names),
+                     "plain_route_against_golden": _cosine(g_p, golden_grads, names)}
+            limit = min(GRAD_COS, floor["plain_route_against_golden"])
+        worst = max(names, key=lambda n: float((g[n] - g_p[n]).abs().max())
+                    / max(float(g_p[n].abs().max()), 1e-30))
+        rel = diff / scale if scale > 0 else 0.0
+        ok = bool(np.isfinite(rel)) and (rel <= GRAD_REL if golden else cos >= limit)
+        oks.append(ok)
+        log("contrastive", grad_check=mode, tower=tower, params=len(names), loss=loss,
+            plain_loss=loss_p, max_rel_err=rel, cosine=cos, worst_param=worst,
+            worst_param_rel_err=float((g[worst] - g_p[worst]).abs().max()
+                                      / max(float(g_p[worst].abs().max()), 1e-30)),
+            limit=f"max_rel_err<={GRAD_REL}" if golden else f"cosine>={limit}",
+            bf16_cosines=json.dumps(floor), ok=ok)
+    if not all(oks):
+        raise AssertionError(f"contrastive {mode}: a tower's gradient disagrees with the plain "
+                             "route's")
+    return g
+
+
+def kernels_at_current_weights(model, batch, md, mode: str) -> None:
+    """Every K4 and K2 call of one training forward (no randomness, no
+    graph) against its plain version on the call's own inputs: after the
+    optimizer's in-place updates, a stale derived weight copy would show
+    here."""
+    from unittest import mock
+
+    import torch
+
+    from audio_residual_tpu_torch.models import htsat
+    from audio_residual_tpu_torch.models.clap import clap_apply
+    from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+    errs = collections.defaultdict(list)
+    real4, real2 = htsat.fused_swin_block, htsat.fused_window_attention
+
+    def k4_checked(x, flat, *args):
+        out = real4(x, flat, *args)
+        errs["fused_swin_block"].append(rel_err(out, k4.swin_block_plain(x, flat, *args)))
+        return out
+
+    def k2_checked(x, *args):
+        out = real2(x, *args)
+        errs["fused_window_attention"].append(rel_err(out, k2.window_attention_plain(x, *args)))
+        return out
+
+    with mock.patch.object(htsat, "fused_swin_block", k4_checked), \
+            mock.patch.object(htsat, "fused_window_attention", k2_checked), torch.no_grad():
+        clap_apply(model, {"waveform": batch["waveform"]}, batch["input_ids"],
+                   batch["attention_mask"], train=True, compute_dtype=md)
+    tol = TOL["f32" if md is None else "bf16"]
+    ok = all(e <= tol for v in errs.values() for e in v) and len(errs) == 2
+    log("contrastive", kernels_at_updated_weights=mode,
+        calls=json.dumps({k: len(v) for k, v in errs.items()}),
+        max_rel_err=json.dumps({k: max(v) for k, v in errs.items()}), tol=tol, ok=ok)
+    if not ok:
+        raise AssertionError(f"contrastive {mode}: a kernel at the updated weights disagrees "
+                             f"with its plain version: {dict(errs)}")
+
+
+def phase_contrastive(dev, card: str) -> None:
+    """CLAP training on the card, the slice's path: ``CLAPModule()``'s model
+    (HTSAT-tiny + RoBERTa-base, seed 0) through ``make_train_step`` and the
+    loop ``main`` runs per epoch, golden f32 and bf16 AMP, on a fixed batch
+    of B clips and B texts (module docstring, phase 8). Any miss raises."""
+    import tempfile
+
+    import torch
+
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+    from audio_residual_tpu_torch.parallel.mesh import data_parallel_mesh
+    from audio_residual_tpu_torch.training import checkpoints
+    from audio_residual_tpu_torch.training import train_clap as tc
+    from audio_residual_tpu_torch.training.losses import clip_loss
+    from audio_residual_tpu_torch.training.main import epoch_generator, train_one_epoch
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+    from tests import torch_port_fixture as fx
+
+    torch.cuda.reset_peak_memory_stats()
+    tok = HashTokenizer(context_length=TEXT_CONTEXT)
+    module = CLAPModule(device=dev, seed=0, tokenizer=tok)
+    model, cfg = module.model, module.cfg
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = contrastive_batch(tok, dev)
+    mesh = data_parallel_mesh(device=dev)
+    golden_grads = None
+    log("contrastive", model="CLAPModule(HTSAT-tiny, roberta)", batch=B, clip=CLIP,
+        context=TEXT_CONTEXT, params=sum(p.numel() for p in model.parameters()),
+        drop_path_rate=cfg.audio.drop_path_rate, optimizer=json.dumps(CONTRASTIVE_OPT))
+    for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+        model.load_state_dict(init)
+        optimizer = tc.make_optimizer(model, **CONTRASTIVE_OPT)
+        state = tc.init_train_state(model, optimizer)
+        towers = tc.ClapTowers(model, compute_dtype=md)
+        step_fn = tc.make_train_step(model, optimizer, compute_dtype=md)
+
+        grads = contrastive_grad_check(model, towers, batch, mode, golden=md is None,
+                                       golden_grads=golden_grads)
+        golden_grads = grads if md is None else None
+        del grads
+
+        # the launch census of one training forward, by the JAX dispatch
+        want = dict(fx.expected_launches(cfg.audio, train=True),
+                    gemm=TEXT_GEMMS if md is not None else 0)
+        want = {k: v for k, v in want.items() if v}
+        launch_counts.clear()
+        with torch.no_grad():
+            towers(batch["waveform"], batch["input_ids"], batch["attention_mask"], 0)
+        torch.cuda.synchronize()
+        census = dict(launch_counts)
+        log("contrastive", census=mode, launches=json.dumps(census), expected=json.dumps(want),
+            ok=census == want)
+        if census != want:
+            raise AssertionError(f"contrastive {mode}: a training forward launched {census}, "
+                                 f"the JAX dispatch gives {want}")
+
+        # the loop main runs per epoch, counts from 0 before it; the size of
+        # the derived-weight caches after each step
+        losses, cache_sizes = [], []
+
+        def logged_step(st, b, g):
+            st, m = step_fn(st, b, g)
+            losses.append(m)
+            cache_sizes.append(len(k2._derived))
+            return st, m
+
+        def fixed_loss():  # the fixed batch's training loss without randomness
+            with torch.no_grad():
+                return float(clip_loss(towers(batch["waveform"], batch["input_ids"],
+                                              batch["attention_mask"], None)))
+
+        loss_before = fixed_loss()
+        bn0_before = model.audio_branch.bn0.running_mean.detach().clone()
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_one_epoch(state, logged_step, [batch] * CONTRASTIVE_STEPS, epoch=0, mesh=mesh,
+                        generator=epoch_generator(0, 0))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        loop_launches = dict(launch_counts)
+        loss_after = fixed_loss()
+        vals = [float(m["loss"]) for m in losses]
+        scales = [float(m["logit_scale_a"]) for m in losses]
+        moved = float((model.audio_branch.bn0.running_mean - bn0_before).abs().max())
+        want_loop = {k: v * CONTRASTIVE_STEPS for k, v in want.items()}
+        ok = (all(np.isfinite(vals)) and loss_after < loss_before
+              and max(scales) <= tc.MAX_LOGIT_SCALE + 1e-6 and moved > 0
+              and loop_launches == want_loop and cache_sizes[-1] == cache_sizes[0])
+        log("contrastive", loop=mode, steps=CONTRASTIVE_STEPS, seconds=loop_s,
+            fixed_batch_loss_before=loss_before, fixed_batch_loss_after=loss_after,
+            losses=json.dumps(vals), grad_norms=json.dumps([float(m["grad_norm"])
+                                                            for m in losses]),
+            logit_scale_a=json.dumps(scales), bn0_running_mean_max_move=moved,
+            launches=json.dumps(loop_launches), expected=json.dumps(want_loop),
+            derived_cache_sizes=json.dumps(cache_sizes), ok=ok, card=card)
+        if not ok:
+            raise AssertionError(f"contrastive {mode}: the fixed batch's loss did not fall, a scale "
+                                 "passed ln(100), bn0 did not move, its launches differ from "
+                                 "the census, or the derived-weight caches grew")
+
+        kernels_at_current_weights(model, batch, md, mode)
+
+        # one step split by CUDA events: forward, backward, optimizer
+        out = {}
+
+        def forward():
+            optimizer.zero_grad(set_to_none=True)
+            o = towers(batch["waveform"], batch["input_ids"], batch["attention_mask"], 7)
+            out["loss"] = clip_loss(o)
+
+        splits = []
+        for i in range(CONTRASTIVE_TIMED + 1):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            split = cuda_ms_split([forward, lambda: out["loss"].backward(), optimizer.step])
+            if i:
+                splits.append(split)
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd, opt = (statistics.median(s[i] for s in splits) for i in range(3))
+        step_ms = time_ms(lambda: step_fn(state, batch, torch.Generator().manual_seed(3)),
+                          reps=CONTRASTIVE_TIMED, warmup=1)
+        log("contrastive", step=mode, forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+            split_sum_ms=fwd + bwd + opt, backward_share=bwd / (fwd + bwd + opt),
+            train_step_ms=step_ms, clips_per_s=B * 1e3 / step_ms,
+            peak_allocated_gb=peak / 1e9, card=card)
+        log_profile("contrastive", f"train step, {mode}", device_profile(
+            lambda: step_fn(state, batch, torch.Generator().manual_seed(4))))
+
+        if md is None:
+            # save -> resume reproduces the next step bit for bit
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = checkpoints.save_checkpoint(tmp, state, 0, "contrastive")
+                    size = os.path.getsize(path)
+                    step_fn(state, batch, torch.Generator().manual_seed(5))
+                    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                    checkpoints.load_checkpoint(path, state)
+                    step_fn(state, batch, torch.Generator().manual_seed(5))
+                    torch.cuda.synchronize()
+                same = [k for k, v in model.state_dict().items() if torch.equal(v, after[k])]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            ok = len(same) == len(after)
+            log("contrastive", checkpoint="save -> resume -> next step", file_gb=size / 1e9,
+                tensors=len(after), bit_equal=len(same), ok=ok)
+            if not ok:
+                raise AssertionError("contrastive: the resumed step differs from the uninterrupted "
+                                     f"one in {len(after) - len(same)} tensors")
+        del state, optimizer, step_fn, towers
+        torch.cuda.empty_cache()
+    log("contrastive", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include."""
@@ -2174,6 +2525,7 @@ def main() -> int:
     phase_train(dev, card)
     phase_analysis(stats, dev, card)
     phase_clap(dev, card)
+    phase_contrastive(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

@@ -126,10 +126,17 @@ def test_apply_transform_drops_out_in_training_only():
 
 
 def test_clap_apply_has_no_train_mode_yet(committed):
+    """The text side has no training mode (the JAX package's neither):
+    ``clap_apply(train=True)`` without a generator gives eval's text
+    features, its transforms without dropout, and adds ``bn0_state``."""
     model = t_clap.build_clap(fx.port_clap_config("roberta"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        t_clap.clap_apply(model, torch.zeros(1, 24000), committed["text/roberta/input_ids"],
-                          train=True)
+    wav = torch.from_numpy(committed["wav"][:, :24000])
+    ids = committed["text/roberta/input_ids"][:2]
+    ev = t_clap.clap_apply(model, wav, ids)
+    tr = t_clap.clap_apply(model, wav, ids, train=True)
+    assert torch.equal(tr["text_features"], ev["text_features"])
+    assert torch.equal(tr["text_features_mlp"], ev["text_features_mlp"])
+    assert "bn0_state" in tr and "bn0_state" not in ev
 
 
 def _fields_equal(t, j) -> None:

@@ -627,6 +627,127 @@ def test_autograd_grads_match_plain_on_card(dev, layer, mode, md, tol):
         assert _rel(g, r) < tol
 
 
+# contrastive training: every weight requires grad. Layer shapes as above:
+# C, heads, windows a clip, resolution
+WEIGHT_GRAD_LAYERS = {"tiny-0": (96, 4, 64, (64, 64)), "tiny-3": (768, 32, 1, (8, 8)),
+                      "base-3": (1024, 32, 1, (8, 8))}
+
+
+@pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layer", list(WEIGHT_GRAD_LAYERS))
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_weight_grads_through_recompute_on_card(dev, kernel, layer, mode, md, tol):
+    """K2's and K4's wrappers with every weight requiring grad (qkv, proj,
+    the relative-bias table; K4 also LN1, LN2, fc1, fc2) at HTSAT-tiny's
+    layers 0 and 3 and HTSAT-base's layer 3 (K5, and K4's split plan there):
+    every weight gets a gradient, each within the kernel tests' bounds of
+    autograd through the plain version; the forward launches, the backward
+    none."""
+    c, nh, nw, res = WEIGHT_GRAD_LAYERS[layer]
+    flat, _, _, _ = _inputs(dev, c=c, nh=nh)
+    weights = [w.clone().requires_grad_(True) for w in flat]
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2 * nw, 64, c))).astype(np.float32)).to(dev)
+    if kernel == "K4" and md is not None and nw > 1:
+        x = x.to(md)  # layer 0 carries bf16 activations under AMP
+    x = x.requires_grad_(True)
+    shift = 4 if nw > 1 else 0
+    if kernel == "K4":
+        inputs = [x, *weights]
+
+        def run(f):
+            return f(x, tuple(weights), nh, 8, nw, shift, res, False, False, md)
+        wrapper, plain = k4.fused_swin_block, k4.swin_block_plain
+    else:
+        inputs = [x, *weights[2:6], weights[12]]
+
+        def run(f):
+            return f(x, *weights[2:6], weights[12], nh, 8, nw, shift, res, md)
+        wrapper, plain = k2.fused_window_attention, k2.window_attention_plain
+    launch_counts.clear()
+    out = run(wrapper)
+    assert launch_counts
+    cot = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    grads = torch.autograd.grad((out.float() * cot).sum(), inputs)
+    torch.cuda.synchronize()
+    assert not launch_counts, dict(launch_counts)
+    ref = run(plain)
+    ref_grads = torch.autograd.grad((ref.float() * cot).sum(), inputs)
+    assert _rel(out.detach(), ref.detach()) < tol
+    for i, (g, r) in enumerate(zip(grads, ref_grads)):
+        assert g is not None and bool(torch.isfinite(g.float()).all()), i
+        assert _rel(g, r) < tol, i
+
+
+@pytest.mark.parametrize("m,n,k,gelu,out", [(2464, 2304, 768, False, torch.float32),
+                                             (2464, 3072, 768, True, torch.bfloat16),
+                                             (2464, 768, 3072, False, torch.float32)])
+def test_gemm_autograd_gives_the_plain_gradients_on_card(dev, m, n, k, gelu, out):
+    """RoBERTa-base's AMP products at 32 texts of 77 tokens, every input
+    requiring grad (a, the bf16 weight copy, bias, residual): the autograd
+    entry's forward launches the kernel and its backward none; its
+    gradients equal autograd's through the plain version (the same
+    function of the same inputs: equal up to the order of CUDA's sums,
+    max rel err 1e-6)."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    a = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(n, k, device=dev, generator=g) * 0.03).to(torch.bfloat16)
+    w.requires_grad_(True)
+    bias = (torch.randn(n, device=dev, generator=g) * 0.1).requires_grad_(True)
+    r1 = torch.randn(m, n, device=dev, generator=g).requires_grad_(True) if not gelu else None
+    inputs = [t for t in (a, w, bias, r1) if t is not None]
+    cot = torch.randn(m, n, device=dev, generator=g)
+    launch_counts.clear()
+    y = kg.gemm(a, w, bias=bias, gelu=gelu, r1=r1, out_dtype=out)
+    assert dict(launch_counts) == {"gemm": 1}
+    launch_counts.clear()
+    grads = torch.autograd.grad((y.float() * cot).sum(), inputs)
+    torch.cuda.synchronize()
+    assert not launch_counts
+    ref = kg.gemm_plain(a, w, bias, None, gelu, r1, None, out)
+    ref_grads = torch.autograd.grad((ref.float() * cot).sum(), inputs)
+    assert _rel(y.detach(), ref.detach()) < 2e-2
+    for gr, rg in zip(grads, ref_grads):
+        assert gr.dtype == rg.dtype and _rel(gr, rg) < 1e-6
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
+def test_derived_copies_follow_optimizer_steps_on_card(dev, fused, mode, md, tol):
+    """Ten AdamW steps (foreach and fused) on K4's and K2's weights, each
+    step through the autograd entry: the kernels' next calls (bf16 copies,
+    gathered and padded biases, TMA maps, 3xTF32 splits) agree with the
+    plain versions at the new weights, and the derived-copy cache keeps its
+    size. The foreach update bumps each weight's version; the fused one
+    bumps none, which is why a weight that requires grad is never kept
+    (``window_attention.derived``)."""
+    c, nh, nw, res = WEIGHT_GRAD_LAYERS["tiny-0"]
+    flat, _, _, _ = _inputs(dev, c=c, nh=nh)
+    weights = [torch.nn.Parameter(w.clone()) for w in flat]
+    opt = torch.optim.AdamW(weights, lr=1e-2, fused=fused)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2 * nw, 64, c))).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)).to(dev)
+    args4 = (nh, 8, nw, 4, res, False, False, md)
+    args2 = (nh, 8, nw, 4, res, md)
+    sizes = []
+    for _ in range(10):
+        with torch.no_grad():
+            assert _rel(k4.fused_swin_block(x, tuple(weights), *args4),
+                        k4.swin_block_plain(x, tuple(weights), *args4)) < tol
+            assert _rel(k2.fused_window_attention(x, *weights[2:6], weights[12], *args2),
+                        k2.window_attention_plain(x, *weights[2:6], weights[12], *args2)) < tol
+        sizes.append(len(k2._derived))
+        versions = [w._version for w in weights]
+        opt.zero_grad()
+        (k4.fused_swin_block(x, tuple(weights), *args4).float() * cot).sum().backward()
+        opt.step()
+        if not fused:
+            assert all(w._version > v for w, v in zip(weights, versions))
+    assert sizes == [sizes[0]] * len(sizes), sizes
+
+
 def test_serving_is_unchanged_without_a_lambda_grad(dev):
     """A λ that requires no grad: an ``encode_audio`` in grad mode launches
     what one under ``torch.no_grad()`` does and returns no ``grad_fn``; a λ

@@ -103,9 +103,16 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import audio_residual_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "new = ['ops.spec_augment', 'training.losses', 'training.scheduler',\n"
+        "       'training.train_clap', 'training.checkpoints', 'training.logger',\n"
+        "       'training.params', 'training.main', 'training.infer_demo', 'utils.misc',\n"
+        "       'data.toy', 'parallel.distributed', 'parallel.mesh']\n"
+        "missing = [m for m in new if p.__name__ + '.' + m not in names]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'audio_residual_tpu' or m.startswith('audio_residual_tpu.')]\n"
         "print(bad)\n"
@@ -120,9 +127,14 @@ def test_port_imports_no_jax():
 def test_entry_point_without_device_needs_a_card(monkeypatch):
     """``device=None`` means the card: every entry point that builds a model
     raises without one, the full CLAP's (``build_clap``, ``create_model``,
-    ``CLAPModule``) too."""
+    ``CLAPModule``) and the training slice's (``training.main``,
+    ``infer_demo``, ``init_distributed``, ``data_parallel_mesh``) too."""
     from audio_residual_tpu_torch.models import factory as t_factory
     from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.parallel.distributed import init_distributed
+    from audio_residual_tpu_torch.parallel.mesh import data_parallel_mesh
+    from audio_residual_tpu_torch.training import infer_demo
+    from audio_residual_tpu_torch.training import main as t_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(**fx.AUDIO_KW), **fx.CLAP_KW)
@@ -140,3 +152,12 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
             t_factory.create_model("HTSAT-tiny", "bart")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CLAPModule(tmodel="bart")
+        # the training slice's entry points: the CLI, the demo, the rendezvous
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_main.main(["--dataset-type", "toy"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            infer_demo.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data_parallel_mesh()

@@ -420,6 +420,40 @@ def run_port_train_amp(arrays: dict, device) -> dict[str, np.ndarray]:
     return {"loss_bf16": np.float32(loss.detach().cpu()), "grad_bf16": grad.cpu().numpy()}
 
 
+def expected_launches(cfg, *, train: bool = False) -> dict[str, int]:
+    """The kernel launches of one untapped forward of the port's HTSAT with
+    config ``cfg``, per wrapper, by the JAX package's dispatch
+    (``audio_residual_tpu/models/htsat.py:380-384,423-437``): K1 once; a
+    training block with drop-path (``train and dpr > 0``) one window
+    attention; any other block K4, or the split plan's attention and K3
+    where a window covers the image; the attention is K5 from C >=
+    ``WIDE_MIN_C``, where K4's wrapper takes the split plan too. Imports
+    the port only."""
+    from audio_residual_tpu_torch.models.htsat import drop_path_rates
+    from audio_residual_tpu_torch.ops.cuda.window_attention import WIDE_MIN_C
+
+    counts = dict.fromkeys(("fused_logmel", "fused_swin_block", "fused_window_attention",
+                            "fused_residual_ffn", "wide_window_attention"), 0)
+    counts["fused_logmel"] = 1
+    dpr = drop_path_rates(cfg)
+    k = 0
+    for i, depth in enumerate(cfg.depths):
+        h, w = cfg.layer_resolution(i)
+        window = min(cfg.window_size, h, w)
+        wide = cfg.layer_dim(i) >= WIDE_MIN_C
+        attention = "wide_window_attention" if wide else "fused_window_attention"
+        for _ in range(depth):
+            if train and dpr[k] > 0.0:
+                counts[attention] += 1
+            elif (h // window) * (w // window) == 1 or wide:
+                counts[attention] += 1
+                counts["fused_residual_ffn"] += 1
+            else:
+                counts["fused_swin_block"] += 1
+            k += 1
+    return counts
+
+
 def text_inputs(tmodel: str, batch: int = 4, seed: int = 5) -> dict[str, np.ndarray]:
     """``input_ids`` and ``attention_mask`` ``[batch, CLAP_CONTEXT]`` of a
     tower's token rules, rows of lengths from 3 to the context: HF towers
