@@ -1,4 +1,4 @@
-"""CLAP dual-tower model: HTSAT audio branch + a text branch (RoBERTa, BERT,
+"""CLAP dual-tower model: HTSAT or PANN audio branch + a text branch (RoBERTa, BERT,
 BART or the CLIP transformer), two-layer MLP projections into the joint
 space, the MLP "transform" heads and the learnable logit scales.
 
@@ -29,6 +29,7 @@ from audio_residual_tpu_torch.models.bart import Bart, bart_apply
 from audio_residual_tpu_torch.models.clip_text import (Transformer, add_text_embeddings,
                                                        clip_text_apply)
 from audio_residual_tpu_torch.models.htsat import HTSAT, HTSATConfig, htsat_apply
+from audio_residual_tpu_torch.models.pann import PANN, pann_apply
 from audio_residual_tpu_torch.models.roberta import Roberta, RobertaConfig, roberta_apply
 
 __all__ = ["CLAPConfig", "CLAPAudio", "CLAP", "build_clap_audio", "build_clap",
@@ -43,7 +44,9 @@ class CLAPConfig:
     """The CLAP config (HTSAT-tiny + roberta defaults, `HTSAT-tiny.json`).
     ``text`` is a ``RobertaConfig`` (roberta, bert), a ``ClipTextConfig``
     (transformer) or a ``BartConfig`` (bart), matching
-    ``text_model_type``."""
+    ``text_model_type``. ``audio`` is an ``HTSATConfig`` or, with
+    ``audio_model_type="PANN"``, a ``PANNConfig``; ``embed_dim`` is the
+    tower's output width (PANN: 512, 1024, 2048)."""
 
     embed_dim: int = 768  # audio tower output width
     joint_embed_shape: int = 512
@@ -80,8 +83,9 @@ def _mlp(d_in: int, j: int, act: nn.Module, gen: torch.Generator) -> nn.Sequenti
 
 
 class CLAPAudio(nn.Module):
-    """``audio_branch`` (HTSAT) + ``audio_projection`` (Linear, act, Linear);
-    state-dict keys are the audio side of the reference CLAP checkpoint."""
+    """``audio_branch`` (HTSAT or PANN) + ``audio_projection`` (Linear, act,
+    Linear); state-dict keys are the audio side of the reference CLAP
+    checkpoint."""
 
     def __init__(self, cfg: CLAPConfig = CLAPConfig(), generator: torch.Generator | None = None):
         super().__init__()
@@ -89,10 +93,12 @@ class CLAPAudio(nn.Module):
         if cfg.mlp_act not in ("relu", "gelu"):
             raise ValueError(cfg.mlp_act)
         self.cfg = cfg
-        if cfg.audio_model_type != "HTSAT":
-            raise NotImplementedError(
-                f"{cfg.audio_model_type} audio towers are not ported yet (ROADMAP, slice 6)")
-        self.audio_branch = HTSAT(cfg.audio, gen)
+        if cfg.audio_model_type == "HTSAT":
+            self.audio_branch = HTSAT(cfg.audio, gen)
+        elif cfg.audio_model_type == "PANN":
+            self.audio_branch = PANN(cfg.audio, gen)
+        else:
+            raise RuntimeError(f"Model config for {cfg.audio_model_type} not found")
         act = nn.ReLU() if cfg.mlp_act == "relu" else nn.GELU()
         self.audio_projection = _mlp(cfg.embed_dim, cfg.joint_embed_shape, act, gen)
 
@@ -195,17 +201,25 @@ def encode_audio(model: CLAPAudio, batch, *, train: bool = False,
     (``{"image"}`` / ``{"tokens"}``) untouched. ``taps`` (``"attention"``,
     ``"residual"``) add ``layers_attention`` / ``layers_residuals``;
     ``train``, ``generator`` and ``bn_group`` select the training forward.
-    See :func:`htsat_apply`.
+    See :func:`htsat_apply`. A PANN tower (:func:`~audio_residual_tpu_torch.
+    models.pann.pann_apply`) takes no taps, ResiDual or split points (a
+    ``ValueError``, as in the JAX package, ``clap.py:175-179``) and runs
+    f32 whatever ``compute_dtype`` is.
 
     Built models hold frozen weights, so a forward builds an autograd graph
     only where a ResiDual ``lam`` requires grad (λ-training) or the caller
     made the weights trainable (``training/train_clap.py``); callers that
     only embed need no ``torch.no_grad()``, though it saves the check."""
-    out = htsat_apply(model.audio_branch, batch, train=train, generator=generator,
-                      bn_group=bn_group, taps=taps, residual=residual,
-                      double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
-                      start_layer=start_layer, stop_at_layer=stop_at_layer,
-                      stop_at_image=stop_at_image)
+    if model.cfg.audio_model_type == "PANN":
+        if taps or residual or start_layer or stop_at_layer is not None or stop_at_image:
+            raise ValueError("taps/residual/start_layer/stop_at_layer are HTSAT-only")
+        out = pann_apply(model.audio_branch, batch, train=train, generator=generator)
+    else:
+        out = htsat_apply(model.audio_branch, batch, train=train, generator=generator,
+                          bn_group=bn_group, taps=taps, residual=residual,
+                          double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                          start_layer=start_layer, stop_at_layer=stop_at_layer,
+                          stop_at_image=stop_at_image)
     if stop_at_layer is not None or stop_at_image:
         return out
     proj = apply_projection(model, out["embedding"])

@@ -16,6 +16,21 @@ and :func:`clip_text_state_dict` are their inverses. Input is the JAX CLAP
 param pytree as nested dicts/lists of numpy arrays. Linear kernels ``[in,
 out]`` are transposed to ``[out, in]``; HWIO convolution kernels become
 OIHW.
+
+The audio side also carries what neither JAX exporter maps: the PANN towers
+(the inverse of ``convert_pann_state_dict``: ``conv_block{i}.conv{1,2}``,
+``bn{1,2}``, ``bn0``, ``fc1``, ``fc_audioset``) and the mel-fusion
+parameters of both towers. The fusion keys follow the reference modules
+that the JAX package's fusion code cites (``feature_fusion.py``, the fusion
+branches of ``htsat.py`` and ``pann_model.py``); no reference checkpoint of
+a fusion model is in the repository, so this naming is the reference code's
+as those comments describe it, not checked against a published file:
+``mel_conv1d.{0,1}`` (Conv1d, BatchNorm1d) at the tower's root;
+HTSAT's ``patch_embed.mel_conv2d`` (a Conv2d) and
+``patch_embed.fusion_model``; PANN's ``mel_conv2d.{0,1}`` (Conv2d,
+BatchNorm2d; the ReLU at 2) and ``fusion_model`` at the root; in a fusion
+model ``local_att{,2}.{0,1,3,4}`` and ``global_att{,2}.{1,2,4,5}`` (conv,
+BN, ReLU, conv, BN, behind the global branch's pooling layer at 0).
 """
 
 from __future__ import annotations
@@ -25,7 +40,7 @@ import torch
 
 from audio_residual_tpu_torch.models.clap import CLAP
 
-__all__ = ["clap_audio_state_dict", "roberta_state_dict", "bart_state_dict",
+__all__ = ["clap_audio_state_dict", "pann_state_dict", "roberta_state_dict", "bart_state_dict",
            "clip_text_state_dict", "clap_state_dict", "load_jax_params", "load_torch_checkpoint",
            "load_audio_checkpoint", "load_clap_checkpoint"]
 
@@ -55,9 +70,69 @@ def _conv(x) -> np.ndarray:  # HWIO -> OIHW
     return np.transpose(np.asarray(x), (3, 2, 0, 1))
 
 
+def _bn(sd: dict, dst: str, p: dict) -> None:
+    sd[dst + ".weight"] = np.asarray(p["scale"])
+    sd[dst + ".bias"] = np.asarray(p["bias"])
+    sd[dst + ".running_mean"] = np.asarray(p["mean"])
+    sd[dst + ".running_var"] = np.asarray(p["var"])
+
+
+def _conv1d(x) -> np.ndarray:  # WIO -> OIW
+    return np.transpose(np.asarray(x), (2, 1, 0))
+
+
+def _fusion(sd: dict, dst: str, p: dict) -> None:
+    """An AFF / iAFF param tree -> ``{dst}.local_att.0`` ... keys."""
+    for name, branch in p.items():
+        first = 1 if name.startswith("global") else 0
+        for k, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"))):
+            kernel = np.asarray(branch[conv]["kernel"])
+            i = first + 3 * k
+            sd[f"{dst}.{name}.{i}.weight"] = (_conv(kernel) if kernel.ndim == 4
+                                              else _conv1d(kernel))
+            sd[f"{dst}.{name}.{i}.bias"] = np.asarray(branch[conv]["bias"])
+            _bn(sd, f"{dst}.{name}.{i + 1}", branch[bn])
+
+
+def _mel_conv1d(sd: dict, pre: str, hp: dict) -> None:
+    if "mel_conv1d" in hp:
+        sd[pre + "mel_conv1d.0.weight"] = _conv1d(hp["mel_conv1d"]["conv"]["kernel"])
+        sd[pre + "mel_conv1d.0.bias"] = np.asarray(hp["mel_conv1d"]["conv"]["bias"])
+        _bn(sd, pre + "mel_conv1d.1", hp["mel_conv1d"]["bn"])
+
+
+def pann_state_dict(hp: dict, pre: str = "audio_branch.") -> dict[str, np.ndarray]:
+    """A JAX PANN pytree -> reference names (the inverse of the JAX
+    package's ``convert_pann_state_dict``, with the fusion keys)."""
+    sd: dict = {}
+    _bn(sd, pre + "bn0", hp["bn0"])
+    for i, blk in enumerate(hp["conv_blocks"]):
+        b = f"{pre}conv_block{i + 1}."
+        for k in (1, 2):
+            if f"conv{k}" in blk:
+                sd[f"{b}conv{k}.weight"] = _conv(blk[f"conv{k}"]["kernel"])
+                _bn(sd, f"{b}bn{k}", blk[f"bn{k}"])
+    _lin(sd, pre + "fc1", hp["fc1"])
+    _lin(sd, pre + "fc_audioset", hp["fc_audioset"])
+    _mel_conv1d(sd, pre, hp)
+    if "mel_conv2d" in hp:
+        sd[pre + "mel_conv2d.0.weight"] = _conv(hp["mel_conv2d"]["conv"]["kernel"])
+        sd[pre + "mel_conv2d.0.bias"] = np.asarray(hp["mel_conv2d"]["conv"]["bias"])
+        _bn(sd, pre + "mel_conv2d.1", hp["mel_conv2d"]["bn"])
+    if "fusion_model" in hp:
+        _fusion(sd, pre + "fusion_model", hp["fusion_model"])
+    return sd
+
+
 def clap_audio_state_dict(params: dict) -> dict[str, np.ndarray]:
-    """Reference state-dict names -> numpy arrays, audio side only."""
+    """Reference state-dict names -> numpy arrays, audio side only (HTSAT or
+    PANN, with their fusion parameters)."""
     hp, pre = params["audio_branch"], "audio_branch."
+    if "conv_blocks" in hp:
+        sd = pann_state_dict(hp, pre)
+        _lin(sd, "audio_projection.0", params["audio_projection"]["fc1"])
+        _lin(sd, "audio_projection.2", params["audio_projection"]["fc2"])
+        return sd
     sd: dict = {
         pre + "bn0.weight": np.asarray(hp["bn0"]["scale"]),
         pre + "bn0.bias": np.asarray(hp["bn0"]["bias"]),
@@ -70,6 +145,16 @@ def clap_audio_state_dict(params: dict) -> dict[str, np.ndarray]:
     }
     if hp["patch_embed"].get("norm") is not None:
         _ln(sd, pre + "patch_embed.norm", hp["patch_embed"]["norm"])
+    if "mel_conv2d" in hp["patch_embed"]:
+        sd[pre + "patch_embed.mel_conv2d.weight"] = _conv(
+            hp["patch_embed"]["mel_conv2d"]["kernel"])
+        sd[pre + "patch_embed.mel_conv2d.bias"] = np.asarray(
+            hp["patch_embed"]["mel_conv2d"]["bias"])
+    if "fusion_model" in hp["patch_embed"]:
+        _fusion(sd, pre + "patch_embed.fusion_model", hp["patch_embed"]["fusion_model"])
+    _mel_conv1d(sd, pre, hp)
+    if "fusion_model" in hp:
+        _fusion(sd, pre + "fusion_model", hp["fusion_model"])
     for i, layer in enumerate(hp["layers"]):
         for j, blk in enumerate(layer["blocks"]):
             bp = f"{pre}layers.{i}.blocks.{j}."

@@ -7,8 +7,9 @@ its modules) with the same rule and order, so :func:`list_models` and
 :func:`create_model` builds the full CLAP (HTSAT + a text tower) of a
 registered config by name, :func:`create_audio_model` its audio side alone
 (what the bench path needs: no 125M-parameter text tower), each from a seed
-or a reference checkpoint. PANN towers, fusion and the vision configs are
-ROADMAP slice 6.
+or a reference checkpoint; HTSAT and PANN towers (:func:`create_model` also
+with ``enable_fusion`` and a ``fusion_type``). The vision configs are ROADMAP
+slice 7.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from audio_residual_tpu_torch.models.clip_text import ClipTextConfig
 from audio_residual_tpu_torch.models.convert import (DERIVED_KEYS, load_audio_checkpoint,
                                                      load_clap_checkpoint, load_torch_checkpoint)
 from audio_residual_tpu_torch.models.htsat import HTSAT_VARIANTS, HTSATConfig
+from audio_residual_tpu_torch.models.pann import PANNConfig
 from audio_residual_tpu_torch.models.roberta import RobertaConfig
 
 __all__ = ["list_models", "get_model_config", "add_model_config", "create_audio_model",
@@ -80,26 +82,26 @@ def add_model_config(path: str) -> None:
     _rescan()
 
 
-def _amodel_to_config(model_cfg: dict, enable_fusion: bool = False) -> HTSATConfig:
-    """The audio tower's config of a registered model config (HTSAT,
-    non-fusion)."""
+def _amodel_to_config(model_cfg: dict, enable_fusion: bool = False,
+                      fusion_type: str = "None") -> HTSATConfig | PANNConfig:
+    """The audio tower's config of a registered model config (HTSAT or
+    PANN, ``factory.py:86-116``)."""
     a = model_cfg["audio_cfg"]
-    if a["model_type"] != "HTSAT":
-        raise NotImplementedError(
-            f"{a['model_type']} audio towers are not ported yet (ROADMAP, slice 6)")
-    if enable_fusion:
-        raise NotImplementedError("fusion is not ported yet (ROADMAP, slice 6)")
-    return HTSATConfig(
-        num_classes=a["class_num"],
-        sample_rate=a["sample_rate"],
-        clip_samples=a["clip_samples"],
-        mel_bins=a["mel_bins"],
-        fmin=a["fmin"],
-        fmax=a["fmax"],
-        n_fft=a["window_size"],
-        hop_size=a["hop_size"],
-        **HTSAT_VARIANTS[a["model_name"]],
-    )
+    common = dict(num_classes=a["class_num"], sample_rate=a["sample_rate"],
+                  clip_samples=a["clip_samples"], mel_bins=a["mel_bins"], fmin=a["fmin"],
+                  fmax=a["fmax"], n_fft=a["window_size"], hop_size=a["hop_size"],
+                  enable_fusion=enable_fusion, fusion_type=fusion_type)
+    if a["model_type"] == "HTSAT":
+        return HTSATConfig(**common, **HTSAT_VARIANTS[a["model_name"]])
+    if a["model_type"] == "PANN":
+        return PANNConfig(model_name=a["model_name"], **common)
+    raise RuntimeError(f"Model config for {a['model_type']} not found")
+
+
+def _clap_config(model_cfg: dict, enable_fusion: bool, fusion_type: str, **text) -> CLAPConfig:
+    return CLAPConfig(embed_dim=model_cfg["embed_dim"],
+                      audio=_amodel_to_config(model_cfg, enable_fusion, fusion_type),
+                      audio_model_type=model_cfg["audio_cfg"]["model_type"], **text)
 
 
 def _tmodel_to_config(tmodel_name: str, text_cfg_json: dict, *, quick_gelu: bool = False):
@@ -123,14 +125,15 @@ def _tmodel_to_config(tmodel_name: str, text_cfg_json: dict, *, quick_gelu: bool
 
 
 def create_model(amodel_name: str, tmodel_name: str = "roberta", pretrained: str = "", *,
-                 enable_fusion: bool = False, seed: int = 0,
+                 enable_fusion: bool = False, fusion_type: str = "None", seed: int = 0,
                  device: str | torch.device | None = None, pretrained_audio: str = "",
                  pretrained_text: str = "", force_quick_gelu: bool = False
                  ) -> tuple[CLAP, CLAPConfig, dict]:
     """``(model, cfg, model_cfg)``: the full CLAP of the registered config
-    ``amodel_name`` with the text tower ``tmodel_name`` ("roberta", the
-    published checkpoints' tower; "bert"; "transformer", the config's
-    ``text_cfg``; "bart"), in eval mode on ``device`` (the card unless
+    ``amodel_name`` (an HTSAT or a PANN tower; ``enable_fusion`` with a
+    ``fusion_type`` for mel fusion) with the text tower ``tmodel_name``
+    ("roberta", the published checkpoints' tower; "bert"; "transformer", the
+    config's ``text_cfg``; "bart"), in eval mode on ``device`` (the card unless
     ``device="cpu"``), random from ``seed``. ``pretrained``: a reference
     checkpoint, full (:func:`load_checkpoint`) or audio-only;
     ``pretrained_audio``: a tower-only one (:func:`load_audio_tower`).
@@ -141,12 +144,11 @@ def create_model(amodel_name: str, tmodel_name: str = "roberta", pretrained: str
         model_cfg = {**model_cfg, "quick_gelu": True}
     if "audio_cfg" not in model_cfg:
         raise NotImplementedError(f"{amodel_name} is a vision config; the CLIP towers are not "
-                                  "ported yet (ROADMAP, slice 6)")
-    cfg = CLAPConfig(embed_dim=model_cfg["embed_dim"],
-                     audio=_amodel_to_config(model_cfg, enable_fusion),
-                     text=_tmodel_to_config(tmodel_name, model_cfg["text_cfg"],
-                                            quick_gelu=bool(model_cfg.get("quick_gelu", False))),
-                     text_model_type=tmodel_name)
+                                  "ported yet (ROADMAP, slice 7)")
+    cfg = _clap_config(model_cfg, enable_fusion, fusion_type,
+                       text=_tmodel_to_config(tmodel_name, model_cfg["text_cfg"],
+                                              quick_gelu=bool(model_cfg.get("quick_gelu", False))),
+                       text_model_type=tmodel_name)
     model = build_clap(cfg, seed=seed, device=device)
     if pretrained:
         load_checkpoint(model, pretrained)
@@ -197,8 +199,8 @@ def create_audio_model(name: str, pretrained: str = "", *, seed: int = 0,
     model_cfg = get_model_config(name.replace("/", "-"))
     if "audio_cfg" not in model_cfg:
         raise NotImplementedError(
-            f"{name} is a vision config; the CLIP towers are not ported yet (ROADMAP, slice 6)")
-    cfg = CLAPConfig(embed_dim=model_cfg["embed_dim"], audio=_amodel_to_config(model_cfg))
+            f"{name} is a vision config; the CLIP towers are not ported yet (ROADMAP, slice 7)")
+    cfg = _clap_config(model_cfg, False, "None")
     model = build_clap_audio(cfg, seed=seed, device=device)
     if pretrained:
         load_audio_checkpoint(model, pretrained)

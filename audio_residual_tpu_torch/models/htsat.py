@@ -1,10 +1,28 @@
 """HTSAT (Hierarchical Token-Semantic Audio Transformer).
 
 Port of ``audio_residual_tpu/models/htsat.py`` with its split points, its
-representation taps and its training mode (no mel fusion). Module attribute
-names give the reference LAION-CLAP ``state_dict`` keys
+representation taps, its training mode and every mel-fusion type. Module
+attribute names give the reference LAION-CLAP ``state_dict`` keys
 (``layers.{i}.blocks.{j}.attn.qkv.weight``, ...), the layout
 ``audio_residual_tpu/models/convert.py`` writes.
+
+Mel fusion (``enable_fusion`` with a ``fusion_type``, ``htsat.py:525-608,
+682-750``) takes ``{"mel_fusion": [B, 4, T, F], "longer": [B]}`` (channel
+0 the global mel, 1-3 the local chunks: ``data/featurize.py::
+get_audio_features(data_truncating="fusion")``). bn0 normalises it with its
+eval statistics; the AMP cast comes after bn0, as for a waveform. The
+``*_1d`` types fuse the chunks into the global mel before the image
+(``mel_conv1d``: Conv1d k5 s3 p2 + BN, chunks concatenated on time, padded or
+trimmed to T, DAF/AFF/iAFF over the mel bins); the ``*_2d`` types fold all
+four channels to images and fuse in the patch embedding (the global channel
+on the patch GEMM, the local ones through ``patch_embed.mel_conv2d``,
+kernel (P, 3P) stride (S, 3S), concatenated on the width, padded or trimmed
+to the global width); ``channel_map`` embeds the four channels with a
+4-channel ``proj``. Clips with ``longer`` False keep the global channel
+alone. The fusion internals run in f32; the Swin layers run K4, K2 and K3
+as for a waveform. A 2-D fusion or ``channel_map`` model needs the fusion
+input (a waveform raises); a non-fusion model given it uses the global
+channel.
 
 Kernel routing: every block of a layer with several windows per image runs
 ``fused_swin_block`` (K4); a layer whose window covers the whole image (one
@@ -55,7 +73,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio_residual_tpu_torch.ops import frontend, interpolate, windows
-from audio_residual_tpu_torch.ops.common import layer_norm
+from audio_residual_tpu_torch.ops.common import golden_convs, layer_norm
+from audio_residual_tpu_torch.ops.fusion import (EvalBatchNorm, batch_norm_eval, fusion_kind,
+                                                 make_fusion)
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
 from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block, split_block
 from audio_residual_tpu_torch.ops.cuda.window_attention import fused_window_attention
@@ -63,7 +83,7 @@ from audio_residual_tpu_torch.ops.spec_augment import sample_spec_augment, spec_
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 __all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img", "window_attention",
-           "TAPS", "drop_path", "sample_drop_path", "drop_path_rates"]
+           "TAPS", "drop_path", "sample_drop_path", "drop_path_rates", "fuse_1d"]
 
 TAPS = ("attention", "residual")
 
@@ -92,10 +112,17 @@ class HTSATConfig:
     fmax: float = 14000.0
     n_fft: int = 1024
     hop_size: int = 480
+    enable_fusion: bool = False
+    fusion_type: str = "None"
     # the frontend DFT's mode: None follows compute_dtype ("bf16" under AMP,
     # else "f32"); "f32" or "bf16" override it. The JAX package's "bf16x3"
     # split dot is a TPU-only workaround and is not carried over.
     dft_mode: str | None = None
+
+    @property
+    def fusion(self) -> str | None:
+        """``"1d"``, ``"2d"``, ``"channel_map"`` or None (no fusion)."""
+        return fusion_kind(self.enable_fusion, self.fusion_type)
 
     @property
     def freq_ratio(self) -> int:
@@ -186,17 +213,39 @@ class BatchNormMel(nn.Module):
         return y, {"mean": mean, "var": var}
 
 
+def _patch_padding(cfg: HTSATConfig) -> tuple[int, int]:
+    return ((cfg.patch_size - cfg.patch_stride[0]) // 2,
+            (cfg.patch_size - cfg.patch_stride[1]) // 2)
+
+
+def _uniform_conv(conv: nn.Module, gen: torch.Generator) -> None:
+    """U(-1, 1) * sqrt(1 / fan_in) weight, zero bias (the JAX init)."""
+    fan_in = conv.weight[0].numel()
+    with torch.no_grad():
+        nn.init.uniform_(conv.weight, -1.0, 1.0, generator=gen)
+        conv.weight.mul_(math.sqrt(1.0 / fan_in))
+        conv.bias.zero_()
+
+
 class PatchEmbed(nn.Module):
+    """``proj`` (4 input channels under ``channel_map``) and ``norm``; the
+    2-D fusion types add ``mel_conv2d`` and ``fusion_model``
+    (:meth:`add_fusion`)."""
+
     def __init__(self, cfg: HTSATConfig, gen: torch.Generator):
         super().__init__()
-        k = cfg.patch_size
-        self.proj = nn.Conv2d(cfg.in_chans, cfg.embed_dim, k, stride=cfg.patch_stride)
-        fan_in = cfg.in_chans * k * k
-        with torch.no_grad():
-            nn.init.uniform_(self.proj.weight, -1.0, 1.0, generator=gen)
-            self.proj.weight.mul_(math.sqrt(1.0 / fan_in))
-            self.proj.bias.zero_()
+        in_ch = cfg.in_chans * (4 if cfg.fusion == "channel_map" else 1)
+        self.proj = nn.Conv2d(in_ch, cfg.embed_dim, cfg.patch_size, stride=cfg.patch_stride,
+                              padding=_patch_padding(cfg))
+        _uniform_conv(self.proj, gen)
         self.norm = nn.LayerNorm(cfg.embed_dim) if cfg.patch_norm else None
+
+    def add_fusion(self, cfg: HTSATConfig, gen: torch.Generator) -> None:
+        p, s = cfg.patch_size, cfg.patch_stride
+        self.mel_conv2d = nn.Conv2d(cfg.in_chans, cfg.embed_dim, (p, 3 * p),
+                                    stride=(s[0], 3 * s[1]), padding=_patch_padding(cfg))
+        _uniform_conv(self.mel_conv2d, gen)
+        self.fusion_model = make_fusion(cfg.fusion_type, cfg.embed_dim, gen)
 
 
 class WindowAttention(nn.Module):
@@ -270,6 +319,15 @@ class HTSAT(nn.Module):
             self.tscam_conv.weight.mul_(math.sqrt(1.0 / fan_in))
             self.tscam_conv.bias.zero_()
         self.head = _linear(cfg.num_classes, cfg.num_classes, gen)
+        # the fusion modules draw last, so the rest is a non-fusion model's
+        if cfg.fusion == "1d":
+            m = cfg.mel_bins
+            self.mel_conv1d = nn.Sequential(nn.Conv1d(m, m, 5, stride=3, padding=2),
+                                            EvalBatchNorm(m))
+            _uniform_conv(self.mel_conv1d[0], gen)
+            self.fusion_model = make_fusion(cfg.fusion_type, m, gen)
+        elif cfg.fusion == "2d":
+            self.patch_embed.add_fusion(cfg, gen)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +352,24 @@ def reshape_wav2img(x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
     return x[..., None]
 
 
+def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` with its stride and padding on NHWC ``x``, the weight in
+    ``x``'s dtype and the bias added after (promoting, as the JAX package's
+    f32 bias does)."""
+    with golden_convs():
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, conv.stride,
+                     conv.padding)
+    return y.permute(0, 2, 3, 1) + conv.bias
+
+
 def _proj_conv(conv: nn.Conv2d, x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
-    """The 4x4/4 patch conv as reshape + one GEMM (NHWC in and out)."""
+    """The patch conv (NHWC in and out): non-overlapping patches (every
+    shipped config) as reshape + one GEMM, overlapping ones as a padded
+    strided convolution."""
     ph, pw = cfg.patch_stride
     b, h, w, cin = x.shape
     if not (cfg.patch_size == ph == pw and h % ph == 0 and w % pw == 0):
-        raise NotImplementedError("overlapping patch embedding is not ported")
+        return _conv_nhwc(conv, x)
     patches = (
         x.reshape(b, h // ph, ph, w // pw, pw, cin)
         .permute(0, 1, 3, 2, 4, 5)
@@ -310,11 +380,58 @@ def _proj_conv(conv: nn.Conv2d, x: torch.Tensor, cfg: HTSATConfig) -> torch.Tens
     return y.reshape(b, h // ph, w // pw, -1)
 
 
-def _patch_embed(pe: PatchEmbed, x: torch.Tensor, cfg: HTSATConfig) -> torch.Tensor:
-    y = _proj_conv(pe.proj, x, cfg)
+def _nchw_fuse(fusion: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A fusion module on NHWC (or NWC) tensors: channels first and back."""
+    perm = (0, x.ndim - 1, *range(1, x.ndim - 1))
+    inv = (0, *range(2, x.ndim), 1)
+    return fusion(x.permute(perm), y.permute(perm)).permute(inv)
+
+
+def _patch_embed(pe: PatchEmbed, x: torch.Tensor, cfg: HTSATConfig, longer=None) -> torch.Tensor:
+    """Patch conv -> ``[B, N, C]`` -> LN; the 2-D fusion types fuse the local
+    channels' ``mel_conv2d`` patches into the global channel's where
+    ``longer`` is set (``htsat.py:525-573``)."""
+    if cfg.fusion != "2d":
+        y = _proj_conv(pe.proj, x, cfg)
+    else:
+        b = x.shape[0]
+        global_y = _proj_conv(pe.proj, x[..., 0:1], cfg)
+        ww = global_y.shape[2]
+        local = x[..., 1:].permute(0, 3, 1, 2).reshape(b * 3, *x.shape[1:3], 1)
+        ly = _conv_nhwc(pe.mel_conv2d, local)
+        _, lh, lw, lc = ly.shape
+        # chunk-concat along the width
+        ly = ly.reshape(b, 3, lh, lw, lc).permute(0, 2, 1, 3, 4).reshape(b, lh, 3 * lw, lc)
+        ly = F.pad(ly, (0, 0, 0, ww - 3 * lw)) if 3 * lw < ww else ly[:, :, :ww]
+        fused = _nchw_fuse(pe.fusion_model, global_y, ly)
+        y = fused if longer is None else torch.where(longer[:, None, None, None], fused,
+                                                     global_y)
     b, h, w, c = y.shape
     y = y.reshape(b, h * w, c)
     return _ln(pe.norm, y) if pe.norm is not None else y
+
+
+def fuse_1d(mel_conv1d: nn.Sequential, fusion: nn.Module, mel: torch.Tensor, longer
+            ) -> torch.Tensor:
+    """1-D fusion of ``mel [B, 4, T, F]`` (``htsat.py:576-608``, PANN's
+    ``pann.py`` twin): the local chunks through ``mel_conv1d`` (Conv1d k5
+    s3 p2 + BN), concatenated on time, padded or trimmed to T, fused into
+    the global mel over the mel bins where ``longer`` is set; returned in
+    ``mel``'s dtype (the fusion itself runs in f32)."""
+    b, _, t, f = mel.shape
+    global_mel = mel[:, 0]
+    local = mel[:, 1:].reshape(b * 3, t, f).transpose(1, 2)  # [3B, F, T]
+    conv, bn = mel_conv1d
+    with golden_convs():
+        ly = F.conv1d(local, conv.weight.to(mel.dtype), None, conv.stride, conv.padding)
+    ly = batch_norm_eval(bn, ly + conv.bias[:, None])
+    tp = ly.shape[-1]
+    ly = ly.reshape(b, 3, f, tp).permute(0, 1, 3, 2).reshape(b, 3 * tp, f)
+    ly = F.pad(ly, (0, 0, 0, t - 3 * tp)) if 3 * tp < t else ly[:, :t]
+    fused = _nchw_fuse(fusion, global_mel, ly)
+    if longer is not None:
+        fused = torch.where(longer[:, None, None], fused, global_mel)
+    return fused.to(mel.dtype)
 
 
 def _patch_merge(pm: PatchMerging, x: torch.Tensor, resolution) -> torch.Tensor:
@@ -520,9 +637,11 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
     ResiDual when one is injected). Taps change the kernels' routing, not
     the function (module docstring).
 
-    ``batch``: ``{"waveform": [B, T]}`` or a bare ``[B, T]`` tensor, or a
-    cached prefix to resume from: ``{"image": [B, H, W, 1]}`` (always from
-    layer 0) or ``{"tokens": [B, L, C]}`` (from ``start_layer``).
+    ``batch``: ``{"waveform": [B, T]}`` or a bare ``[B, T]`` tensor, the
+    fusion input ``{"mel_fusion": [B, 4, T, F], "longer": [B]}`` (module
+    docstring), or a cached prefix to resume from: ``{"image": [B, H, W,
+    1]}`` (always from layer 0) or ``{"tokens": [B, L, C]}`` (from
+    ``start_layer``).
 
     Split points for frozen-prefix caching
     (``audio_residual_tpu/models/htsat.py::htsat_apply``): ``stop_at_image``
@@ -579,6 +698,23 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
                                 start_layer=start_layer if "tokens" in batch else 0,
                                 stop_at_layer=stop_at_layer, train=train, generator=generator)
 
+    if isinstance(batch, dict) and "mel_fusion" in batch:
+        if stop_at_image:
+            raise ValueError("stop_at_image supports non-fusion waveforms only")
+        x = _fusion_image(model, batch, train=train, generator=generator,
+                          compute_dtype=compute_dtype)
+        frames_num = x.shape[1]
+        x = _patch_embed(model.patch_embed, x, cfg, longer=batch.get("longer"))
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        return _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
+                                double_ffn_compat=double_ffn_compat,
+                                compute_dtype=compute_dtype, start_layer=0,
+                                stop_at_layer=stop_at_layer, train=train, generator=generator)
+    if cfg.fusion in ("2d", "channel_map"):
+        raise ValueError(f"a {cfg.fusion_type} fusion model takes {{'mel_fusion', 'longer'}} "
+                         "(data/featurize.py::get_audio_features(data_truncating='fusion')), "
+                         "not a waveform")
     wav = batch["waveform"] if isinstance(batch, dict) else batch
     # the frontend's DFT follows the AMP mode (single-pass bf16 under AMP)
     # unless the config names one
@@ -612,6 +748,35 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
     if bn0_state is not None and stop_at_layer is None:
         out["bn0_state"] = bn0_state
     return out
+
+
+def _fusion_image(model: HTSAT, batch: dict, *, train: bool, generator, compute_dtype
+                  ) -> torch.Tensor:
+    """The fusion input -> the Swin image (``htsat.py:729-750``): bn0 with
+    its eval statistics, the AMP cast, then the 1-D fusion and one image, or
+    the four channels folded to a 4-channel image (2-D types,
+    ``channel_map``), or, for a model without fusion, the global channel.
+    In training with a ``generator``, SpecAugment on the fused mel (1-D) or
+    on each channel (the others)."""
+    cfg = model.cfg
+    mel = model.bn0(batch["mel_fusion"].float())
+    if compute_dtype is not None:
+        mel = mel.to(compute_dtype)
+    if cfg.fusion == "1d":
+        x1d = fuse_1d(model.mel_conv1d, model.fusion_model, mel, batch.get("longer"))
+        if train and generator is not None:
+            x1d = spec_augment(x1d, *sample_spec_augment(generator, x1d.shape,
+                                                         device=x1d.device))
+        return reshape_wav2img(x1d, cfg)
+    if cfg.fusion is None:
+        return reshape_wav2img(mel[:, 0], cfg)
+    b, c, t, f = mel.shape
+    if train and generator is not None:
+        flat = mel.reshape(b * c, t, f)
+        mel = spec_augment(flat, *sample_spec_augment(generator, flat.shape,
+                                                      device=mel.device)).reshape(mel.shape)
+    x = reshape_wav2img(mel.reshape(b * c, t, f), cfg)
+    return x[..., 0].reshape(b, c, *x.shape[1:3]).permute(0, 2, 3, 1)
 
 
 def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, taps=(), residual,

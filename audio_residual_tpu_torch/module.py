@@ -6,7 +6,14 @@ Port of ``audio_residual_tpu/module.py``. Differences by design:
     embeds the batch as given;
   * ``load_ckpt`` reads a local file only (the port fetches nothing);
   * crops of clips longer than the model's input come from a seeded
-    ``torch.Generator`` (``jax.random`` in the JAX package).
+    ``torch.Generator`` (``jax.random`` in the JAX package);
+  * a fusion module (``enable_fusion=True``, ``aff_2d``) embeds audio as the
+    reference hook does (`hook.py:121-191`): each clip's ``mel_fusion`` and
+    ``longer`` from ``get_audio_features(data_truncating="fusion")`` (its
+    chunks drawn from a ``np.random.Generator`` seeded with ``seed``), the
+    mel on K1 one clip at a time. The JAX package sends a fusion model the
+    waveform alone (``module.py:123-129,158-173``), which a 2-D fusion
+    model cannot embed (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from audio_residual_tpu_torch.data.featurize import featurize_batch
+from audio_residual_tpu_torch.data.featurize import featurize_batch, get_audio_features
 from audio_residual_tpu_torch.models import factory
 from audio_residual_tpu_torch.models.clap import encode_audio, encode_text
 from audio_residual_tpu_torch.models.pretrained import get_pretrained_url
@@ -37,6 +44,7 @@ DOWNLOAD_NAMES = [
 class CLAPModule:
     """``CLAPModule(enable_fusion=False, amodel='HTSAT-tiny', tmodel='roberta')``
     (`hook.py:21-62`), on ``device`` (the card unless ``device="cpu"``).
+    Non-fusion models take fusion_type ``None``, fusion models ``aff_2d``.
 
     ``compute_dtype=torch.bfloat16`` runs the audio side in AMP. The text
     side stays f32 whatever it is: ``get_text_embedding`` calls
@@ -48,12 +56,14 @@ class CLAPModule:
                  device: str | torch.device | None = None):
         self.enable_fusion = enable_fusion
         self.model, self.cfg, self.model_cfg = factory.create_model(
-            amodel, tmodel, enable_fusion=enable_fusion, seed=seed, device=device)
+            amodel, tmodel, enable_fusion=enable_fusion,
+            fusion_type="aff_2d" if enable_fusion else "None", seed=seed, device=device)
         self.device = self.model.logit_scale_a.device
         self.amodel = amodel
         self.tokenize = tokenizer or load_default_tokenizer(self.cfg.context_length)
         self.compute_dtype = compute_dtype
         self._crops = torch.Generator().manual_seed(seed)
+        self._chunks = np.random.default_rng(seed)
 
     def tokenizer(self, text):
         """`hook.py:64-73` contract: dict with input_ids/attention_mask."""
@@ -84,28 +94,60 @@ class CLAPModule:
 
     # -- embedding ----------------------------------------------------------
 
+    def fusion_batch(self, clips) -> dict:
+        """``{"mel_fusion": [N, 4, T, F], "longer": [N]}`` on the module's
+        device from ``N`` 1-D clips (numpy or tensors on any device, any
+        lengths): each clip's ``get_audio_features(data_truncating="fusion",
+        data_filling="repeatpad")``, as the reference hook builds it."""
+        feats = [get_audio_features({}, _host_clip(c), self.cfg.audio.clip_samples,
+                                    data_truncating="fusion", data_filling="repeatpad",
+                                    audio_cfg=self.model_cfg["audio_cfg"], rng=self._chunks,
+                                    device=self.device) for c in clips]
+        return {"mel_fusion": torch.stack([f["mel_fusion"] for f in feats]),
+                "longer": torch.tensor([f["longer"] for f in feats], device=self.device)}
+
     def _audio(self, x, *, quantize: bool, taps=(), residual=None) -> dict:
-        wav = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if quantize:
-            wav = quantize_roundtrip(wav)
-        batch = featurize_batch(wav, self.cfg.audio.clip_samples, generator=self._crops)
+        if self.enable_fusion:
+            clips = [_host_clip(c) for c in x]
+            if quantize:
+                clips = [quantize_roundtrip(torch.from_numpy(c)).numpy() for c in clips]
+            batch = self.fusion_batch(clips)
+        else:
+            wav = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            if quantize:
+                wav = quantize_roundtrip(wav)
+            batch = featurize_batch(wav, self.cfg.audio.clip_samples, generator=self._crops)
         return encode_audio(self.model, batch, taps=taps, residual=residual,
                             compute_dtype=self.compute_dtype)
 
     def get_audio_embedding_from_data(self, x, use_tensor: bool = False):
         """`hook.py:158-191`: ``(N, T)`` waveforms -> ``(N, 512)`` normalised
         embeddings. ``use_tensor=False`` applies the int16 round trip and
-        returns numpy; ``use_tensor=True`` keeps tensors (no round trip)."""
+        returns numpy; ``use_tensor=True`` keeps tensors (no round trip). A
+        fusion module builds each clip's ``mel_fusion`` (:meth:`fusion_batch`)."""
         if use_tensor:
             return self._audio(x, quantize=False)["normalized"]
         with torch.no_grad():
             return self._audio(x, quantize=True)["normalized"].float().cpu().numpy()
 
     def get_audio_embedding_from_filelist(self, x: list[str], use_tensor: bool = False):
-        """`hook.py:121-156`: needs the port of ``data/datasets.py::load_wav``
-        and ``native/`` (ROADMAP, slice 6)."""
-        raise NotImplementedError("get_audio_embedding_from_filelist needs data/datasets.py and "
-                                  "native/, which are not ported yet (ROADMAP, slice 6)")
+        """`hook.py:121-156`: decode each file at the model's rate
+        (``data/datasets.py::load_wav``), then
+        :meth:`get_audio_embedding_from_data`: a fusion module embeds the
+        ``mel_fusion`` stack of the clips as decoded (any lengths);
+        otherwise each is cropped at random or repeat-padded to the model's
+        input first, as the JAX package does."""
+        from audio_residual_tpu_torch.data.datasets import load_wav
+
+        sr = self.cfg.audio.sample_rate
+        wavs = [load_wav(f, target_sr=sr)[0] for f in x]
+        if self.enable_fusion:
+            return self.get_audio_embedding_from_data(wavs, use_tensor=use_tensor)
+        clips = [get_audio_features({}, w, self.cfg.audio.clip_samples,
+                                    data_truncating="rand_trunc", data_filling="repeatpad",
+                                    audio_cfg=self.model_cfg["audio_cfg"],
+                                    rng=self._chunks)["waveform"] for w in wavs]
+        return self.get_audio_embedding_from_data(np.stack(clips), use_tensor=use_tensor)
 
     def get_audio_output_dict(self, x, taps=("attention", "residual"), residual=None) -> dict:
         """The audio branch's whole output dict after the int16 round trip,
@@ -123,6 +165,14 @@ class CLAPModule:
         with torch.no_grad():
             return encode_text(self.model, enc["input_ids"],
                                enc["attention_mask"]).cpu().numpy()
+
+
+def _host_clip(c) -> np.ndarray:
+    """A clip as f32 numpy on the host, whether a tensor on any device or
+    array-like: fusion featurization chunks it on the host."""
+    if isinstance(c, torch.Tensor):
+        return c.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(c, np.float32)
 
 
 def audio_infer(module: CLAPModule, audio: np.ndarray, hopsize: int | None = None,

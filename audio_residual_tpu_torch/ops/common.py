@@ -13,9 +13,25 @@ matmul of rounded operands computes what a bf16 x bf16 -> f32 kernel does.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["layer_norm", "mxu_round", "linear", "attention_core"]
+__all__ = ["layer_norm", "mxu_round", "linear", "attention_core", "golden_convs"]
+
+
+@contextlib.contextmanager
+def golden_convs():
+    """cuDNN convolutions and cuBLAS products in full f32 (TF32 off) inside
+    the block, the port's rule for the PyTorch convolutions of the golden
+    path (the JAX package runs them at f32 precision); the previous settings
+    come back after it."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:

@@ -31,7 +31,6 @@ package's f32 iteration resolves the spectrum, not bit for bit.
 
 from __future__ import annotations
 
-import contextlib
 import pickle
 from typing import NamedTuple
 
@@ -39,6 +38,7 @@ import numpy as np
 import torch
 
 from audio_residual_tpu_torch import resolve_device
+from audio_residual_tpu_torch.ops.common import golden_convs
 
 __all__ = [
     "PCAState",
@@ -67,17 +67,6 @@ class PCAState(NamedTuple):
     outer: torch.Tensor
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """f32 products as f32 (TF32 off) for the block: ``Precision.HIGHEST``."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def pca_init(dim: int, dtype=torch.float32, device: str | torch.device | None = None) -> PCAState:
     """Zero moments of width ``dim`` on ``device`` (the card unless told)."""
     return batched_pca_init((), dim, dtype, device)
@@ -96,7 +85,7 @@ def batched_pca_init(batch_shape: tuple[int, ...], dim: int, dtype=torch.float32
 def pca_update(state: PCAState, x: torch.Tensor) -> PCAState:
     """Accumulate a batch ``x [..., D]`` (rows flattened). One ``xᵀx``."""
     x = x.reshape(-1, x.shape[-1]).to(state.outer)
-    with _full_f32():
+    with golden_convs():  # Precision.HIGHEST
         outer = torch.addmm(state.outer, x.t(), x)
     return PCAState(n=state.n + x.shape[0], sum=state.sum + x.sum(dim=0), outer=outer)
 
@@ -106,7 +95,7 @@ def batched_pca_update(state: PCAState, x: torch.Tensor) -> PCAState:
     x = x.to(state.outer)
     d = x.shape[-1]
     flat = x.reshape(-1, x.shape[-2], d)
-    with _full_f32():
+    with golden_convs():  # Precision.HIGHEST
         outer = torch.baddbmm(state.outer.reshape(-1, d, d), flat.transpose(1, 2), flat)
     return PCAState(n=state.n + x.shape[-2], sum=state.sum + x.sum(dim=-2),
                     outer=outer.reshape(state.outer.shape))

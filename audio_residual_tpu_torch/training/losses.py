@@ -11,7 +11,8 @@
     batch; 2-term (audio @ text) or 4-term ``mlp_loss`` (audio @ text_mlp +
     text @ audio_mlp); ``local_loss`` (local x global logits with
     rank-offset labels); the κ-weighted variant (``--kappa``).
-  * :func:`lp_loss` (`loss.py:291-306`): the linear probe's heads.
+  * :func:`lp_loss` (`loss.py:291-306`): the linear probe's heads;
+    :func:`lp_metrics` (`loss.py:246-283`) its accuracy, mAP and mAUC.
 
 ``group`` takes the place of the JAX package's ``axis_name``: None is one
 process; a process group makes the loss that of the batch of every rank, its
@@ -22,10 +23,11 @@ into the single-process gradient of the whole batch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gather_features", "clip_loss", "contrastive_weights", "lp_loss"]
+__all__ = ["gather_features", "clip_loss", "contrastive_weights", "lp_loss", "lp_metrics"]
 
 
 def _world(group) -> tuple[int, int]:
@@ -164,3 +166,52 @@ def lp_loss(pred: torch.Tensor, target: torch.Tensor, kind: str = "ce") -> torch
     if kind == "mse":
         return ((pred - target.to(pred.dtype)) ** 2).mean()
     raise ValueError(kind)
+
+
+def _average_precision(y: np.ndarray, s: np.ndarray) -> float:
+    """Step-wise average precision of one class (``sklearn``'s
+    ``average_precision_score``; 0 for a class without positives)."""
+    if not y.any():
+        return 0.0
+    order = np.argsort(-s, kind="mergesort")
+    s, y = s[order], y[order]
+    last = np.r_[np.flatnonzero(np.diff(s)), len(s) - 1]  # the end of each score's run
+    tps = np.cumsum(y)[last]
+    precision = tps / (last + 1)
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def _roc_auc(y: np.ndarray, s: np.ndarray) -> float:
+    """Area under the ROC curve of one class by the trapezoid rule over the
+    distinct scores; nan when the class or its complement is absent
+    (``sklearn``'s macro average then gives nan)."""
+    if y.all() or not y.any():
+        return float("nan")
+    order = np.argsort(-s, kind="mergesort")
+    s, y = s[order], y[order]
+    last = np.r_[np.flatnonzero(np.diff(s)), len(s) - 1]
+    tps = np.cumsum(y)[last]
+    fps = last + 1 - tps
+    tpr, fpr = np.r_[0.0, tps / tps[-1]], np.r_[0.0, fps / fps[-1]]
+    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+
+
+def lp_metrics(pred: np.ndarray, target: np.ndarray, metrics=("acc", "map", "mauc")) -> dict:
+    """Linear-probe metrics (`loss.py:246-283`): accuracy, macro mAP and
+    macro ROC AUC over one-hot targets, in numpy (the JAX package calls
+    sklearn, which the card's machine does not have)."""
+    pred = np.asarray(pred, np.float64)
+    target = np.asarray(target)
+    onehot = np.eye(pred.shape[-1])[target] if target.ndim == 1 else target
+    onehot = onehot > 0.5
+    out = {}
+    if "acc" in metrics:
+        out["acc"] = float((pred.argmax(-1) == onehot.argmax(-1)).mean())
+    if "map" in metrics:
+        out["map"] = float(np.mean([_average_precision(onehot[:, c], pred[:, c])
+                                    for c in range(pred.shape[-1])]))
+    if "mauc" in metrics:
+        out["mauc"] = float(np.mean([_roc_auc(onehot[:, c], pred[:, c])
+                                     for c in range(pred.shape[-1])]))
+    return out

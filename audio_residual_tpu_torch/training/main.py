@@ -12,9 +12,9 @@ where the JAX package drives its whole mesh from one process; the
 randomness of epoch ``e`` comes from a generator seeded from ``(seed, e)``,
 so a resume at an epoch boundary replays the epochs it skips exactly; a toy
 set without ``--train-data`` is written in the run's log directory. The
-webdataset and csv inputs need ``data/shards.py`` and ``data/datasets.py``,
-which are not ported yet (ROADMAP, slice 6); ``--fsdp`` needs
-``parallel/fsdp.py`` (slice 6 too).
+webdataset input needs ``data/shards.py``, which is not ported yet
+(ROADMAP, slice 7); ``--fsdp`` needs
+``parallel/fsdp.py`` (slice 7 too).
 """
 
 from __future__ import annotations
@@ -103,8 +103,8 @@ def build_data(args, model_cfg, tokenize, log_base: str):
         # the reference's own dispatcher raises this (`data.py:846`)
         raise ValueError(f"Unsupported dataset type: {args.dataset_type}")
     raise NotImplementedError(
-        f"--dataset-type {args.dataset_type}: the webdataset shards need data/shards.py and "
-        "data/datasets.py, which are not ported yet (ROADMAP, slice 6); use --dataset-type toy")
+        f"--dataset-type {args.dataset_type}: the webdataset shards need data/shards.py, "
+        "which is not ported yet (ROADMAP, slice 7); use --dataset-type toy")
 
 
 def train_one_epoch(state: dict, step_fn, batches, *, epoch: int, mesh,
@@ -202,7 +202,7 @@ def main(argv=None, *, device: str | None = None, tokenizer=None) -> dict:
     args = parse_args(argv)
     if args.fsdp:
         raise NotImplementedError("--fsdp needs parallel/fsdp.py, which is not ported yet "
-                                  "(ROADMAP, slice 6)")
+                                  "(ROADMAP, slice 7)")
     np.random.seed(args.seed)
     world = init_distributed(device=device)
     dev = world["device"]

@@ -140,6 +140,32 @@ line):
                and optimizer, peak memory, one profiler window (idle share);
                a checkpoint save -> resume that reproduces the next step bit
                for bit (golden, deterministic algorithms on).
+  9. towers  -- every other audio tower the JAX package builds, fusion and
+               the file and fold entry points, at full width, B = 32, seed 0.
+               9a: create_model("PANN-14", "roberta"): K1 + Cnn14 on ESC-50
+               length clips (240 000 samples repeat-padded to 480 000),
+               golden and AMP (a PANN tower runs f32 in both), one launch
+               of K1 a forward and no K2-K5, the embedding against the
+               plain route on the card (atol 2e-3, rtol 1e-3, cosine >
+               0.99999) and the guard against 50 text embeddings; host ms
+               and clips/s (median of 5), CUDA-event ms, one profiler
+               window (busy / idle, device ms by kernel, cuDNN's convs by
+               name), peak memory; one forward of Cnn6 and Cnn10, and of
+               PANN-14-fmax-8k-20s at 960 000 samples (K1 at hop 360
+               against its plain version). 9b: CLAPModule(enable_fusion=True)
+               (HTSAT-tiny aff_2d + RoBERTa-base): 16 clips of 20 s and 16
+               of 5 s through get_audio_embedding_from_data, golden and
+               AMP: the fusion mel (get_mel, the HTK filterbank) on K1
+               against its plain version and float64, the census (K1 32,
+               one a clip; K4 10, K2 2, K3 2), the forward against the
+               plain route, the guard (AMP against golden: cosine > 0.999,
+               argmax agreement 1.0 over the 50 prompts), featurization ms
+               apart from forward ms. 9c: seeded PCM16 WAVs (44.1 kHz
+               stereo, 3-25 s) through get_audio_embedding_from_filelist on
+               both modules; the C decoder (native/wavio.c) bit-equal to
+               numpy; eval_zeroshot_classification.main and lp_main.main
+               on an ESC-50-shaped tree (2 folds x 8 clips, esc50.csv);
+               the PANN and fusion JAX fixtures ([fixture-towers] lines).
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -1263,7 +1289,8 @@ def phase_main(dev, card: str, label: str, build_model, expected: dict,
 @contextlib.contextmanager
 def plain_kernels():
     """The forward runs each kernel's plain version on the card: K1's
-    ``logmel_plain``, K4's ``swin_block_plain`` for layers 0-2, and the split
+    ``logmel_plain`` (HTSAT's, PANN's and the fusion mel's), K4's
+    ``swin_block_plain`` for layers 0-2, and the split
     plan -- layer 3, and every block of a tapped forward -- with K2's (or
     K5's) and K3's plain versions after its LN1; a training block with
     drop-path K2's plain version; RoBERTa's AMP products ``gemm_plain``. The
@@ -1277,7 +1304,12 @@ def plain_kernels():
     from audio_residual_tpu_torch.ops.cuda import swin_block as k4
     from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 
+    from audio_residual_tpu_torch.data import featurize
+    from audio_residual_tpu_torch.models import pann
+
     with mock.patch.object(htsat, "fused_logmel", k1.logmel_plain), \
+            mock.patch.object(pann, "fused_logmel", k1.logmel_plain), \
+            mock.patch.object(featurize, "fused_logmel", k1.logmel_plain), \
             mock.patch.object(htsat, "fused_swin_block", k4.swin_block_plain), \
             mock.patch.object(htsat, "fused_window_attention", k2.window_attention_plain), \
             mock.patch.object(k4, "fused_window_attention", k2.window_attention_plain), \
@@ -2448,6 +2480,301 @@ def phase_contrastive(dev, card: str) -> None:
     log("contrastive", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
 
 
+TOWER_LAUNCHES = {"fused_logmel": 1}  # a PANN forward: K1 and cuDNN's convs
+FUSION_LONG, FUSION_SHORT = 960000, 240000  # 20 s clips (longer) and 5 s clips
+FUSION_LAUNCHES = {"fused_logmel": B, "fused_swin_block": 10, "fused_window_attention": 2,
+                   "fused_residual_ffn": 2}  # featurization: K1 one a clip
+FOLD_CLIPS = 8  # 9c's ESC-50-shaped tree: clips a fold, two folds
+
+
+def golden_check(phase: str, label: str, got, ref, cos: bool = True) -> None:
+    """``got`` against ``ref`` at the golden parity (atol 2e-3, rtol 1e-3;
+    cosine > 0.99999 a row where ``cos``)."""
+    import torch
+
+    g, r = got.double(), ref.double()
+    err = float((g - r).abs().max())
+    c = float(((g * r).sum(-1) / (g.norm(dim=-1) * r.norm(dim=-1))).min())
+    ok = (bool(torch.isfinite(got).all()) and got.shape == ref.shape
+          and bool(torch.allclose(g, r, atol=2e-3, rtol=1e-3)) and (c > 0.99999 or not cos))
+    log(phase, check=label, shape=list(got.shape), max_abs_err=err, min_cosine=c,
+        tol="atol=2e-3,rtol=1e-3" + (",cosine>0.99999" if cos else ""), ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase} {label}: outside the golden parity")
+
+
+def guard_check(phase: str, label: str, golden, amp, text) -> None:
+    """The bench guard: AMP against golden embeddings, min cosine > 0.999 and
+    argmax agreement 1.0 against ``text``."""
+    g, a = golden.float(), amp.float()
+    cos = float((g * a).sum(-1).min())
+    agree = float(((g @ text.t()).argmax(-1) == (a @ text.t()).argmax(-1)).float().mean())
+    ok = cos > 0.999 and agree == 1.0
+    log(phase, guard=label, min_embed_cos=cos, argmax_agreement=agree, ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase} {label}: AMP guard failed (cos {cos}, argmax {agree})")
+
+
+def census_check(phase: str, label: str, want: dict) -> None:
+    import torch
+
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts.items() if v}
+    log(phase, census=label, launches=json.dumps(got), expected=json.dumps(want),
+        ok=got == want)
+    if got != want:
+        raise AssertionError(f"{phase} {label}: launched {got}, expected {want}")
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``reps`` synchronised calls, after one."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def tower_timing(phase: str, label: str, fn, card: str, clips: int = B) -> None:
+    """Host ms and clips/s (median of 5), CUDA-event ms, one profiler window
+    (busy, idle share, device ms by kernel)."""
+    ms = host_ms(fn)
+    log(phase, model=label, host_ms=ms, clips_per_s=1e3 * clips / ms,
+        cuda_event_ms=time_ms(fn, reps=5, warmup=1), card=card)
+    log_profile(phase, label, profile_until(fn, lambda p: True, label))
+
+
+def write_wav(path, samples, sr: int) -> None:
+    """``samples [T, channels]`` in [-1, 1) as PCM16."""
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(samples.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((samples * 32767).astype(np.int16).tobytes())
+
+
+def phase_towers(dev, card: str, stats: KernelStats | None = None) -> None:
+    """Phase 9 (module docstring): PANN, mel fusion, the file and fold entry
+    points; K1's checks go into ``stats`` (a fresh one when alone). Any miss
+    raises."""
+    import tempfile
+    import wave
+
+    import torch
+
+    from audio_residual_tpu_torch import native
+    from audio_residual_tpu_torch.data import featurize
+    from audio_residual_tpu_torch.evaluate import eval_zeroshot_classification
+    from audio_residual_tpu_torch.evaluate.zero_shot import PROMPT_TEMPLATES
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, encode_audio
+    from audio_residual_tpu_torch.models.factory import create_audio_model, create_model
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.ops.cuda import frontend as k1
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
+    from audio_residual_tpu_torch.training import lp_main
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+    from tests import torch_f64_reference as f64
+    from tests import torch_port_fixture as fx
+
+    from audio_residual_tpu_torch.ops.cuda import KERNELS
+
+    phase = "towers"
+    stats = stats or KernelStats(KERNELS)
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(41)
+    _, text, _ = main_inputs(CLAPConfig(), dev)  # 50 seeded unit text embeddings
+
+    # 9a: PANN-14 through create_model, golden and AMP, ESC-50-length clips
+    t0 = time.perf_counter()
+    model, cfg, _ = create_model("PANN-14", "roberta", seed=0, device=dev)
+    wav = torch.from_numpy((0.1 * rng.standard_normal((B, CLIP))).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        batch = featurize.featurize_batch(quantize_roundtrip(wav), cfg.audio.clip_samples)
+        log(phase, model="PANN-14 (create_model, roberta)", batch=B, clip_samples=CLIP,
+            padded_to=cfg.audio.clip_samples, embed_dim=cfg.embed_dim,
+            audio_params=sum(p.numel() for p in model.audio_branch.parameters()),
+            setup_s=time.perf_counter() - t0)
+        out = {}
+        for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+            launch_counts.clear()
+            out[mode] = encode_audio(model, batch, compute_dtype=md)["normalized"]
+            census_check(phase, f"PANN-14 {mode} forward", TOWER_LAUNCHES)
+        same = torch.equal(out["f32"], out["bf16"])
+        log(phase, model="PANN-14", amp_equals_golden=same,
+            why="clap_apply passes no compute_dtype to a PANN tower: f32 in both modes")
+        if not same:
+            raise AssertionError("PANN-14: the AMP forward is not the f32 one")
+        with plain_kernels():
+            ref = encode_audio(model, batch)["normalized"]
+        golden_check(phase, "PANN-14 embedding against the plain route", out["f32"], ref)
+        guard_check(phase, "PANN-14", out["f32"], out["bf16"], text)
+        tower_timing(phase, "PANN-14 forward B=32", lambda: encode_audio(model, batch), card)
+        log(phase, model="PANN-14", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=card)
+        del model
+        torch.cuda.reset_peak_memory_stats()
+        for name, n in (("PANN-6", CLIP), ("PANN-10", CLIP), ("PANN-14-fmax-8k-20s", 2 * CLIP)):
+            tower, tcfg, _ = create_audio_model(name, seed=0, device=dev)
+            w = torch.from_numpy((0.1 * rng.standard_normal((B, n))).astype(np.float32)).to(dev)
+            b = featurize.featurize_batch(w, tcfg.audio.clip_samples)
+            if name.endswith("20s"):
+                check_logmel(stats, f"{name} [32,{tcfg.audio.clip_samples}] hop "
+                             f"{tcfg.audio.hop_size}", b["waveform"],
+                             tcfg.audio.frontend_config, "f32")
+            launch_counts.clear()
+            o = encode_audio(tower, b)["normalized"]
+            census_check(phase, f"{name} forward", TOWER_LAUNCHES)
+            finite = bool(torch.isfinite(o).all()) and o.shape == (B, tcfg.joint_embed_shape)
+            log(phase, model=name, clip_samples=tcfg.audio.clip_samples,
+                embed_dim=tcfg.embed_dim, finite=finite,
+                cuda_event_ms=time_ms(lambda: encode_audio(tower, b), reps=3, warmup=1),
+                card=card)
+            if not finite:
+                raise AssertionError(f"{name}: embeddings malformed")
+            del tower
+    log(phase, stage="Cnn6, Cnn10, PANN-14-fmax-8k-20s",
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+    # 9b: the fusion CLAPModule, 16 long and 16 short clips
+    torch.cuda.reset_peak_memory_stats()
+    tok = HashTokenizer(context_length=TEXT_CONTEXT)
+    golden = CLAPModule(enable_fusion=True, device=dev, seed=0, tokenizer=tok)
+    amp = CLAPModule(enable_fusion=True, device=dev, seed=0, tokenizer=tok,
+                     compute_dtype=torch.bfloat16)
+    audio_cfg = golden.model_cfg["audio_cfg"]
+    clips = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+             for n in [FUSION_LONG] * (B // 2) + [FUSION_SHORT] * (B // 2)]
+    with open(os.path.join(REPO, "class_labels", "ESC50_class_labels_indices_space.json")) as f:
+        prompts = [PROMPT_TEMPLATES["default"].format(c) for c in json.load(f)]
+    classifier = torch.from_numpy(golden.get_text_embedding(prompts)).to(dev)
+    with torch.no_grad():
+        fcfg = featurize.fusion_frontend_config(audio_cfg)
+        for n in (FUSION_LONG, FUSION_SHORT):
+            w = torch.from_numpy(clips[0 if n == FUSION_LONG else -1][None]).to(dev)
+            got, plain = k1.fused_logmel(w, fcfg), k1.logmel_plain(w, fcfg)
+            stats.check("fused_logmel", f"fusion get_mel (HTK) [1,{n}]", got, plain, "f32")
+            stats.check_f64("fused_logmel", f"fusion get_mel (HTK) [1,{n}]", got, plain,
+                            f64.logmel64(w, fcfg))
+        launch_counts.clear()
+        emb = golden.get_audio_embedding_from_data(clips)
+        census_check(phase, "fusion CLAPModule golden, 32 clips", FUSION_LAUNCHES)
+        launch_counts.clear()
+        amp.get_audio_embedding_from_data(clips)
+        census_check(phase, "fusion CLAPModule AMP, 32 clips", FUSION_LAUNCHES)
+        if emb.shape != (B, 512) or not np.isfinite(emb).all():
+            raise AssertionError(f"fusion embeddings malformed: {emb.shape}")
+        quantized = [quantize_roundtrip(torch.from_numpy(c)).numpy() for c in clips]
+        fb = golden.fusion_batch(quantized)
+        longer = fb["longer"].tolist()
+        log(phase, model="CLAPModule(enable_fusion=True): HTSAT-tiny aff_2d + roberta",
+            clips=B, mel_fusion=list(fb["mel_fusion"].shape), longer=sum(longer))
+        if longer != [True] * (B // 2) + [False] * (B // 2):
+            raise AssertionError(f"fusion longer flags {longer}")
+        fused = {md: encode_audio(golden.model, fb, compute_dtype=md)["normalized"]
+                 for md in (None, torch.bfloat16)}
+        with plain_kernels():
+            ref = encode_audio(golden.model, fb)["normalized"]
+        golden_check(phase, "fusion forward against the plain route", fused[None], ref)
+        guard_check(phase, "fusion, 50 prompts", fused[None], fused[torch.bfloat16], classifier)
+        feat_ms = host_ms(lambda: golden.fusion_batch(quantized), reps=3)
+        for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+            fwd = host_ms(lambda: encode_audio(golden.model, fb, compute_dtype=md))
+            log(phase, model="fusion", mode=mode, featurization_ms=feat_ms, forward_ms=fwd,
+                clips_per_s=1e3 * B / (feat_ms + fwd),
+                forward_cuda_event_ms=time_ms(
+                    lambda: encode_audio(golden.model, fb, compute_dtype=md), reps=5, warmup=1),
+                card=card)
+        log_profile(phase, "fusion featurization (32 clips)",
+                    profile_until(lambda: golden.fusion_batch(quantized), lambda p: True,
+                                  "featurization"))
+        log_profile(phase, "fusion AMP forward", profile_until(
+            lambda: encode_audio(golden.model, fb, compute_dtype=torch.bfloat16),
+            lambda p: True, "fusion forward"))
+    log(phase, stage="fusion", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card=card)
+
+    # 9c: files and folds
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, seconds in enumerate((3, 7, 12, 25)):
+            path = os.path.join(tmp, f"clip{i}.wav")
+            write_wav(path, rng.uniform(-0.5, 0.5, (44100 * seconds, 2)), 44100)
+            files.append(path)
+            with wave.open(path, "rb") as w:
+                raw = w.readframes(w.getnframes())
+            same = np.array_equal(native.pcm16_to_float32_mono(raw, 2),
+                                  native.pcm16_to_float32_mono_plain(raw, 2))
+            if not same:
+                raise AssertionError(f"wavio.c decode of {path} differs from numpy")
+        log(phase, wavio="native/wavio.c pcm16 stereo decode bit-equal to numpy", files=4,
+            ok=True)
+        plain_module = CLAPModule(device=dev, seed=0, tokenizer=tok)
+        for label, module in (("HTSAT-tiny", plain_module), ("fusion", golden)):
+            launch_counts.clear()
+            t1 = time.perf_counter()
+            e = module.get_audio_embedding_from_filelist(files)
+            torch.cuda.synchronize()
+            ok = e.shape == (4, 512) and bool(np.isfinite(e).all())
+            log(phase, filelist=label, files=4, seconds="3,7,12,25",
+                ms=1e3 * (time.perf_counter() - t1), launches=json.dumps(dict(launch_counts)),
+                ok=ok)
+            if not ok:
+                raise AssertionError(f"get_audio_embedding_from_filelist ({label}) malformed")
+        root = os.path.join(tmp, "esc")
+        spec_audio = os.path.join(root, "data/esc50/ESC-50-master/audio")
+        os.makedirs(spec_audio)
+        os.makedirs(os.path.join(root, "data/esc50/ESC-50-master/meta"))
+        rows = []
+        for i in range(2 * FOLD_CLIPS):
+            name = f"{1 + i % 2}-{100 + i}-A-{i % N_CLASSES}.wav"
+            write_wav(os.path.join(spec_audio, name), rng.uniform(-0.5, 0.5, (44100 * 5, 2)),
+                      44100)
+            rows.append(f"{name},{1 + i % 2},{i % N_CLASSES},x,False,{100 + i},A")
+        with open(os.path.join(root, "data/esc50/ESC-50-master/meta/esc50.csv"), "w") as f:
+            f.write("filename,fold,target,category,esc10,src_file,take\n" + "\n".join(rows) + "\n")
+        t1 = time.perf_counter()
+        res = eval_zeroshot_classification.main(["--datasetpath", root, "--batch-size", "8"],
+                                                device=dev, tokenizer=tok)["init"]
+        log(phase, cli="eval_zeroshot_classification", clips=2 * FOLD_CLIPS,
+            s=time.perf_counter() - t1,
+            metrics=json.dumps({k: v for k, v in res.items() if np.isscalar(v)}))
+        t1 = time.perf_counter()
+        lp = lp_main.main(["--datasetpath", root, "--batch-size", "8", "--epochs", "2",
+                           "--lp-lr", "1e-2", "--lp-loss", "ce", "--logs",
+                           os.path.join(tmp, "logs")], device=dev)
+        log(phase, cli="lp_main", folds=len(lp["per_fold"]), s=time.perf_counter() - t1,
+            aggregate=json.dumps(lp["aggregate"]))
+        if len(lp["per_fold"]) != 2 or not 0.0 <= lp["aggregate"]["acc"] <= 1.0:
+            raise AssertionError(f"lp_main: {lp}")
+
+    # the JAX fixtures of this slice through the port's kernels, golden
+    arrays = fx.load(fx.PANN_PATH)
+    for name, outs in fx.run_port_pann(arrays, dev).items():
+        for key, got in outs.items():
+            golden_check("fixture-towers", f"PANN {name} {key}", torch.from_numpy(got),
+                         torch.from_numpy(arrays[f"out/{name}/{key}"]),
+                         cos=key != "clipwise_output")
+    arrays = fx.load(fx.FUSION_PATH)
+    for ft, outs in fx.run_port_fusion(arrays, dev).items():
+        for key, got in outs.items():
+            golden_check("fixture-towers", f"fusion {ft} {key}", torch.from_numpy(got),
+                         torch.from_numpy(arrays[f"out/{ft}/{key}"]),
+                         cos=key != "clipwise_output")
+    log(phase, phase_s=time.perf_counter() - started, card=card)
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include."""
@@ -2526,6 +2853,7 @@ def main() -> int:
     phase_analysis(stats, dev, card)
     phase_clap(dev, card)
     phase_contrastive(dev, card)
+    phase_towers(dev, card, stats)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

@@ -184,12 +184,15 @@ def test_create_model_quick_gelu_and_unported_configs(caplog):
         _, cfg, _ = t_factory.create_model("HTSAT-tiny", "roberta", device="meta",
                                            pretrained_text="roberta.pt")
     assert "pretrained_text" in caplog.text
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t_factory.create_model("PANN-14", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # PANN towers and fusion are ported: they build; the vision configs do not
+    with torch.device("meta"):
+        model, cfg, _ = t_factory.create_model("PANN-14", device="meta")
+        assert cfg.audio_model_type == "PANN" and cfg.embed_dim == 2048
+        _, cfg, _ = t_factory.create_model("HTSAT-tiny", enable_fusion=True,
+                                           fusion_type="aff_2d", device="meta")
+        assert cfg.audio.fusion == "2d"
+    with pytest.raises(NotImplementedError, match="slice 7"):
         t_factory.create_model("RN50", "transformer", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t_factory.create_model("HTSAT-tiny", enable_fusion=True, device="cpu")
     with pytest.raises(RuntimeError, match="not found"):
         t_factory.create_model("HTSAT-tiny", "gpt", device="cpu")
 

@@ -1318,3 +1318,209 @@ def test_clap_module_on_card(dev):
     emb16 = amp.get_audio_embedding_from_data(wav)
     assert (emb * emb16).sum(-1).min() > 0.999
     assert ((emb @ text.T).argmax(-1) == (emb16 @ text.T).argmax(-1)).all()
+
+
+# -- PANN, mel fusion and the native decoder -----------------------------------
+
+
+def _plain_route():
+    """Every kernel of the audio towers on its plain version (K1 in HTSAT,
+    PANN and the fusion mel; K4, K2 and K3 in HTSAT's layers)."""
+    import contextlib
+
+    from audio_residual_tpu_torch.data import featurize
+    from audio_residual_tpu_torch.models import pann as t_pann
+
+    stack = contextlib.ExitStack()
+    for target, name, plain in ((t_htsat, "fused_logmel", k1.logmel_plain),
+                                (t_pann, "fused_logmel", k1.logmel_plain),
+                                (featurize, "fused_logmel", k1.logmel_plain),
+                                (t_htsat, "fused_swin_block", k4.swin_block_plain),
+                                (t_htsat, "fused_window_attention", k2.window_attention_plain),
+                                (k4, "fused_window_attention", k2.window_attention_plain),
+                                (k4, "fused_residual_ffn", k3.residual_ffn_plain)):
+        stack.enter_context(mock.patch.object(target, name, plain))
+    return stack
+
+
+@pytest.mark.parametrize("n", [240000, 960000])
+def test_logmel_htk_golden_matches_plain_and_float64_on_card(dev, n):
+    """The fusion mel (HTK filterbank, no norm) on K1's golden route, one
+    clip as featurization runs it: within 1e-4 of its plain version and at
+    most 4x the plain version's error against float64."""
+    from audio_residual_tpu_torch.data.featurize import DEFAULT_AUDIO_CFG, fusion_frontend_config
+
+    cfg = fusion_frontend_config(DEFAULT_AUDIO_CFG)
+    wav = torch.from_numpy(
+        (np.random.default_rng(n).standard_normal((1, n)) * 0.1).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    with torch.no_grad():
+        got, plain = k1.fused_logmel(wav, cfg), k1.logmel_plain(wav, cfg)
+    assert dict(launch_counts) == {"fused_logmel": 1}
+    assert got.shape == (1, cfg.num_frames(n), 64) and _rel(got, plain) < 1e-4
+    assert f64.error_ratio(got, plain, f64.logmel64(wav, cfg))[2] <= GOLDEN_F64_RATIO
+
+
+@pytest.mark.parametrize("name", ["PANN-6", "PANN-10", "PANN-14", "PANN-14-fmax-18k",
+                                  "PANN-14-fmax-8k-20s", "PANN-14-tiny-transformer",
+                                  "PANN-14-win-1536"])
+def test_pann_config_frontends_on_card(dev, name):
+    """K1's golden route at every PANN config's frontend (hop 360 for the
+    20 s config, n_fft 1536, fmax 8k / 18k) against its plain version."""
+    from audio_residual_tpu_torch.models.factory import _amodel_to_config, get_model_config
+
+    cfg = _amodel_to_config(get_model_config(name)).frontend_config
+    wav = torch.from_numpy(
+        (np.random.default_rng(3).standard_normal((2, 96000)) * 0.1).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        assert _rel(k1.fused_logmel(wav, cfg), k1.logmel_plain(wav, cfg)) < 1e-4
+
+
+@pytest.mark.parametrize("model_name,fusion_type", [("Cnn6", "None"), ("Cnn14", "None"),
+                                                    ("Cnn6", "aff_2d"), ("Cnn10", "iaff_1d")])
+def test_pann_forward_matches_the_plain_route_on_card(dev, model_name, fusion_type):
+    """A PANN tower at full width, B = 2 clips of 1 s (or their fusion
+    stack): the embedding against the plain route at the golden parity; K1
+    once for a waveform, no kernel for a fusion input."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+
+    cfg = fx.pann_port_config("", clip_samples=48000, model_name=model_name,
+                              enable_fusion=fusion_type != "None", fusion_type=fusion_type)
+    model = fx._seeded_model(cfg, 0, dev)
+    if fusion_type == "None":
+        batch = {"waveform": torch.from_numpy((np.random.default_rng(1).standard_normal(
+            (2, 48000)) * 0.1).astype(np.float32)).to(dev)}
+    else:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in fx.fusion_inputs(1, 64, 101).items()}
+    launch_counts.clear()
+    with torch.no_grad():
+        got = t_clap.encode_audio(model, batch)
+        assert dict(launch_counts) == ({"fused_logmel": 1} if fusion_type == "None" else {})
+        with _plain_route():
+            ref = t_clap.encode_audio(model, batch)
+    for key in ("embedding", "normalized", "clipwise_output"):
+        torch.testing.assert_close(got[key], ref[key], atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("fusion_type", ["aff_2d", "iaff_1d", "channel_map"])
+def test_fusion_forward_matches_the_plain_route_on_card(dev, fusion_type):
+    """HTSAT-tiny at full width with fusion, B = 2 (``longer`` both ways):
+    K4 10, K2 2, K3 2 a forward; golden against the plain route at the
+    golden parity, AMP at max rel err 2e-2 and cosine > 0.99999."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+
+    cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(enable_fusion=True,
+                                                      fusion_type=fusion_type))
+    model = t_clap.build_clap_audio(cfg, seed=0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in fx.fusion_inputs(2, 64, 1001).items()}
+    for md in (None, torch.bfloat16):
+        launch_counts.clear()
+        with torch.no_grad():
+            got = t_clap.encode_audio(model, batch, compute_dtype=md)["normalized"]
+            assert dict(launch_counts) == {"fused_swin_block": 10, "fused_window_attention": 2,
+                                           "fused_residual_ffn": 2}
+            with _plain_route():
+                ref = t_clap.encode_audio(model, batch, compute_dtype=md)["normalized"]
+        if md is None:
+            torch.testing.assert_close(got, ref, atol=2e-3, rtol=1e-3)
+        else:
+            cos = float(((got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))).min())
+            assert _rel(got, ref) <= 2e-2 and cos > 0.99999, (_rel(got, ref), cos)
+
+
+@pytest.mark.parametrize("tower,fusion_type", [("HTSAT", "aff_2d"), ("HTSAT", "iaff_1d"),
+                                               ("PANN", "iaff_2d")])
+def test_golden_fusion_forward_ignores_cudnn_tf32_on_card(dev, tower, fusion_type):
+    """The golden fusion forward runs every convolution in full f32, the
+    fusion modules' too, whatever cuDNN's TF32 switch says: with PyTorch's
+    default (on) it gives the same bits as with it off."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+
+    if tower == "HTSAT":
+        cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(enable_fusion=True,
+                                                          fusion_type=fusion_type))
+        model = t_clap.build_clap_audio(cfg, seed=0, device=dev)
+        inputs = fx.fusion_inputs(2, 64, 1001)
+    else:
+        cfg = fx.pann_port_config("", clip_samples=48000, model_name="Cnn6", enable_fusion=True,
+                                  fusion_type=fusion_type)
+        model = fx._seeded_model(cfg, 0, dev)
+        inputs = fx.fusion_inputs(1, 64, 101)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    prev = torch.backends.cudnn.allow_tf32
+    outs = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.no_grad():
+                outs.append(t_clap.encode_audio(model, batch)["normalized"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.equal(*outs)
+
+
+@pytest.mark.parametrize("form", ["list", "rows"])
+def test_fusion_module_takes_card_tensors(dev, form):
+    """``CLAPModule(enable_fusion=True).get_audio_embedding_from_data(x,
+    use_tensor=True)`` on clips that lie on the card (a list of any lengths,
+    or the rows of one tensor): the same embedding as from the same clips in
+    numpy, from the same seed."""
+    from audio_residual_tpu_torch import module as t_module
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import factory as t_factory
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    cfg = fx.fusion_port_config("aff_2d")
+    full = t_clap.CLAPConfig(audio=cfg.audio, text=fx.port_clap_config("roberta").text,
+                             context_length=fx.CLAP_CONTEXT, **fx.CLAP_KW)
+    model = t_clap.build_clap(full, seed=0, device=dev)
+    audio_cfg = dict(sample_rate=48000, window_size=1024, hop_size=480, fmin=50, fmax=14000,
+                     mel_bins=fx.AUDIO_KW["mel_bins"], clip_samples=fx.AUDIO_KW["clip_samples"])
+
+    def make():
+        with mock.patch.object(t_factory, "create_model",
+                               lambda *a, **k: (model, full, {"audio_cfg": audio_cfg})):
+            return t_module.CLAPModule(enable_fusion=True, seed=3, device=dev,
+                                       tokenizer=HashTokenizer(vocab_size=1000,
+                                                               context_length=16))
+
+    rng = np.random.default_rng(5)
+    lengths = (60000, 10000) if form == "list" else (30000, 30000)
+    clips = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    x = ([torch.from_numpy(c).to(dev) for c in clips] if form == "list"
+         else torch.from_numpy(np.stack(clips)).to(dev))
+    with torch.no_grad():
+        got = make().get_audio_embedding_from_data(x, use_tensor=True)
+        want = make().get_audio_embedding_from_data(clips, use_tensor=True)
+    assert got.device.type == "cuda" and got.shape == (2, full.joint_embed_shape)
+    assert torch.equal(got, want)
+
+
+def test_pann_and_fusion_fixtures_on_card(dev):
+    """The JAX PANN and fusion fixtures through the port on the card, golden
+    (atol 2e-3, rtol 1e-3)."""
+    arrays = fx.load(fx.PANN_PATH)
+    for name, outs in fx.run_port_pann(arrays, dev).items():
+        for key, got in outs.items():
+            np.testing.assert_allclose(got, arrays[f"out/{name}/{key}"], atol=2e-3, rtol=1e-3,
+                                       err_msg=f"{name} {key}")
+    arrays = fx.load(fx.FUSION_PATH)
+    for ft, outs in fx.run_port_fusion(arrays, dev).items():
+        for key, got in outs.items():
+            np.testing.assert_allclose(got, arrays[f"out/{ft}/{key}"], atol=2e-3, rtol=1e-3,
+                                       err_msg=f"{ft} {key}")
+
+
+@pytest.mark.parametrize("bits,channels", [(16, 1), (16, 2), (32, 2), (16, 6)])
+def test_wavio_matches_numpy_on_card_machine(dev, bits, channels):
+    """``native/wavio.c`` builds on the card's machine and decodes bit for
+    bit what its numpy version gives."""
+    from audio_residual_tpu_torch import native
+
+    dtype = np.int16 if bits == 16 else np.int32
+    info = np.iinfo(dtype)
+    raw = np.random.default_rng(bits).integers(info.min, info.max, 48000 * channels,
+                                               endpoint=True).astype(dtype).tobytes()
+    c, plain = ((native.pcm16_to_float32_mono, native.pcm16_to_float32_mono_plain) if bits == 16
+                else (native.pcm32_to_float32_mono, native.pcm32_to_float32_mono_plain))
+    np.testing.assert_array_equal(c(raw, channels), plain(raw, channels))

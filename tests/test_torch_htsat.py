@@ -110,7 +110,9 @@ def test_port_imports_no_jax():
         "new = ['ops.spec_augment', 'training.losses', 'training.scheduler',\n"
         "       'training.train_clap', 'training.checkpoints', 'training.logger',\n"
         "       'training.params', 'training.main', 'training.infer_demo', 'utils.misc',\n"
-        "       'data.toy', 'parallel.distributed', 'parallel.mesh']\n"
+        "       'data.toy', 'parallel.distributed', 'parallel.mesh', 'ops.fusion',\n"
+        "       'models.pann', 'data.datasets', 'native', 'training.lp_main',\n"
+        "       'evaluate.eval_zeroshot_classification']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -127,10 +129,15 @@ def test_port_imports_no_jax():
 def test_entry_point_without_device_needs_a_card(monkeypatch):
     """``device=None`` means the card: every entry point that builds a model
     raises without one, the full CLAP's (``build_clap``, ``create_model``,
-    ``CLAPModule``) and the training slice's (``training.main``,
-    ``infer_demo``, ``init_distributed``, ``data_parallel_mesh``) too."""
+    ``CLAPModule``), the training slice's (``training.main``,
+    ``infer_demo``, ``init_distributed``, ``data_parallel_mesh``) and the
+    towers-and-data slice's (PANN and fusion models, ``lp_main``, the
+    zero-shot CLI, ``get_mel``) too."""
+    from audio_residual_tpu_torch.data.featurize import DEFAULT_AUDIO_CFG, get_mel
+    from audio_residual_tpu_torch.evaluate import eval_zeroshot_classification
     from audio_residual_tpu_torch.models import factory as t_factory
     from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.training import lp_main
     from audio_residual_tpu_torch.parallel.distributed import init_distributed
     from audio_residual_tpu_torch.parallel.mesh import data_parallel_mesh
     from audio_residual_tpu_torch.training import infer_demo
@@ -157,6 +164,17 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
             t_main.main(["--dataset-type", "toy"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             infer_demo.main([])
+        # this slice's: PANN and fusion models, the fold CLIs, the fusion mel
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_factory.create_model("PANN-14")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CLAPModule(enable_fusion=True, tmodel="bart")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lp_main.main([])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            eval_zeroshot_classification.main(["--tmodel", "bart"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_mel(np.zeros(4800, np.float32), DEFAULT_AUDIO_CFG)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_distributed()
     with pytest.raises(RuntimeError, match="no CUDA device"):

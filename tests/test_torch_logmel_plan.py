@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 
 from audio_residual_tpu.ops import frontend as j_fe
 from audio_residual_tpu.ops.pallas import frontend as j_k1
+from audio_residual_tpu_torch.data.featurize import fusion_frontend_config
 from audio_residual_tpu_torch.models.clap import CLAPConfig
 from audio_residual_tpu_torch.ops import frontend as t_fe
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
@@ -49,7 +50,9 @@ def _frontend(a: dict) -> t_fe.FrontendConfig:
 
 
 FRONTENDS = {"CLAPConfig": CLAPConfig().audio.frontend_config,
-             "HTSAT-tiny-win-1536": _frontend(_audio_configs()["HTSAT-tiny-win-1536"])}
+             "HTSAT-tiny-win-1536": _frontend(_audio_configs()["HTSAT-tiny-win-1536"]),
+             # the fusion mel (data/featurize.py::get_mel): HTK scale, no norm
+             "fusion-htk": fusion_frontend_config(_audio_configs()["HTSAT-tiny"])}
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -136,7 +139,8 @@ def test_plan_gives_the_floor_on_silence():
 @pytest.mark.parametrize("name", sorted(FRONTENDS))
 def test_plan_matches_jax_kernel_bf16(rng, name):
     cfg = FRONTENDS[name]
-    jcfg = j_fe.FrontendConfig(n_fft=cfg.n_fft, win_length=cfg.win_length)
+    jcfg = j_fe.FrontendConfig(n_fft=cfg.n_fft, win_length=cfg.win_length,
+                               mel_scale=cfg.mel_scale, mel_norm=cfg.mel_norm)
     wav = (rng.standard_normal((2, 24000)) * 0.1).astype(np.float32)
     with mock.patch.object(pl, "pallas_call", INTERPRET):
         ref = np.asarray(j_k1.fused_logmel(jnp.asarray(wav), jcfg, dft_mode="bf16"))
@@ -156,3 +160,34 @@ def test_a_config_that_breaks_the_rule_raises(change):
     cfg = t_fe.FrontendConfig(**change)
     with pytest.raises(ValueError, match="fused_logmel bf16"):
         k1.check_tc_config(cfg)
+
+
+@pytest.mark.parametrize("name", sorted(_audio_configs()) + ["fusion-htk"])
+def test_every_audio_frontend_fits_both_routes(name):
+    """Every HTSAT and PANN config, and the fusion mel, passes both routes'
+    rule (the golden route runs the PANN towers and the fusion mel), and
+    the golden layout holds the mel-active bins: the basis rows cover
+    exactly the bins with a nonzero weight, whose first bin moves with the
+    HTK filterbank's support at the low end."""
+    cfg = FRONTENDS["fusion-htk"] if name == "fusion-htk" else _frontend(_audio_configs()[name])
+    k1.check_tc_config(cfg, "bf16")
+    k1.check_tc_config(cfg, "f32")
+    lo, hi = t_fe.mel_active_bins(cfg)
+    fb = t_fe.mel_filterbank(cfg)
+    assert fb[lo].any() and fb[hi - 1].any() and not fb[:lo].any() and not fb[hi:].any()
+    bt, mw = k1._tc_layout(cfg)
+    assert bt.shape[0] % 128 == 0 and bt.shape[0] >= 2 * (hi - lo)
+    np.testing.assert_array_equal(mw[: hi - lo, : cfg.n_mels], fb[lo:hi])
+    assert not mw[hi - lo:].any() and not bt[2 * (hi - lo):].any()
+
+
+def test_htk_plan_has_the_slaney_bins_and_its_own_weights():
+    """At HTSAT's 50 Hz - 14 kHz the HTK filterbank is nonzero on the same
+    FFT bins as the Slaney one (2 to 298), so the golden plan has the same
+    shape; its mel weights (no area norm) are its own, cached per config."""
+    slaney, htk = FRONTENDS["CLAPConfig"], FRONTENDS["fusion-htk"]
+    assert (htk.mel_scale, htk.mel_norm) == ("htk", None)
+    assert t_fe.mel_active_bins(htk) == t_fe.mel_active_bins(slaney) == (2, 299)
+    (bt_h, mw_h), (bt_s, mw_s) = k1._tc_layout(htk), k1._tc_layout(slaney)
+    np.testing.assert_array_equal(bt_h, bt_s)
+    assert mw_h.shape == mw_s.shape and not np.allclose(mw_h, mw_s)

@@ -150,7 +150,7 @@ def test_resume_reproduces_the_uninterrupted_run(run, toy, tmp_path):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path, toy):
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         _run(tmp_path, toy, "shards", "--dataset-type", "webdataset")
     with pytest.raises(NotImplementedError, match="fsdp"):
         _run(tmp_path, toy, "fsdp", "--fsdp")

@@ -30,14 +30,26 @@ input, each tower's token ids and masks, and the JAX f32 outputs of
 ``encode_text`` and ``clap_apply``, plus roberta's ``encode_text`` under
 AMP (``compute_dtype=bfloat16``).
 
-``chip_smoke.py`` runs the port's kernels on the card against all four
+``tests/data/torch_port_pann.npz`` holds two PANN towers at full width
+(Cnn14 on a waveform, Cnn6 with ``aff_2d`` fusion on a fusion input) with
+their projections, and ``tests/data/torch_port_fusion.npz`` the tiny
+fixture's HTSAT with each of the seven fusion types. Neither stores weights:
+they come from the seed in the reference ``state_dict`` layout
+(:func:`seeded_state_dict`) and reach the JAX package through its
+``convert_pann_state_dict`` / ``convert_htsat_state_dict`` and, for the
+fusion keys neither maps, :func:`jax_fusion_params`. Each holds the config,
+the inputs (a 0.5 s waveform; a fusion batch ``mel_fusion [2, 4, T, F]``
+with ``longer`` = [True, False]) and the JAX f32 outputs of
+``encode_audio``.
+
+``chip_smoke.py`` runs the port's kernels on the card against all six
 without importing JAX; ``tests/test_torch_htsat.py``,
 ``tests/test_torch_wide_attention.py``, ``tests/test_torch_train_residual.py``
 and ``tests/test_torch_clap.py`` regenerate them and compare with the
 committed files, so they cannot drift.
 
-Regenerate with ``python -m tests.torch_port_fixture [tiny|wide|train|clap
-...]`` from the repo root (all four without an argument).
+Regenerate with ``python -m tests.torch_port_fixture [tiny|wide|train|clap|
+pann|fusion ...]`` from the repo root (all six without an argument).
 """
 
 from __future__ import annotations
@@ -554,8 +566,234 @@ def run_port_clap(arrays: dict, tmodel: str, device, compute_dtype=None) -> dict
     return {k: out[k].float().cpu().numpy() for k in CLAP_APPLY_KEYS}
 
 
+PANN_PATH = PATH.with_name("torch_port_pann.npz")
+PANN_SEED = 0
+PANN_CLIP = 24000  # 0.5 s at 48 kHz
+PANN_MODELS = {"cnn14": dict(model_name="Cnn14"),
+               "cnn6_aff_2d": dict(model_name="Cnn6", enable_fusion=True, fusion_type="aff_2d")}
+PANN_JOINT = 32
+PANN_OUTPUT_KEYS = ("embedding", "clipwise_output", "normalized")
+
+FUSION_PATH = PATH.with_name("torch_port_fusion.npz")
+FUSION_SEED = 0
+FUSION_TYPES = ("daf_1d", "aff_1d", "iaff_1d", "daf_2d", "aff_2d", "iaff_2d", "channel_map")
+FUSION_OUTPUT_KEYS = ("embedding", "clipwise_output", "normalized")
+
+
+def _jax_bn(sd: dict, key: str) -> dict:
+    return {"scale": sd[key + ".weight"], "bias": sd[key + ".bias"],
+            "mean": sd[key + ".running_mean"], "var": sd[key + ".running_var"]}
+
+
+def _jax_conv(w: np.ndarray) -> np.ndarray:
+    """OIHW -> HWIO, OIW -> WIO."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0) if w.ndim == 4 else (2, 1, 0)))
+
+
+def jax_fusion_params(sd: dict, prefix: str) -> dict:
+    """The fusion keys under ``prefix`` of a reference-layout state dict ->
+    the JAX package's pytree: ``fusion_model`` (AFF / iAFF branches),
+    ``mel_conv1d`` (``{"conv", "bn"}``), PANN's ``mel_conv2d`` (``{"conv",
+    "bn"}``) and HTSAT's ``patch_embed.mel_conv2d`` / ``.fusion_model``,
+    where they are there."""
+    out: dict = {}
+    fm = prefix + "fusion_model."
+    branches = sorted({k[len(fm):].split(".")[0] for k in sd if k.startswith(fm)})
+    if branches:
+        out["fusion_model"] = {}
+        for name in branches:
+            first = 1 if name.startswith("global") else 0
+            b = {}
+            for k, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"))):
+                i = first + 3 * k
+                b[conv] = {"kernel": _jax_conv(sd[f"{fm}{name}.{i}.weight"]),
+                           "bias": sd[f"{fm}{name}.{i}.bias"]}
+                b[bn] = _jax_bn(sd, f"{fm}{name}.{i + 1}")
+            out["fusion_model"][name] = b
+    for conv in ("mel_conv1d", "mel_conv2d"):
+        if prefix + conv + ".0.weight" in sd:
+            out[conv] = {"conv": {"kernel": _jax_conv(sd[f"{prefix}{conv}.0.weight"]),
+                                  "bias": sd[f"{prefix}{conv}.0.bias"]},
+                         "bn": _jax_bn(sd, f"{prefix}{conv}.1")}
+    if prefix + "patch_embed.mel_conv2d.weight" in sd:
+        out["patch_embed"] = {
+            "mel_conv2d": {"kernel": _jax_conv(sd[prefix + "patch_embed.mel_conv2d.weight"]),
+                           "bias": sd[prefix + "patch_embed.mel_conv2d.bias"]},
+            **jax_fusion_params(sd, prefix + "patch_embed.")}
+    return out
+
+
+def jax_audio_params(sd: dict, audio_model_type: str, depths=None) -> dict:
+    """``{"audio_branch", "audio_projection"}`` in the JAX package's layout
+    from a reference-layout audio state dict (HTSAT or PANN, any fusion)."""
+    from audio_residual_tpu.models import convert
+
+    pre = "audio_branch."
+    if audio_model_type == "PANN":
+        branch = convert.convert_pann_state_dict(sd, pre)
+    else:
+        branch = convert.convert_htsat_state_dict(sd, pre, depths)
+    extra = jax_fusion_params(sd, pre)
+    if "patch_embed" in extra:
+        branch["patch_embed"].update(extra.pop("patch_embed"))
+    branch.update(extra)
+    proj = {f"fc{i}": {"kernel": sd[f"audio_projection.{j}.weight"].T,
+                       "bias": sd[f"audio_projection.{j}.bias"]} for i, j in ((1, 0), (2, 2))}
+    return {"audio_branch": branch, "audio_projection": proj}
+
+
+def pann_port_config(name: str, clip_samples: int = PANN_CLIP, **kw):
+    """The port's CLAPConfig of a PANN tower (``PANN_MODELS[name]`` or
+    ``model_name`` / fusion keywords)."""
+    from audio_residual_tpu_torch.models import clap, pann
+
+    audio = pann.PANNConfig(clip_samples=clip_samples, **{**PANN_MODELS.get(name, {}), **kw})
+    return clap.CLAPConfig(embed_dim=audio.embed_dim, joint_embed_shape=PANN_JOINT, audio=audio,
+                           audio_model_type="PANN")
+
+
+def pann_jax_config(name: str, clip_samples: int = PANN_CLIP, **kw):
+    from audio_residual_tpu.models import clap
+    from audio_residual_tpu.models.pann import PANNConfig
+
+    from .tiny import TINY_TEXT
+
+    audio = PANNConfig(clip_samples=clip_samples, **{**PANN_MODELS.get(name, {}), **kw})
+    return clap.CLAPConfig(embed_dim=audio.embed_dim, joint_embed_shape=PANN_JOINT, audio=audio,
+                           text=TINY_TEXT, audio_model_type="PANN")
+
+
+def port_weights(cfg, seed: int) -> dict[str, np.ndarray]:
+    """Seeded reference-layout weights of the port's audio model of ``cfg``."""
+    import torch
+
+    from audio_residual_tpu_torch.models import clap
+
+    with torch.device("meta"):
+        model = clap.CLAPAudio(cfg)
+    return seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()}, seed)
+
+
+def fusion_port_config(fusion_type: str):
+    from audio_residual_tpu_torch.models import clap, htsat
+
+    return clap.CLAPConfig(audio=htsat.HTSATConfig(**AUDIO_KW, enable_fusion=True,
+                                                    fusion_type=fusion_type), **CLAP_KW)
+
+
+def fusion_jax_config(fusion_type: str):
+    from audio_residual_tpu.models import clap
+    from audio_residual_tpu.models.htsat import HTSATConfig
+
+    from .tiny import TINY_TEXT
+
+    return clap.CLAPConfig(audio=HTSATConfig(**AUDIO_KW, enable_fusion=True,
+                                             fusion_type=fusion_type), text=TINY_TEXT, **CLAP_KW)
+
+
+def fusion_inputs(seed: int, mel_bins: int, frames: int) -> dict[str, np.ndarray]:
+    """A seeded fusion batch: ``mel_fusion [2, 4, frames, mel_bins]`` (a
+    log-mel's scale: around -20 dB) and ``longer`` = [True, False]."""
+    rng = np.random.default_rng(seed)
+    mel = (rng.standard_normal((2, 4, frames, mel_bins)) * 10 - 20).astype(np.float32)
+    return {"mel_fusion": mel, "longer": np.array([True, False])}
+
+
+def build_pann() -> dict[str, np.ndarray]:
+    """The PANN fixture's arrays: ``config``, ``wav``, ``mel_fusion``,
+    ``longer`` and ``out/<model>/<key>``."""
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.models import clap
+
+    rng = np.random.default_rng(PANN_SEED)
+    wav = (rng.standard_normal((2, PANN_CLIP)) * 0.1).astype(np.float32)
+    fusion = fusion_inputs(PANN_SEED, 64, PANN_CLIP // 480 + 1)
+    arrays = {"config": np.asarray(json.dumps({"models": PANN_MODELS, "clip": PANN_CLIP,
+                                               "joint": PANN_JOINT, "seed": PANN_SEED})),
+              "wav": wav, **fusion}
+    for name in PANN_MODELS:
+        params = jax_audio_params(port_weights(pann_port_config(name), PANN_SEED), "PANN")
+        batch = ({"mel_fusion": jnp.asarray(fusion["mel_fusion"]),
+                  "longer": jnp.asarray(fusion["longer"])}
+                 if PANN_MODELS[name].get("enable_fusion") else {"waveform": jnp.asarray(wav)})
+        out = clap.encode_audio(params, batch, pann_jax_config(name))
+        arrays.update({f"out/{name}/{k}": np.asarray(out[k]) for k in PANN_OUTPUT_KEYS})
+    return arrays
+
+
+def build_fusion() -> dict[str, np.ndarray]:
+    """The fusion fixture's arrays: ``config``, ``mel_fusion``, ``longer``
+    and ``out/<fusion type>/<key>``."""
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.models import clap
+
+    fusion = fusion_inputs(FUSION_SEED, AUDIO_KW["mel_bins"],
+                           AUDIO_KW["clip_samples"] // 480 + 1)
+    arrays = {"config": np.asarray(json.dumps({"audio": AUDIO_KW, **CLAP_KW,
+                                               "seed": FUSION_SEED})), **fusion}
+    batch = {k: jnp.asarray(v) for k, v in fusion.items()}
+    for ft in FUSION_TYPES:
+        params = jax_audio_params(port_weights(fusion_port_config(ft), FUSION_SEED), "HTSAT",
+                                  AUDIO_KW["depths"])
+        out = clap.encode_audio(params, batch, fusion_jax_config(ft))
+        arrays.update({f"out/{ft}/{k}": np.asarray(out[k]) for k in FUSION_OUTPUT_KEYS})
+    return arrays
+
+
+def _seeded_model(cfg, seed: int, device):
+    import torch
+
+    from audio_residual_tpu_torch.models import clap
+
+    model = clap.build_clap_audio(cfg, device=device)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in port_weights(cfg, seed).items()})
+    return model
+
+
+def run_port_pann(arrays: dict, device) -> dict[str, dict[str, np.ndarray]]:
+    """The port's ``encode_audio`` outputs of each PANN fixture model.
+    Imports torch and the port only."""
+    import torch
+
+    from audio_residual_tpu_torch.models import clap
+
+    out = {}
+    for name, kw in PANN_MODELS.items():
+        model = _seeded_model(pann_port_config(name), PANN_SEED, device)
+        dev = model.audio_projection[0].weight.device
+        batch = ({"mel_fusion": torch.tensor(arrays["mel_fusion"], device=dev),
+                  "longer": torch.tensor(arrays["longer"], device=dev)}
+                 if kw.get("enable_fusion") else {"waveform": torch.tensor(arrays["wav"],
+                                                                           device=dev)})
+        with torch.no_grad():
+            o = clap.encode_audio(model, batch)
+        out[name] = {k: o[k].float().cpu().numpy() for k in PANN_OUTPUT_KEYS}
+    return out
+
+
+def run_port_fusion(arrays: dict, device, compute_dtype=None) -> dict[str, dict[str, np.ndarray]]:
+    """The port's ``encode_audio`` outputs of each fusion type on the fusion
+    fixture's batch. Imports torch and the port only."""
+    import torch
+
+    from audio_residual_tpu_torch.models import clap
+
+    out = {}
+    for ft in FUSION_TYPES:
+        model = _seeded_model(fusion_port_config(ft), FUSION_SEED, device)
+        dev = model.audio_projection[0].weight.device
+        batch = {k: torch.tensor(arrays[k], device=dev) for k in ("mel_fusion", "longer")}
+        with torch.no_grad():
+            o = clap.encode_audio(model, batch, compute_dtype=compute_dtype)
+        out[ft] = {k: o[k].float().cpu().numpy() for k in FUSION_OUTPUT_KEYS}
+    return out
+
+
 FIXTURES = {"tiny": (PATH, build), "wide": (WIDE_PATH, build_wide),
-            "train": (TRAIN_PATH, build_train), "clap": (CLAP_PATH, build_clap)}
+            "train": (TRAIN_PATH, build_train), "clap": (CLAP_PATH, build_clap),
+            "pann": (PANN_PATH, build_pann), "fusion": (FUSION_PATH, build_fusion)}
 
 
 def main(names=()) -> None:
