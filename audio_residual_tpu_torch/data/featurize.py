@@ -33,7 +33,7 @@ from audio_residual_tpu_torch.ops import frontend, interpolate
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
 
 __all__ = ["featurize_batch", "fusion_frontend_config", "get_mel", "fusion_mel",
-           "get_audio_features", "DEFAULT_AUDIO_CFG"]
+           "get_audio_features", "fusion_batch", "mel_audio_cfg", "DEFAULT_AUDIO_CFG"]
 
 DEFAULT_AUDIO_CFG = dict(sample_rate=48000, window_size=1024, hop_size=480, mel_bins=64,
                          fmin=50, fmax=14000)
@@ -157,3 +157,24 @@ def get_audio_features(sample: dict, audio_data, max_len: int = 480000,
     sample["longer"] = longer
     sample["waveform"] = audio_data.astype(np.float32)
     return sample
+
+
+def fusion_batch(clips, max_len: int, audio_cfg: dict, rng: np.random.Generator,
+                 device: str | torch.device | None = None) -> dict:
+    """``{"mel_fusion": [N, 4, T, F], "longer": [N]}`` on ``device`` from
+    ``N`` 1-D numpy clips of any lengths: each clip's
+    ``get_audio_features(data_truncating="fusion", data_filling="repeatpad")``
+    with its chunks from ``rng``, as the reference hook builds a fusion
+    model's input (`hook.py:121-191`)."""
+    feats = [get_audio_features({}, c, max_len, data_truncating="fusion",
+                                data_filling="repeatpad", audio_cfg=audio_cfg, rng=rng,
+                                device=device) for c in clips]
+    mel = torch.stack([f["mel_fusion"] for f in feats])
+    return {"mel_fusion": mel,
+            "longer": torch.tensor([f["longer"] for f in feats], device=mel.device)}
+
+
+def mel_audio_cfg(audio) -> dict:
+    """The fusion mel's ``audio_cfg`` keys of a tower config (HTSAT or PANN)."""
+    return dict(sample_rate=audio.sample_rate, window_size=audio.n_fft, hop_size=audio.hop_size,
+                mel_bins=audio.mel_bins, fmin=audio.fmin, fmax=audio.fmax)

@@ -25,7 +25,8 @@ from torch import nn
 
 from audio_residual_tpu_torch.ops.common import layer_norm
 
-__all__ = ["ClipTextConfig", "Transformer", "ClipText", "clip_text_apply", "add_text_embeddings"]
+__all__ = ["ClipTextConfig", "Transformer", "ClipText", "clip_text_apply", "resblocks_apply",
+           "add_text_embeddings"]
 
 
 @dataclass(frozen=True)
@@ -62,7 +63,9 @@ class _Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """``resblocks.{i}``. Random init from ``generator``, the CLIP scheme of
+    """``resblocks.{i}`` at ``cfg.width`` and ``cfg.layers`` (a
+    :class:`ClipTextConfig`, or the vision towers' config with an int
+    ``layers``). Random init from ``generator``, the CLIP scheme of
     the JAX package (`model.py:551-560`): attention std ``w^-0.5``,
     projections ``w^-0.5 (2L)^-0.5``, ``c_fc`` ``(2w)^-0.5``, biases 0."""
 
@@ -117,10 +120,20 @@ def clip_text_apply(transformer: Transformer, embeddings: nn.Module, tokens,
     w = embeddings.token_embedding.weight
     tokens = torch.as_tensor(tokens, device=w.device).long()
     b, l = tokens.shape
-    nh = cfg.heads
-    hd = cfg.width // nh
     x = w[tokens] + embeddings.positional_embedding[:l]
     causal = torch.full((l, l), float("-inf"), dtype=x.dtype, device=x.device).triu(1)
+    x = resblocks_apply(transformer, x, cfg.heads, cfg.quick_gelu, causal)
+    x = layer_norm(x, embeddings.ln_final.weight, embeddings.ln_final.bias)
+    return x[torch.arange(b, device=x.device), tokens.argmax(dim=-1)]
+
+
+def resblocks_apply(transformer: Transformer, x: torch.Tensor, nh: int, quick_gelu: bool,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The pre-LN residual blocks over ``x [B, L, width]`` with ``nh`` heads,
+    the additive ``mask`` on the scores (the text tower's causal one; none
+    in the vision towers), exact or quick GELU."""
+    b, l, width = x.shape
+    hd = width // nh
 
     def heads(t):
         return t.reshape(b, l, nh, hd).transpose(1, 2)
@@ -129,12 +142,12 @@ def clip_text_apply(transformer: Transformer, embeddings: nn.Module, tokens,
         y = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
         qkv = F.linear(y, blk.attn.in_proj_weight, blk.attn.in_proj_bias)
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-        p = torch.softmax((q / math.sqrt(hd)) @ k.transpose(-1, -2) + causal, dim=-1)
-        ctx = (p @ v).transpose(1, 2).reshape(b, l, cfg.width)
+        s = (q / math.sqrt(hd)) @ k.transpose(-1, -2)
+        p = torch.softmax(s if mask is None else s + mask, dim=-1)
+        ctx = (p @ v).transpose(1, 2).reshape(b, l, width)
         x = x + F.linear(ctx, blk.attn.out_proj.weight, blk.attn.out_proj.bias)
         y = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
         h = F.linear(y, blk.mlp.c_fc.weight, blk.mlp.c_fc.bias)
-        h = h * torch.sigmoid(1.702 * h) if cfg.quick_gelu else F.gelu(h)
+        h = h * torch.sigmoid(1.702 * h) if quick_gelu else F.gelu(h)
         x = x + F.linear(h, blk.mlp.c_proj.weight, blk.mlp.c_proj.bias)
-    x = layer_norm(x, embeddings.ln_final.weight, embeddings.ln_final.bias)
-    return x[torch.arange(b, device=x.device), tokens.argmax(dim=-1)]
+    return x

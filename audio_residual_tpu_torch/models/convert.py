@@ -12,8 +12,11 @@ text tower: the JAX package has the roberta/bert mapping one way each
 ``roberta_params_to_state_dict``), and bart and the CLIP transformer only
 from a checkpoint (``convert_bart_state_dict``,
 ``models/openai.py::convert_openai_text_tower``); :func:`bart_state_dict`
-and :func:`clip_text_state_dict` are their inverses. Input is the JAX CLAP
-param pytree as nested dicts/lists of numpy arrays. Linear kernels ``[in,
+and :func:`clip_text_state_dict` are their inverses; and to the CLIP
+models of the vision configs (:func:`vision_state_dict`,
+:func:`clip_state_dict`: the JAX suite's own mapping to open_clip's names,
+``tests/test_vision.py``). Input is a JAX param pytree as nested
+dicts/lists of numpy arrays. Linear kernels ``[in,
 out]`` are transposed to ``[out, in]``; HWIO convolution kernels become
 OIHW.
 
@@ -39,10 +42,13 @@ import numpy as np
 import torch
 
 from audio_residual_tpu_torch.models.clap import CLAP
+from audio_residual_tpu_torch.models.clip import CLIP, CLIPConfig
+from audio_residual_tpu_torch.models.vision import VisionCfg, trunk_spec
 
 __all__ = ["clap_audio_state_dict", "pann_state_dict", "roberta_state_dict", "bart_state_dict",
-           "clip_text_state_dict", "clap_state_dict", "load_jax_params", "load_torch_checkpoint",
-           "load_audio_checkpoint", "load_clap_checkpoint"]
+           "clip_text_state_dict", "clap_state_dict", "vision_state_dict", "clip_state_dict",
+           "load_jax_params", "load_torch_checkpoint", "load_audio_checkpoint",
+           "load_clap_checkpoint"]
 
 # keys of a reference checkpoint that the audio side does not load: the text
 # side (a CLIP tower's embeddings and ln_final sit on the root), the
@@ -225,8 +231,14 @@ def clip_text_state_dict(params: dict, blocks: str = "text_branch.",
     sd: dict = {root + "token_embedding.weight": np.asarray(params["token_embedding"]),
                 root + "positional_embedding": np.asarray(params["positional_embedding"])}
     _ln(sd, root + "ln_final", params["ln_final"])
-    for i, bp in enumerate(params["blocks"]):
-        b = f"{blocks}resblocks.{i}."
+    _resblocks(sd, blocks, params["blocks"])
+    return sd
+
+
+def _resblocks(sd: dict, pre: str, blocks: list) -> None:
+    """CLIP residual blocks (text and ViT) -> ``{pre}resblocks.{i}.*``."""
+    for i, bp in enumerate(blocks):
+        b = f"{pre}resblocks.{i}."
         _ln(sd, b + "ln_1", bp["ln1"])
         sd[b + "attn.in_proj_weight"] = np.asarray(bp["attn"]["in_proj"]["kernel"]).T
         sd[b + "attn.in_proj_bias"] = np.asarray(bp["attn"]["in_proj"]["bias"])
@@ -234,6 +246,81 @@ def clip_text_state_dict(params: dict, blocks: str = "text_branch.",
         _ln(sd, b + "ln_2", bp["ln2"])
         _lin(sd, b + "mlp.c_fc", bp["mlp"]["c_fc"])
         _lin(sd, b + "mlp.c_proj", bp["mlp"]["c_proj"])
+
+
+def _vit(sd: dict, pre: str, p: dict, patch: int) -> None:
+    w = np.asarray(p["class_embedding"]).shape[0]
+    # the [p*p*3, w] patch matmul's rows are (row, column, channel)-major
+    sd[pre + "conv1.weight"] = np.asarray(p["patch_embed"]["kernel"]).reshape(
+        patch, patch, 3, w).transpose(3, 2, 0, 1)
+    sd[pre + "class_embedding"] = np.asarray(p["class_embedding"])
+    sd[pre + "positional_embedding"] = np.asarray(p["positional_embedding"])
+    _ln(sd, pre + "ln_pre", p["ln_pre"])
+    _resblocks(sd, pre + "transformer.", p["blocks"])
+    _ln(sd, pre + "ln_post", p["ln_post"])
+    if "proj" in p:
+        sd[pre + "proj"] = np.asarray(p["proj"])
+
+
+def _attnpool(sd: dict, pre: str, p: dict) -> None:
+    sd[pre + "positional_embedding"] = np.asarray(p["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _lin(sd, pre + name, p[name])
+
+
+def _resnet(sd: dict, pre: str, p: dict) -> None:
+    for k in (1, 2, 3):
+        sd[f"{pre}conv{k}.weight"] = _conv(p[f"conv{k}"]["kernel"])
+        _bn(sd, f"{pre}bn{k}", p[f"bn{k}"])
+    for stage in sorted(k for k in p if k.startswith("layer")):
+        for j, blk in enumerate(p[stage]):
+            b = f"{pre}{stage}.{j}."
+            for k in (1, 2, 3):
+                sd[f"{b}conv{k}.weight"] = _conv(blk[f"conv{k}"]["kernel"])
+                _bn(sd, f"{b}bn{k}", blk[f"bn{k}"])
+            if "downsample" in blk:
+                sd[b + "downsample.0.weight"] = _conv(blk["downsample"]["conv"]["kernel"])
+                _bn(sd, b + "downsample.1", blk["downsample"]["bn"])
+    if "attnpool" in p:
+        _attnpool(sd, pre + "attnpool.", p["attnpool"])
+
+
+def vision_state_dict(params: dict, cfg: VisionCfg, prefix: str = "") -> dict[str, np.ndarray]:
+    """A JAX vision-tower pytree (``models/vision.py``: ViT, ModifiedResNet
+    or the timm adapter's ``trunk``/``pool``/``head``) of the tower config
+    ``cfg`` -> the port's open_clip names under ``prefix``: HWIO kernels to
+    OIHW, the ViT's patch matmul to ``conv1``, linear kernels transposed,
+    ``proj`` as it is (``x @ proj``). The JAX suite's own mapping
+    (``tests/test_vision.py``), kept here."""
+    sd: dict = {}
+    if "trunk" in params:
+        trunk_cfg, kind, _ = trunk_spec(cfg)
+        if kind == "vit":
+            _vit(sd, prefix + "trunk.", params["trunk"], trunk_cfg.patch_size)
+        else:
+            _resnet(sd, prefix + "trunk.", params["trunk"])
+        if "pool" in params:
+            _attnpool(sd, prefix + "head.pool.", params["pool"])
+        head = params.get("head", {})
+        if "proj" in head:
+            _lin(sd, prefix + "head.proj", head["proj"])
+        if "fc1" in head:
+            _lin(sd, prefix + "head.mlp.fc1", head["fc1"])
+            _lin(sd, prefix + "head.mlp.fc2", head["fc2"])
+    elif "patch_embed" in params:
+        _vit(sd, prefix, params, cfg.patch_size)
+    else:
+        _resnet(sd, prefix, params)
+    return sd
+
+
+def clip_state_dict(params: dict, cfg: CLIPConfig) -> dict[str, np.ndarray]:
+    """A JAX CLIP pytree (``models/clip.py``) of ``cfg`` -> the OpenAI CLIP
+    layout of :class:`~audio_residual_tpu_torch.models.clip.CLIP`."""
+    sd = vision_state_dict(params["visual"], cfg.vision, "visual.")
+    sd.update(clip_text_state_dict(params["text_branch"], blocks="transformer."))
+    sd["text_projection"] = np.asarray(params["text_projection"])
+    sd["logit_scale"] = np.asarray(params["logit_scale"])
     return sd
 
 
@@ -260,12 +347,19 @@ def clap_state_dict(params: dict, text_model_type: str = "roberta") -> dict[str,
 
 
 def load_jax_params(model: torch.nn.Module, params: dict) -> torch.nn.Module:
-    """Load a JAX CLAP param pytree (numpy leaves) into a
+    """Load a JAX param pytree (numpy leaves), strictly: a CLAP's into a
     :class:`~audio_residual_tpu_torch.models.clap.CLAP` (every key) or a
     :class:`~audio_residual_tpu_torch.models.clap.CLAPAudio` (the audio
-    side), strictly."""
-    sd = (clap_state_dict(params, model.cfg.text_model_type) if isinstance(model, CLAP)
-          else clap_audio_state_dict(params))
+    side); a CLIP's into a :class:`~audio_residual_tpu_torch.models.clip.CLIP`;
+    a vision tower's into the port's tower (its ``cfg``)."""
+    if isinstance(model, CLIP):
+        sd = clip_state_dict(params, model.cfg)
+    elif isinstance(getattr(model, "cfg", None), VisionCfg):
+        sd = vision_state_dict(params, model.cfg)
+    elif isinstance(model, CLAP):
+        sd = clap_state_dict(params, model.cfg.text_model_type)
+    else:
+        sd = clap_audio_state_dict(params)
     model.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
                            for k, v in sd.items()}, strict=True)
     return model

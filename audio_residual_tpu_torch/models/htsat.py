@@ -834,7 +834,8 @@ def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, taps=(),
 
     fine_grained = interpolate.repeat_frames(x.mean(dim=1), 8 * cfg.patch_stride[1])
     latent = x.mean(dim=(1, 2))
-    logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
+    with golden_convs():  # an f32 conv in both modes, as in JAX (`htsat.py:843-849`)
+        logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
     logits_map = logits_map[:, :, 0].transpose(1, 2)  # [B, T', classes]
     fpx = interpolate.repeat_frames(torch.sigmoid(logits_map), 8 * cfg.patch_stride[1])
     out = {

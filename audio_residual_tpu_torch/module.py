@@ -24,7 +24,8 @@ import os
 import numpy as np
 import torch
 
-from audio_residual_tpu_torch.data.featurize import featurize_batch, get_audio_features
+from audio_residual_tpu_torch.data.featurize import (featurize_batch, fusion_batch,
+                                                     get_audio_features)
 from audio_residual_tpu_torch.models import factory
 from audio_residual_tpu_torch.models.clap import encode_audio, encode_text
 from audio_residual_tpu_torch.models.pretrained import get_pretrained_url
@@ -99,12 +100,8 @@ class CLAPModule:
         device from ``N`` 1-D clips (numpy or tensors on any device, any
         lengths): each clip's ``get_audio_features(data_truncating="fusion",
         data_filling="repeatpad")``, as the reference hook builds it."""
-        feats = [get_audio_features({}, _host_clip(c), self.cfg.audio.clip_samples,
-                                    data_truncating="fusion", data_filling="repeatpad",
-                                    audio_cfg=self.model_cfg["audio_cfg"], rng=self._chunks,
-                                    device=self.device) for c in clips]
-        return {"mel_fusion": torch.stack([f["mel_fusion"] for f in feats]),
-                "longer": torch.tensor([f["longer"] for f in feats], device=self.device)}
+        return fusion_batch([_host_clip(c) for c in clips], self.cfg.audio.clip_samples,
+                            self.model_cfg["audio_cfg"], self._chunks, self.device)
 
     def _audio(self, x, *, quantize: bool, taps=(), residual=None) -> dict:
         if self.enable_fusion:

@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from audio_residual_tpu_torch import resolve_device
-from audio_residual_tpu_torch.data.featurize import featurize_batch
+from audio_residual_tpu_torch.data.featurize import featurize_batch, fusion_batch, mel_audio_cfg
 from audio_residual_tpu_torch.models.clap import CLAPAudio, encode_audio
+from audio_residual_tpu_torch.ops.fusion import fusion_kind
 from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
 from audio_residual_tpu_torch.training.losses import lp_loss
 from audio_residual_tpu_torch.utils.misc import do_mixup, get_mix_lambda
@@ -96,15 +97,27 @@ def embed_dataset(model: CLAPAudio, batches: Iterable, *, max_len: int = 480000,
     """Frozen-encoder embeddings of a whole split, computed once:
     ``(normalized [N, 512], labels [N])`` as numpy. ``batches`` yield
     ``(wav [B, T], labels [B])``; crops of clips over ``max_len`` come from a
-    generator seeded 0, as in ``train_residual``'s evaluation."""
+    generator seeded 0, as in ``train_residual``'s evaluation. A fusion model
+    takes each clip's ``mel_fusion`` (``data/featurize.py::fusion_batch``,
+    its chunks from ``np.random.default_rng(0)``), as
+    ``CLAPModule(enable_fusion=True)`` builds it; the JAX package sends it the
+    waveform, which a 2-D fusion model cannot embed (ROADMAP Queue 3)."""
     device = _device(model)
+    audio = model.cfg.audio
+    chunks = (np.random.default_rng(0)
+              if fusion_kind(audio.enable_fusion, audio.fusion_type) else None)
     feats, labels = [], []
     with torch.no_grad():
         for wav, y in batches:
             wav = torch.as_tensor(wav, device=device, dtype=torch.float32)
             if quantize:
                 wav = quantize_roundtrip(wav)
-            batch = featurize_batch(wav, max_len, generator=torch.Generator().manual_seed(0))
+            if chunks is not None:
+                batch = fusion_batch(list(wav.cpu().numpy()), max_len, mel_audio_cfg(audio),
+                                     chunks, device)
+            else:
+                batch = featurize_batch(wav, max_len,
+                                        generator=torch.Generator().manual_seed(0))
             feats.append(encode_audio(model, batch)["normalized"].cpu().numpy())
             labels.append(np.asarray(torch.as_tensor(y).cpu()))
     return np.concatenate(feats), np.concatenate(labels)

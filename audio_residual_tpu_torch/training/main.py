@@ -11,10 +11,11 @@ the world, :mod:`..parallel.distributed`) with ``DistributedDataParallel``
 where the JAX package drives its whole mesh from one process; the
 randomness of epoch ``e`` comes from a generator seeded from ``(seed, e)``,
 so a resume at an epoch boundary replays the epochs it skips exactly; a toy
-set without ``--train-data`` is written in the run's log directory. The
-webdataset input needs ``data/shards.py``, which is not ported yet
-(ROADMAP, slice 7); ``--fsdp`` needs
-``parallel/fsdp.py`` (slice 7 too).
+set without ``--train-data`` is written in the run's log directory.
+``--dataset-type auto`` (the default) and ``webdataset`` read local tar
+shards through ``data/shards.py`` (:func:`build_data`), the JAX package's
+batches bit for bit. ``--fsdp`` needs ``parallel/fsdp.py``, which is not
+ported yet (ROADMAP, slice 7c).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from audio_residual_tpu_torch.data.shards import ShardedAudioText, resolve_tar_paths, sample_prop
 from audio_residual_tpu_torch.models import factory
 from audio_residual_tpu_torch.models.clap import clap_apply
 from audio_residual_tpu_torch.parallel.distributed import init_distributed
@@ -38,7 +40,7 @@ from audio_residual_tpu_torch.training.params import parse_args
 from audio_residual_tpu_torch.training.train_clap import (init_train_state, make_optimizer,
                                                           make_split_optimizer,
                                                           make_train_step)
-from audio_residual_tpu_torch.utils.misc import load_class_label, prefetch_batches
+from audio_residual_tpu_torch.utils.misc import dataset_split, load_class_label, prefetch_batches
 from audio_residual_tpu_torch.utils.tokenizer import load_default_tokenizer
 
 __all__ = ["main", "train_one_epoch", "epoch_generator", "build_data", "BATCH_KEYS"]
@@ -87,9 +89,28 @@ def _toy_batches_fn(path, args, audio_cfg, tokenize, *, is_train=True):
     return epochs
 
 
-def build_data(args, model_cfg, tokenize, log_base: str):
+def _resolve_split_tars(root, names, splits, *, full_dataset=None):
+    """Shard discovery over several split names (the reference's
+    ``get_tar_path_from_dataset_name``, `clap_module/utils.py:113-151`): a
+    missing split is skipped; a name in ``full_dataset`` trains on all of
+    its splits (``utils/misc.py::dataset_split``)."""
+    paths, sizes = [], {}
+    for n in names:
+        name_splits = dataset_split.get(n, splits) if full_dataset and n in full_dataset else splits
+        for s in name_splits:
+            pp, ss = resolve_tar_paths(root, [n], s)
+            paths += pp
+            sizes.update(ss)
+    return paths, sizes
+
+
+def build_data(args, model_cfg, tokenize, log_base: str, device=None):
     """``get_data`` (`data.py:850-900`) -> ``(train_epochs_fn,
-    total_train_samples, val_batches_fn | None)``."""
+    total_train_samples, val_batches_fn | None)``. ``auto`` and
+    ``webdataset``: the tar shards under ``--datasetpath`` (or
+    ``--train-data``), train splits from ``--datasetinfos``, val from the
+    valid/test/eval splits of the names not excluded, the val pipe fixed at
+    epoch 0; a fusion mel runs on ``device``."""
     audio_cfg = model_cfg["audio_cfg"]
     args.class_index_dict = load_class_label(args.class_label_path)
     if args.dataset_type == "toy":
@@ -102,9 +123,31 @@ def build_data(args, model_cfg, tokenize, log_base: str):
     if args.dataset_type == "csv":
         # the reference's own dispatcher raises this (`data.py:846`)
         raise ValueError(f"Unsupported dataset type: {args.dataset_type}")
-    raise NotImplementedError(
-        f"--dataset-type {args.dataset_type}: the webdataset shards need data/shards.py, "
-        "which is not ported yet (ROADMAP, slice 7); use --dataset-type toy")
+    names = args.datasetnames or ["audioset"]
+    infos = args.datasetinfos or ["train", "unbalanced_train", "balanced_train"]
+    root = args.datasetpath or args.train_data
+    paths, sizes = _resolve_split_tars(root, names, infos, full_dataset=args.full_train_dataset)
+    paths, total = sample_prop(paths, sizes, args.dataset_proportion)
+
+    def pipe(tar_paths, num_samples):
+        return ShardedAudioText(
+            tar_paths=tar_paths, tokenize=tokenize, batch_size=args.batch_size,
+            max_len=audio_cfg["clip_samples"], data_truncating=args.data_truncating,
+            data_filling=args.data_filling, audio_cfg=audio_cfg,
+            batches_per_epoch=num_samples // args.batch_size if num_samples else None,
+            text_augment_selection=args.text_augment_selection, device=device)
+
+    pipeline = pipe(paths, args.train_num_samples)
+    val_fn = None
+    excluded = (args.full_train_dataset or []) + (args.exclude_eval_dataset or [])
+    val_names = [n for n in names if n not in excluded] if excluded else names
+    args.val_dataset_names = val_names
+    val_paths, _ = _resolve_split_tars(args.val_data or root, val_names,
+                                       ["valid", "test", "eval"])
+    if val_paths:
+        val_pipe = pipe(val_paths, args.val_num_samples)
+        val_fn = lambda: val_pipe.epoch(0)  # noqa: E731  (fixed order and crops)
+    return pipeline.epoch, total, val_fn
 
 
 def train_one_epoch(state: dict, step_fn, batches, *, epoch: int, mesh,
@@ -202,7 +245,7 @@ def main(argv=None, *, device: str | None = None, tokenizer=None) -> dict:
     args = parse_args(argv)
     if args.fsdp:
         raise NotImplementedError("--fsdp needs parallel/fsdp.py, which is not ported yet "
-                                  "(ROADMAP, slice 7)")
+                                  "(ROADMAP, slice 7c)")
     np.random.seed(args.seed)
     world = init_distributed(device=device)
     dev = world["device"]
@@ -229,7 +272,7 @@ def main(argv=None, *, device: str | None = None, tokenizer=None) -> dict:
         seed=args.seed, device=dev, pretrained_audio=args.pretrained_audio,
         pretrained_text=args.pretrained_text, force_quick_gelu=args.force_quick_gelu)
     tokenize = tokenizer or load_default_tokenizer(cfg.context_length)
-    epochs_fn, total_samples, val_fn = build_data(args, model_cfg, tokenize, log_base)
+    epochs_fn, total_samples, val_fn = build_data(args, model_cfg, tokenize, log_base, dev)
 
     steps_per_epoch = (total_samples or (args.train_num_samples or 1024)) // args.batch_size
     total_steps = max(steps_per_epoch * args.epochs, 1)

@@ -1,21 +1,22 @@
 """Misc utilities, from ``audio_residual_tpu/utils/misc.py`` (the reference's
 `clap_module/utils.py`): mixup (`:189-208`), class-label loading
 (`:348-362`), the dataset-split registry (`:14-59`) and the training loop's
-batch prefetch. The JAX package's optax optimizer mux is
+batch prefetch, the log re-parser (`:265-300`) and the BatchNorm freeze
+mask (`:62-100`). The JAX package's optax optimizer mux is
 :mod:`audio_residual_tpu_torch.training.train_clap`'s ``make_optimizer``
-here; its log re-parser and BatchNorm freeze mask have no caller in the port
-yet."""
+here."""
 
 from __future__ import annotations
 
 import json
 import pickle
+import re
 
 import numpy as np
 import torch
 
 __all__ = ["get_mix_lambda", "do_mixup", "load_class_label", "dataset_split",
-           "prefetch_batches"]
+           "prefetch_batches", "get_data_from_log", "bn_freeze_mask"]
 
 
 def prefetch_batches(iterable, depth: int | None):
@@ -120,3 +121,34 @@ def load_class_label(path: str | None):
         return pd.read_csv(path)
     raise ValueError(f"unsupported class-label file {path}")
 
+
+def get_data_from_log(txt_path: str) -> dict:
+    """Train and eval metrics parsed back out of a log file
+    (`utils.py:265-300`): ``{key: {epoch: value}}`` from the ``key: value``
+    pairs of each line, the epoch from the last ``Epoch N`` seen."""
+    out: dict = {}
+    epoch = None
+    with open(txt_path) as f:
+        for line in f:
+            m = re.search(r"[Ee]poch[:\s]+(\d+)", line)
+            if m:
+                epoch = int(m.group(1))
+            for key, val in re.findall(r"(\w[\w@/-]*):\s*(-?\d+\.?\d*(?:e-?\d+)?)", line):
+                if key.lower() == "epoch":
+                    continue
+                out.setdefault(key, {})[epoch] = float(val)
+    return out
+
+
+def bn_freeze_mask(model: torch.nn.Module) -> dict[str, bool]:
+    """``{parameter name: trainable}`` over ``model.named_parameters()``,
+    ``False`` for the scale and shift of every BatchNorm (a module with
+    ``running_mean`` and ``running_var``): the counterpart of
+    ``freeze_batch_norm_2d`` (`clap_module/utils.py:62-100`). Apply it with
+    ``requires_grad_`` or as a zero-lr group; eval statistics are already
+    what the port's BatchNorms use outside training."""
+    frozen = {f"{name}.{p}" if name else p
+              for name, m in model.named_modules()
+              if hasattr(m, "running_mean") and hasattr(m, "running_var")
+              for p, _ in m.named_parameters(recurse=False)}
+    return {name: name not in frozen for name, _ in model.named_parameters()}

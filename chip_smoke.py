@@ -166,6 +166,33 @@ line):
                numpy; eval_zeroshot_classification.main and lp_main.main
                on an ESC-50-shaped tree (2 folds x 8 clips, esc50.csv);
                the PANN and fusion JAX fixtures ([fixture-towers] lines).
+  10. shards and vision -- 10a (``[shards]``): seeded PCM16 WAV tar shards
+               (7-13 s mono at 48 kHz, caption JSON, sizes.json, a train
+               split of 2 x 9 clips with one truncated member and a valid
+               split of 8) through training/main.py's main, once with the
+               default --dataset-type and once with webdataset:
+               create_model("HTSAT-tiny", "roberta") at full width,
+               HashTokenizer, golden, B=8, 2 epochs of 2 steps, validation
+               before and after each epoch; every loss finite, each step's
+               launches the training census of phase 8 (K1 1, K4 1, K2 11),
+               the run's the steps' plus 3 validation forwards', the
+               checkpoint written; ms a step and the host's share between
+               steps (decode + featurization); eval_retrieval_main on the
+               valid split with that checkpoint (metrics in [0, 1]);
+               check_tars names the truncated shard; AudioProcessing.
+               mel_spectrogram of 8 seeded 5 s clips at 44.1 kHz (levels
+               1e-4..1, so the 80 dB floor below the batch's max bites) on
+               K1, one launch, against its plain version (phase 2's limit)
+               and float64 with the floor applied. 10b (``[vision]``): each
+               of the 10 vision configs through create_model(name,
+               "transformer", seed=0) on the card, a B=2 image + text
+               forward (finite, unit norms, logit scale 1/0.07, peak
+               memory); RN50 and ViT-B-32 at B=32 and 224^2 golden by CUDA
+               events, images/s, against the same model on the CPU (max rel
+               err <= 1e-4); zero_shot_eval of ViT-B-32 on 64 seeded images
+               over the 1000 ImageNet classes with the first 2 of the 80
+               templates (time); the vision JAX fixture ([fixture-vision]
+               lines). No kernel is on the vision path.
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -1040,15 +1067,16 @@ def device_busy_ms(fn, reps: int = 5) -> float | None:
     return None
 
 
-def log_profile(phase: str, label: str, prof) -> None:
+def log_profile(phase: str, label: str, prof, card: str | None = None) -> None:
+    extra = {"card": card} if card else {}
     if prof is None:
         log(phase, profile=label, device_time="not measured")
         return
     groups, names, busy, span, _ = prof
     log(phase, profile=label, span_ms=span, busy_ms=busy, idle_share=1 - busy / span,
-        by_group=json.dumps({k: round(v, 4) for k, v in groups.most_common()}))
+        by_group=json.dumps({k: round(v, 4) for k, v in groups.most_common()}), **extra)
     for name, ms in names.most_common(8):
-        log(phase, profile=label, kernel=name[:110], device_ms=ms)
+        log(phase, profile=label, kernel=name[:110], device_ms=ms, **extra)
 
 
 def gemm_specs():
@@ -2553,10 +2581,11 @@ def tower_timing(phase: str, label: str, fn, card: str, clips: int = B) -> None:
 
 
 def write_wav(path, samples, sr: int) -> None:
-    """``samples [T, channels]`` in [-1, 1) as PCM16."""
+    """``samples [T, channels]`` in [-1, 1) as PCM16, to a path or a file
+    object."""
     import wave
 
-    with wave.open(str(path), "wb") as w:
+    with wave.open(path if hasattr(path, "write") else str(path), "wb") as w:
         w.setnchannels(samples.shape[1])
         w.setsampwidth(2)
         w.setframerate(sr)
@@ -2775,20 +2804,324 @@ def phase_towers(dev, card: str, stats: KernelStats | None = None) -> None:
     log(phase, phase_s=time.perf_counter() - started, card=card)
 
 
-def phase_fixture(path, phase: str, expected: dict | None = None) -> None:
+SHARD_B, SHARD_STEPS, SHARD_EPOCHS = 8, 2, 2  # 10a: batch, steps an epoch, epochs
+SHARD_CLIPS = {"train": (2, 9), "valid": (1, 8)}  # shards, members a shard
+MEL_CLIPS, MEL_SR = 8, 44100  # 10a: AudioProcessing.mel_spectrogram, 5 s clips
+VISION_B, VISION_TIMED = 2, ("RN50", "ViT-B-32")  # 10b: every config at B=2; two at B
+ZERO_SHOT_IMAGES, ZERO_SHOT_TEMPLATES = 64, 2  # 10b: of the 80 templates, to stay in time
+SOT, EOT = 49406, 49407  # the CLIP BPE vocab's start and end tokens
+
+
+def write_shards(root: str, rng) -> list[str]:
+    """Seeded PCM16 tar shards of dataset ``clotho``: a train and a valid
+    split (``SHARD_CLIPS``), 7-13 s mono clips at 48 kHz with caption JSON
+    and ``sizes.json``; the second train shard's first member is truncated
+    to its first 30 bytes. Returns the train shards' paths."""
+    import io
+    import tarfile
+
+    def add(tf, name, data):
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+
+    train = []
+    for split, (shards, members) in SHARD_CLIPS.items():
+        d = os.path.join(root, "clotho", split)
+        os.makedirs(d)
+        for s in range(shards):
+            path = os.path.join(d, f"{s:06d}.tar")
+            with tarfile.open(path, "w") as tf:
+                for i in range(members):
+                    buf = io.BytesIO()
+                    n = int(rng.integers(7 * 48000, 13 * 48000))
+                    write_wav(buf, rng.uniform(-0.3, 0.3, (n, 1)), 48000)
+                    data = buf.getvalue()
+                    if split == "train" and s == 1 and i == 0:
+                        data = data[:30]
+                    add(tf, f"{split}{s}_{i:03d}.wav", data)
+                    add(tf, f"{split}{s}_{i:03d}.json",
+                        json.dumps({"text": f"{split} recording {s} {i} of a sound"}).encode())
+            if split == "train":
+                train.append(path)
+        with open(os.path.join(d, "sizes.json"), "w") as f:
+            json.dump({f"{s:06d}.tar": members for s in range(shards)}, f)
+    return train
+
+
+def phase_shards(dev, card: str, stats: KernelStats | None = None) -> None:
+    """Phase 10a: the tar-shard input at full width (module docstring):
+    ``training/main.py::main`` on seeded shards with the default
+    ``--dataset-type`` and with ``webdataset``, ``eval_retrieval_main``,
+    ``check_tars``, ``AudioProcessing.mel_spectrogram`` on K1. Any miss
+    raises."""
+    import shutil
+    import tempfile
+    import unittest.mock as mock
+
+    import torch
+
+    from audio_residual_tpu_torch.data.processing import AudioProcessing
+    from audio_residual_tpu_torch.evaluate import eval_retrieval_main
+    from audio_residual_tpu_torch.models.clap import CLAPConfig
+    from audio_residual_tpu_torch.ops.cuda import KERNELS, launch_counts
+    from audio_residual_tpu_torch.ops.cuda import frontend as k1
+    from audio_residual_tpu_torch.training import main as train_main
+    from audio_residual_tpu_torch.utils.check_tars import check_tars
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+    from tests import torch_f64_reference as f64
+    from tests import torch_port_fixture as fx
+
+    phase = "shards"
+    stats = stats or KernelStats(KERNELS)
+    started = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(43)
+    tok = HashTokenizer(context_length=TEXT_CONTEXT)
+    audio = CLAPConfig().audio
+    train_census = {k: v for k, v in fx.expected_launches(audio, train=True).items() if v}
+    eval_census = {k: v for k, v in fx.expected_launches(audio).items() if v}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_shards = write_shards(tmp, rng)
+        log(phase, shards="clotho train 2 x 9 (one truncated member), valid 1 x 8",
+            clips="7-13 s mono PCM16 at 48 kHz", write_s=time.perf_counter() - t0, card=card)
+        real_step = train_main.make_train_step
+        for label in ("auto (default)", "webdataset"):
+            steps = []
+
+            def spy(*a, **k):
+                step = real_step(*a, **k)
+
+                def timed(state, batch, gen):
+                    torch.cuda.synchronize()
+                    before, t1 = dict(launch_counts), time.perf_counter()
+                    state, m = step(state, batch, gen)
+                    loss = float(m["loss"])
+                    t2 = time.perf_counter()
+                    diff = {n: c - before.get(n, 0) for n, c in launch_counts.items()
+                            if c - before.get(n, 0)}
+                    steps.append(dict(start=t1, end=t2, loss=loss, launches=diff))
+                    return state, m
+
+                return timed
+
+            argv = ["--datasetpath", tmp, "--datasetnames", "clotho", "--datasetinfos", "train",
+                    "--batch-size", str(SHARD_B), "--epochs", str(SHARD_EPOCHS),
+                    "--train-num-samples", str(SHARD_B * SHARD_STEPS), "--val-num-samples",
+                    str(SHARD_B), "--precision", "fp32", "--lr", "1e-5", "--warmup", "1",
+                    "--logs", os.path.join(tmp, "logs"), "--name", label.split()[0],
+                    "--seed", "3", "--log-local"]
+            if label == "webdataset":
+                argv += ["--dataset-type", "webdataset"]
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            with mock.patch.object(train_main, "make_train_step", spy):
+                out = train_main.main(argv, tokenizer=tok)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            total = dict(launch_counts)
+            n_steps = SHARD_STEPS * SHARD_EPOCHS
+            want_total = {k: n_steps * train_census.get(k, 0)
+                          + (SHARD_EPOCHS + 1) * eval_census.get(k, 0)
+                          for k in set(train_census) | set(eval_census)}
+            ckpt = os.path.join(out["ckpt_dir"], f"epoch_{SHARD_EPOCHS - 1}.pt")
+            losses = [s["loss"] for s in steps]
+            step_ms = [1e3 * (s["end"] - s["start"]) for s in steps]
+            # host time between steps: the next batch's decode and featurization
+            data_ms = [1e3 * (b["start"] - a["end"]) for a, b in zip(steps, steps[1:])
+                       if b is not steps[SHARD_STEPS]]
+            ok = (len(steps) == n_steps and all(np.isfinite(losses))
+                  and all(s["launches"] == train_census for s in steps)
+                  and total == want_total and os.path.exists(ckpt)
+                  and np.isfinite(out["metrics"]["all/cumulative_loss"]))
+            med_step, med_data = statistics.median(step_ms), statistics.median(data_ms)
+            log(phase, main=label, model="HTSAT-tiny + roberta (create_model)", batch=SHARD_B,
+                steps=len(steps), losses=json.dumps(losses),
+                step_launches=json.dumps(steps[0]["launches"]),
+                expected_step_launches=json.dumps(train_census), run_launches=json.dumps(total),
+                expected_run_launches=json.dumps(want_total), checkpoint=os.path.basename(ckpt),
+                val_cumulative_loss=out["metrics"]["all/cumulative_loss"], run_s=run_s,
+                step_ms=json.dumps(step_ms), median_step_ms=med_step,
+                median_host_ms_between_steps=med_data,
+                host_share=med_data / (med_data + med_step), ok=ok, card=card)
+            if not ok:
+                raise AssertionError(f"shards main {label}: a loss is not finite, the launches "
+                                     "differ from the census or no checkpoint was written")
+
+        t0 = time.perf_counter()
+        res = eval_retrieval_main.main(
+            ["--datasetpath", tmp, "--datasetnames", "clotho", "--split", "valid",
+             "--batch-size", str(SHARD_B), "--pretrained", ckpt], tokenizer=tok)
+        (m,) = res["history"]
+        scores = {k: v for k, v in m.items() if "R@" in k or "mAP" in k}
+        ok = len(scores) == 8 and all(np.isfinite(v) and 0.0 <= v <= 1.0
+                                      for v in scores.values())
+        log(phase, cli="eval_retrieval_main", clips=m["num_samples"], s=time.perf_counter() - t0,
+            metrics=json.dumps(scores), best=res["best"]["metric"], ok=ok, card=card)
+        if not ok:
+            raise AssertionError(f"eval_retrieval_main: metrics {scores}")
+
+        check_dir = os.path.join(tmp, "check", "train")
+        shutil.copytree(os.path.dirname(train_shards[0]), check_dir)
+        report = check_tars(check_dir, verbose=False)
+        ok = report["bad"] == [os.path.basename(train_shards[1])] and report["ok"] == {
+            os.path.basename(train_shards[0]): SHARD_CLIPS["train"][1]}
+        log(phase, check_tars=json.dumps(report), ok=ok)
+        if not ok:
+            raise AssertionError(f"check_tars did not name the truncated shard: {report}")
+
+    # AudioProcessing.mel_spectrogram on K1, its floor over the whole batch
+    wav = torch.from_numpy((rng.standard_normal((MEL_CLIPS, 5 * MEL_SR))
+                            * np.logspace(-4, 0, MEL_CLIPS)[:, None]).astype(np.float32)).to(dev)
+    cfg = AudioProcessing.frontend_config()
+    launch_counts.clear()
+    got = AudioProcessing.mel_spectrogram(wav, device=dev)
+    census_check(phase, "mel_spectrogram [8, 220500]", {"fused_logmel": 1})
+
+    def floor(x):
+        return torch.maximum(x, x.max() - 80.0)
+
+    plain = floor(k1.logmel_plain(wav, cfg, "f32"))
+    label = f"AudioProcessing.mel_spectrogram [{MEL_CLIPS},{5 * MEL_SR}] 44.1 kHz, top_db 80"
+    stats.check("fused_logmel", label, got, plain, "f32")
+    stats.check_f64("fused_logmel", label, got, plain, floor(f64.logmel64(wav, cfg)))
+    floored = float((got == got.max() - 80.0).float().mean())
+    log(phase, mel_spectrogram=label, floored_share=floored,
+        cuda_event_ms=time_ms(lambda: AudioProcessing.mel_spectrogram(wav, device=dev), reps=5),
+        plain_ms=time_ms(lambda: floor(k1.logmel_plain(wav, cfg, "f32")), reps=5), card=card)
+    log(phase, phase_s=time.perf_counter() - started,
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+
+def clip_tokens(texts: list[str]):
+    """CLIP-shaped token rows ``[N, 77]`` without the BPE vocab (not in the
+    repository): SOT, word hashes, EOT (the row's largest id), zeros."""
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    enc = HashTokenizer(vocab_size=SOT, context_length=TEXT_CONTEXT)(texts)
+    ids = enc["input_ids"] * enc["attention_mask"]
+    ids[:, 0] = SOT
+    ids[np.arange(len(texts)), enc["attention_mask"].sum(1) - 1] = EOT
+    return ids
+
+
+def phase_vision(dev, card: str) -> None:
+    """Phase 10b: every vision config's CLIP on the card (module docstring),
+    RN50 and ViT-B-32 timed at B=32 against the CPU, the vision JAX
+    fixture, ImageNet zero-shot. Any miss raises."""
+    import copy
+
+    import torch
+
+    from audio_residual_tpu_torch.evaluate import zero_shot_imagenet as zsi
+    from audio_residual_tpu_torch.models import clip
+    from audio_residual_tpu_torch.models.factory import create_model, list_models
+    from tests import torch_port_fixture as fx
+
+    phase = "vision"
+    started = time.perf_counter()
+    rng = np.random.default_rng(47)
+    names = [n for n in list_models() if n.startswith(("RN", "ViT"))]
+    if len(names) != 10:
+        raise AssertionError(f"vision: the registry lists {names}, not the 10 vision configs")
+    tokens = torch.from_numpy(clip_tokens(["a photo of a dog", "a diagram"])).to(dev)
+    kept = {}
+    for name in names:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, cfg, _ = create_model(name, "transformer", seed=0, device=dev)
+        build_s = time.perf_counter() - t0
+        size = cfg.vision.image_size
+        images = torch.from_numpy(rng.standard_normal((VISION_B, 3, size, size)).astype(
+            np.float32)).to(dev)
+        with torch.no_grad():
+            img, txt, scale = clip.clip_apply(model, images, tokens)
+        torch.cuda.synchronize()
+        norms = torch.cat([img.norm(dim=-1), txt.norm(dim=-1)])
+        ok = (img.shape == txt.shape == (VISION_B, cfg.embed_dim)
+              and bool(torch.isfinite(img).all() and torch.isfinite(txt).all())
+              and float((norms - 1).abs().max()) < 1e-5
+              and abs(float(scale) * 0.07 - 1) < 1e-6)
+        log(phase, model=name, image_size=size, embed_dim=cfg.embed_dim,
+            params=sum(p.numel() for p in model.parameters()), build_s=build_s,
+            max_norm_err=float((norms - 1).abs().max()), logit_scale=float(scale),
+            peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok, card=card)
+        if not ok:
+            raise AssertionError(f"vision {name}: features or logit scale malformed")
+        if name in VISION_TIMED:
+            kept[name] = model
+        del model
+    torch.cuda.empty_cache()
+
+    for name, model in kept.items():
+        size = model.cfg.vision.image_size
+        images = torch.from_numpy(rng.standard_normal((B, 3, size, size)).astype(
+            np.float32)).to(dev)
+        with torch.no_grad():
+            got = clip.clip_encode_image(model, images)
+            ms = time_ms(lambda: clip.clip_encode_image(model, images), reps=5, warmup=1)
+            cpu = copy.deepcopy(model).cpu()
+            t0 = time.perf_counter()
+            ref = clip.clip_encode_image(cpu, images.cpu())
+            cpu_s = time.perf_counter() - t0
+        rel = float((got.cpu() - ref).abs().max() / ref.abs().max())
+        ok = rel <= 1e-4
+        log(phase, model=name, batch=B, image_size=size, golden_cuda_event_ms=ms,
+            images_per_s=1e3 * B / ms, cpu_s=cpu_s, max_rel_err_against_cpu=rel, tol=1e-4,
+            ok=ok, card=card)
+        if not ok:
+            raise AssertionError(f"vision {name}: the card's features differ from the CPU's")
+        with torch.no_grad():
+            log_profile(phase, f"{name} golden B={B}", profile_until(
+                lambda: clip.clip_encode_image(model, images), lambda p: True, name), card)
+
+    model = kept["ViT-B-32"]
+    classnames, templates = zsi.load_imagenet_zeroshot_data()
+    size = model.cfg.vision.image_size
+    images = rng.standard_normal((ZERO_SHOT_IMAGES, 3, size, size)).astype(np.float32)
+    labels = rng.integers(0, len(classnames), ZERO_SHOT_IMAGES)
+    batches = [(torch.from_numpy(images[i: i + B]).to(dev), labels[i: i + B])
+               for i in range(0, ZERO_SHOT_IMAGES, B)]
+    def encode_text(texts):
+        return clip.clip_encode_text(model, torch.from_numpy(clip_tokens(texts)).to(dev))
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = zsi.zero_shot_eval(lambda x: clip.clip_encode_image(model, x), encode_text,
+                                 {"imagenet-val": batches}, 1, classnames=classnames,
+                                 templates=templates[:ZERO_SHOT_TEMPLATES])
+    ok = set(res) == {"imagenet-zeroshot-val-top1", "imagenet-zeroshot-val-top5"} and all(
+        0.0 <= v <= 1.0 for v in res.values())
+    log(phase, zero_shot="ViT-B-32 on 64 seeded images, 1000 ImageNet classes",
+        templates=f"the first {ZERO_SHOT_TEMPLATES} of {len(templates)} (time)",
+        s=time.perf_counter() - t0, metrics=json.dumps(res), ok=ok, card=card)
+    if not ok:
+        raise AssertionError(f"zero_shot_eval: {res}")
+    del kept, model
+    torch.cuda.empty_cache()
+    phase_fixture(fx.VISION_PATH, "fixture-vision", run=lambda a: {
+        f"{name}/{key}": v for name, outs in fx.run_port_vision(a, dev).items()
+        for key, v in outs.items()})
+    log(phase, phase_s=time.perf_counter() - started, card=card)
+
+
+def phase_fixture(path, phase: str, expected: dict | None = None, run=None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
-    ``expected``: launches the run must include."""
+    ``expected``: launches the run must include. ``run(arrays)`` -> ``{key:
+    output}`` against ``out/<key>`` (the audio fixtures' ``run_port`` by
+    default)."""
     from audio_residual_tpu_torch.ops.cuda import launch_counts
     from tests import torch_port_fixture as fx
 
     arrays = fx.load(path)
     launch_counts.clear()
-    got = fx.run_port(arrays, "cuda")
+    got = (run or (lambda a: fx.run_port(a, "cuda")))(arrays)
     for name, n in (expected or {}).items():
         if launch_counts[name] != n:
             raise AssertionError(f"{phase}: {name} launched {launch_counts[name]} times, "
                                  f"expected {n}")
-    for key in fx.output_keys(arrays):
+    for key in (list(got) if run else fx.output_keys(arrays)):
         ref = arrays[f"out/{key}"]
         err = float(np.abs(got[key] - ref).max())
         ok = bool(np.allclose(got[key], ref, atol=2e-3, rtol=1e-3))
@@ -2854,6 +3187,8 @@ def main() -> int:
     phase_clap(dev, card)
     phase_contrastive(dev, card)
     phase_towers(dev, card, stats)
+    phase_shards(dev, card, stats)
+    phase_vision(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

@@ -184,15 +184,16 @@ def test_create_model_quick_gelu_and_unported_configs(caplog):
         _, cfg, _ = t_factory.create_model("HTSAT-tiny", "roberta", device="meta",
                                            pretrained_text="roberta.pt")
     assert "pretrained_text" in caplog.text
-    # PANN towers and fusion are ported: they build; the vision configs do not
+    # PANN towers, fusion and the vision configs' CLIPs are ported: they build
     with torch.device("meta"):
         model, cfg, _ = t_factory.create_model("PANN-14", device="meta")
         assert cfg.audio_model_type == "PANN" and cfg.embed_dim == 2048
         _, cfg, _ = t_factory.create_model("HTSAT-tiny", enable_fusion=True,
                                            fusion_type="aff_2d", device="meta")
         assert cfg.audio.fusion == "2d"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_factory.create_model("RN50", "transformer", device="cpu")
+        _, cfg, _ = t_factory.create_model("RN50", "transformer", device="meta",
+                                           force_quick_gelu=True)
+        assert cfg.vision.layers == (3, 4, 6, 3) and cfg.vision.quick_gelu
     with pytest.raises(RuntimeError, match="not found"):
         t_factory.create_model("HTSAT-tiny", "gpt", device="cpu")
 

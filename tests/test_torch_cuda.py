@@ -1428,15 +1428,21 @@ def test_fusion_forward_matches_the_plain_route_on_card(dev, fusion_type):
             assert _rel(got, ref) <= 2e-2 and cos > 0.99999, (_rel(got, ref), cos)
 
 
-@pytest.mark.parametrize("tower,fusion_type", [("HTSAT", "aff_2d"), ("HTSAT", "iaff_1d"),
-                                               ("PANN", "iaff_2d")])
+@pytest.mark.parametrize("tower,fusion_type", [("HTSAT", "None"), ("HTSAT", "aff_2d"),
+                                               ("HTSAT", "iaff_1d"), ("PANN", "iaff_2d")])
 def test_golden_fusion_forward_ignores_cudnn_tf32_on_card(dev, tower, fusion_type):
-    """The golden fusion forward runs every convolution in full f32, the
-    fusion modules' too, whatever cuDNN's TF32 switch says: with PyTorch's
-    default (on) it gives the same bits as with it off."""
+    """The golden forward runs every convolution in full f32, the fusion
+    modules' and the HTSAT head's (``tscam_conv``) too, whatever cuDNN's
+    TF32 switch says: with PyTorch's default (on) it gives the same bits as
+    with it off, in the embedding and in ``clipwise_output`` and
+    ``framewise_output``, which pass through the head."""
     from audio_residual_tpu_torch.models import clap as t_clap
 
-    if tower == "HTSAT":
+    if tower == "HTSAT" and fusion_type == "None":
+        model = t_clap.build_clap_audio(t_clap.CLAPConfig(), seed=0, device=dev)
+        wav = np.random.default_rng(3).standard_normal((2, 480000)).astype(np.float32)
+        inputs = {"waveform": 0.1 * wav}
+    elif tower == "HTSAT":
         cfg = t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(enable_fusion=True,
                                                           fusion_type=fusion_type))
         model = t_clap.build_clap_audio(cfg, seed=0, device=dev)
@@ -1453,10 +1459,14 @@ def test_golden_fusion_forward_ignores_cudnn_tf32_on_card(dev, tower, fusion_typ
         for tf32 in (True, False):
             torch.backends.cudnn.allow_tf32 = tf32
             with torch.no_grad():
-                outs.append(t_clap.encode_audio(model, batch)["normalized"])
+                outs.append(t_clap.encode_audio(model, batch))
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    assert torch.equal(*outs)
+    for key in ("normalized", "clipwise_output", "framewise_output"):
+        if key in outs[1]:
+            assert torch.equal(outs[0][key], outs[1][key]), key
+    if tower == "HTSAT":
+        assert {"clipwise_output", "framewise_output"} <= set(outs[1])
 
 
 @pytest.mark.parametrize("form", ["list", "rows"])
@@ -1524,3 +1534,87 @@ def test_wavio_matches_numpy_on_card_machine(dev, bits, channels):
     c, plain = ((native.pcm16_to_float32_mono, native.pcm16_to_float32_mono_plain) if bits == 16
                 else (native.pcm32_to_float32_mono, native.pcm32_to_float32_mono_plain))
     np.testing.assert_array_equal(c(raw, channels), plain(raw, channels))
+
+
+def test_mel_spectrogram_runs_k1_on_card(dev):
+    """``AudioProcessing.mel_spectrogram`` on the card: one K1 launch, then
+    the ``top_db`` floor below the whole batch's max, within 1e-4 (max rel)
+    of K1's plain version with the same floor."""
+    from audio_residual_tpu_torch.data.processing import AudioProcessing
+
+    rng = np.random.default_rng(11)
+    wav = torch.from_numpy((rng.standard_normal((3, 44100)) * np.array([[1.0], [1e-3],
+                                                                        [1e-5]])
+                            ).astype(np.float32)).to(dev)
+    launch_counts.clear()
+    got = AudioProcessing.mel_spectrogram(wav, device=dev)
+    assert dict(launch_counts) == {"fused_logmel": 1} and got.device.type == "cuda"
+    plain = k1.logmel_plain(wav, AudioProcessing.frontend_config(), "f32")
+    plain = torch.maximum(plain, plain.max() - 80.0)
+    assert _rel(got, plain) < 1e-4
+    assert float(got[2].min()) == pytest.approx(float(got.max()) - 80.0)
+
+
+def test_vision_fixture_on_card_matches_cpu_and_jax(dev):
+    """The vision fixture's narrow CLIPs (ModifiedResNet, quick-GELU ViT) on
+    the card: within 1e-5 (max rel) of the same models on the CPU, and
+    within the golden parity of the JAX outputs stored in the fixture."""
+    arrays = fx.load(fx.VISION_PATH)
+    card, cpu = fx.run_port_vision(arrays, dev), fx.run_port_vision(arrays, "cpu")
+    for name, outs in card.items():
+        for key, got in outs.items():
+            ref = cpu[name][key]
+            assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max(), (name, key)
+            np.testing.assert_allclose(got, arrays[f"out/{name}/{key}"], atol=2e-3, rtol=1e-3)
+
+
+def test_shard_batch_featurizes_fusion_on_card(dev, tmp_path):
+    """``ShardedAudioText(data_truncating="fusion")`` with ``device`` the
+    card: ``mel_fusion`` on the card, one K1 launch a clip, within 1e-4 of
+    the same pipe on the CPU; waveforms, ``longer`` and tokens equal."""
+    import io
+    import tarfile
+    import wave
+
+    from audio_residual_tpu_torch.data.shards import ShardedAudioText
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(12)
+    path = str(tmp_path / "000000.tar")
+    with tarfile.open(path, "w") as tf:
+        for i, n in enumerate((700000, 300000, 480000, 900000)):
+            buf = io.BytesIO()
+            with wave.open(buf, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(48000)
+                w.writeframes((rng.uniform(-0.3, 0.3, n) * 32767).astype(np.int16).tobytes())
+            for name, data in ((f"c{i}.wav", buf.getvalue()),
+                               (f"c{i}.json", json_bytes({"text": f"clip {i}"}))):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    audio_cfg = dict(sample_rate=48000, window_size=1024, hop_size=480, mel_bins=64, fmin=50,
+                     fmax=14000)
+
+    def batches(device):
+        pipe = ShardedAudioText(tar_paths=[path], tokenize=HashTokenizer(), batch_size=4,
+                                data_truncating="fusion", data_filling="repeatpad",
+                                audio_cfg=audio_cfg, device=device, seed=2)
+        return list(pipe.epoch(0))
+
+    launch_counts.clear()
+    (got,) = batches(dev)
+    assert dict(launch_counts) == {"fused_logmel": 4}
+    (ref,) = batches("cpu")
+    assert got["mel_fusion"].device.type == "cuda" and got["mel_fusion"].shape == (4, 4, 1001, 64)
+    assert _rel(got["mel_fusion"].cpu(), ref["mel_fusion"]) < 1e-4
+    assert list(got["longer"]) == [True, False, False, True]
+    for k in ("waveform", "longer", "input_ids"):
+        np.testing.assert_array_equal(got[k], ref[k])
+
+
+def json_bytes(obj) -> bytes:
+    import json
+
+    return json.dumps(obj).encode()

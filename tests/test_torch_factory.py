@@ -13,6 +13,7 @@ import dataclasses
 import json
 import unittest.mock as mock
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -80,8 +81,11 @@ def test_create_audio_model_needs_a_card_unless_told(monkeypatch):
 
 @pytest.mark.parametrize("name,match", [("PANN-14", "slice 6"), ("RN50", "vision config")])
 def test_unported_towers_raise(name, match):
-    """The vision configs raise; the PANN towers and fusion, which raised
-    naming slice 6 until they were ported, now build."""
+    """The PANN towers and fusion, which raised naming slice 6 until they
+    were ported, build; a vision config, which raised until its CLIP was
+    ported, has no audio tower: ``create_audio_model`` refuses it with a
+    ``ValueError`` that says so (``create_model`` builds its CLIP,
+    ``tests/test_torch_vision.py``)."""
     if match == "slice 6":
         with torch.device("meta"):
             model, cfg, _ = t_factory.create_audio_model(name, device="meta")
@@ -90,7 +94,7 @@ def test_unported_towers_raise(name, match):
                                             enable_fusion=True, fusion_type="iaff_1d")
         assert audio.fusion == "1d"
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=f"{match}: it has no audio tower"):
         t_factory.create_audio_model(name, device="cpu")
 
 
@@ -187,3 +191,150 @@ def test_load_audio_checkpoint_refuses_what_does_not_fit(tmp_path):
     torch.save(ckpt, tmp_path / "extra.pt")
     with pytest.raises(RuntimeError, match="unexpected.*audio_branch.extra.weight"):
         load_audio_checkpoint(_fixture_model(), tmp_path / "extra.pt")
+
+
+def _tower_file(path, sd: dict, form: str) -> None:
+    """``sd`` (``audio_branch.*`` keys) written as a tower-only file: the
+    official PANN layout (``{"model": ...}``, no prefix, the DSP extractor
+    buffers too), or an HTS-AT codebase one (``state_dict``, ``sed_model.``)."""
+    t = {k: torch.from_numpy(v) for k, v in sd.items() if k.startswith("audio_branch.")}
+    if form == "model":
+        t = {k[len("audio_branch."):]: v for k, v in t.items()}
+        t["spectrogram_extractor.stft.conv_real.weight"] = torch.zeros(3, 1, 4)
+        torch.save({"model": t, "iteration": 7}, path)
+    else:
+        torch.save({"state_dict": {k.replace("audio_branch.", "sed_model."): v
+                                   for k, v in t.items()}}, path)
+
+
+@pytest.mark.parametrize("name,amodel,form", [("Cnn14_mAP.pth", "PANN-6", "model"),
+                                              ("PANN_cnn6.ckpt", "PANN-6", "state_dict"),
+                                              ("finetuned_cnn6.ckpt", "PANN-6", "state_dict"),
+                                              ("finetuned_tiny.ckpt", "HTSAT-tiny", "state_dict")])
+def test_load_audio_tower_equals_jax(tmp_path, name, amodel, form):
+    """``load_audio_tower`` on each tower-only file the JAX
+    ``load_audio_tower_params`` takes: the loaded tower equals JAX's result
+    carried across by name."""
+    from audio_residual_tpu_torch.models.convert import clap_audio_state_dict, pann_state_dict
+
+    pann = amodel.startswith("PANN")
+    cfg = (fx.pann_port_config("", model_name="Cnn6") if pann
+           else t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(**fx.AUDIO_KW), **fx.CLAP_KW))
+    sd = fx.port_weights(cfg, 4)
+    path = str(tmp_path / name)
+    _tower_file(path, sd, form)
+    model = t_factory.load_audio_tower(fx._seeded_model(cfg, 0, "cpu"), path, amodel)
+    jcfg = fx.pann_jax_config("", model_name="Cnn6") if pann else fx.jax_config()
+    hp = j_factory.load_audio_tower_params(path, amodel, jcfg)
+    if pann:
+        want = pann_state_dict(hp, "")
+    else:
+        proj = fx.jax_audio_params(sd, "HTSAT", fx.AUDIO_KW["depths"])["audio_projection"]
+        want = {k[len("audio_branch."):]: v for k, v in clap_audio_state_dict(
+            {"audio_branch": hp, "audio_projection": proj}).items()
+            if k.startswith("audio_branch.")}
+    got = model.audio_branch.state_dict()
+    assert set(want) == set(got)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+
+def test_load_audio_tower_refuses_like_jax(tmp_path):
+    cfg = fx.pann_port_config("", model_name="Cnn6")
+    path = str(tmp_path / "other.ckpt")
+    _tower_file(path, fx.port_weights(cfg, 4), "state_dict")
+    model = fx._seeded_model(cfg, 0, "cpu")
+    for amodel, match in (("PANN-6", "Unknown audio checkpoint"),
+                          ("HTSAT-tiny", "Unknown audio checkpoint"),
+                          ("MyTower", "not support")):
+        with pytest.raises(ValueError, match=match):
+            j_factory.load_audio_tower_params(path, amodel, None)
+        with pytest.raises(ValueError, match=match):
+            t_factory.load_audio_tower(model, path, amodel)
+
+
+def test_create_model_and_transforms_equals_jax():
+    """An audio config's ``preprocess`` (the batch featurization at the
+    config's clip length) and a vision config's (the eval image transform)
+    against the JAX package's, ``create_model`` stubbed in both."""
+    import dataclasses as dc
+
+    from audio_residual_tpu.models import clip as j_clip
+
+    wav = np.random.default_rng(1).standard_normal((2, 9000)).astype(np.float32)
+    model_cfg = {"audio_cfg": {"clip_samples": 24000}}
+    port_model = fx._seeded_model(t_clap.CLAPConfig(audio=t_htsat.HTSATConfig(**fx.AUDIO_KW),
+                                                    **fx.CLAP_KW), 0, "cpu")
+    with mock.patch.object(t_factory, "create_model", lambda *a, **k: (port_model, None,
+                                                                       model_cfg)), \
+            mock.patch.object(j_factory, "create_model", lambda *a, **k: ({}, None, model_cfg)):
+        got = t_factory.create_model_and_transforms("HTSAT-tiny")[3](wav)
+        want = j_factory.create_model_and_transforms("HTSAT-tiny")[3](wav)
+    for k in ("waveform", "longer"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    with torch.device("meta"):
+        model, cfg, _, pre = t_factory.create_model_and_transforms(
+            "ViT-B-32-quickgelu", "transformer", device="meta")
+    with mock.patch.object(j_clip, "init_clip_params", lambda key, cfg: {}):
+        _, jcfg, _, jpre = j_factory.create_model_and_transforms("ViT-B-32-quickgelu",
+                                                                 "transformer")
+    assert cfg.vision.quick_gelu and cfg.text.quick_gelu
+    assert dc.asdict(cfg.vision) == dc.asdict(jcfg.vision)
+    img = np.random.default_rng(2).integers(0, 256, (300, 260, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(pre(img).numpy(), jpre(img).transpose(2, 0, 1))
+
+
+def test_convert_weights_to_bf16_equals_jax():
+    """The same entries cast (floating, two or more axes) as the JAX
+    function on the same arrays, the same values; the model untouched."""
+    model = fx._seeded_model(fx.pann_port_config("", model_name="Cnn6", enable_fusion=True,
+                                                 fusion_type="aff_2d"), 0, "cpu")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    got = t_factory.convert_weights_to_bf16(model.state_dict())
+    want = j_factory.convert_weights_to_bf16({k: np.asarray(v) for k, v in before.items()})
+    assert set(got) == set(want)
+    for k, v in got.items():
+        w = np.asarray(want[k])
+        assert (v.dtype == torch.bfloat16) == (w.dtype.name == "bfloat16"), k
+        np.testing.assert_array_equal(v.float().numpy(), w.astype(np.float32), err_msg=k)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]) and v.dtype == before[k].dtype, k
+
+
+def test_get_data_from_log_equals_jax(tmp_path):
+    from audio_residual_tpu.utils.misc import get_data_from_log as j_get
+    from audio_residual_tpu_torch.utils.misc import get_data_from_log as t_get
+
+    log = tmp_path / "out.log"
+    log.write_text("x | INFO | Eval Epoch: 0 all/loss: 0.5 mAP@10: 1e-3\n"
+                   "Train Epoch: 1 [3/10] loss: -1.25 scale: 14.2857\n"
+                   "no numbers here\nEval Epoch: 2 all/R@1: 0.75 epoch: 2\n")
+    assert t_get(str(log)) == j_get(str(log))
+    assert t_get(str(log))["all/loss"] == {0: 0.5}
+
+
+@pytest.mark.parametrize("tower", ["PANN", "HTSAT"])
+def test_bn_freeze_mask_equals_jax(tower):
+    """``bn_freeze_mask``: every BatchNorm's scale and shift frozen (bn0,
+    PANN's block BNs, the fusion branches' and mel convolutions' BNs), the
+    JAX mask's leaves carried to names through the weight converter."""
+    from audio_residual_tpu.utils.misc import bn_freeze_mask as j_mask
+    from audio_residual_tpu_torch.models.convert import clap_audio_state_dict
+    from audio_residual_tpu_torch.utils.misc import bn_freeze_mask as t_mask
+
+    if tower == "PANN":
+        cfg = fx.pann_port_config("", model_name="Cnn6", enable_fusion=True,
+                                  fusion_type="aff_2d")
+    else:
+        cfg = fx.fusion_port_config("iaff_1d")
+    sd = fx.port_weights(cfg, 1)
+    params = fx.jax_audio_params(sd, tower, fx.AUDIO_KW["depths"])
+    filled = jax.tree.map(lambda m, p: np.full(np.shape(p), m), j_mask(params), params)
+    want = clap_audio_state_dict(filled)
+    with torch.device("meta"):
+        model = t_clap.CLAPAudio(cfg)
+    got = t_mask(model)
+    assert set(got) == {k for k, _ in model.named_parameters()} and set(got) <= set(want)
+    assert got == {k: bool(want[k].all()) for k in got}
+    assert all(want[k].all() == want[k].any() for k in got)
+    assert not got["audio_branch.bn0.weight"] and got["audio_projection.0.weight"]

@@ -162,3 +162,35 @@ def test_train_and_eval_linear_head_writes_what_jax_writes(monkeypatch, tmp_path
             np.testing.assert_array_equal(t["targets"], j["targets"])
             np.testing.assert_array_equal(t["predictions"], j["predictions"])
             np.testing.assert_allclose(t["similarities"], j["similarities"], atol=1e-5)
+
+
+def test_embed_dataset_builds_the_fusion_input_of_clap_module():
+    """A 2-D fusion model (``aff_2d``) through ``embed_dataset``: each clip's
+    ``mel_fusion`` (chunks from ``default_rng(0)``), so the embeddings equal
+    ``CLAPModule(enable_fusion=True, seed=0)``'s on the same clips, clips
+    longer than the model's input and shorter ones. (The JAX function sends
+    the waveform, which this model cannot take.)"""
+    import unittest.mock as mock
+
+    from audio_residual_tpu_torch import module as t_module
+    from audio_residual_tpu_torch.data.featurize import mel_audio_cfg
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import factory as t_factory
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    cfg = fx.fusion_port_config("aff_2d")
+    full = t_clap.CLAPConfig(audio=cfg.audio, text=fx.port_clap_config("roberta").text,
+                             context_length=fx.CLAP_CONTEXT, **fx.CLAP_KW)
+    model = t_clap.build_clap(full, seed=0, device="cpu")
+    clip = fx.AUDIO_KW["clip_samples"]
+    rng = np.random.default_rng(6)
+    batches = [((rng.standard_normal((2, n)) * 0.1).astype(np.float32), np.array([1, 0]))
+               for n in (2 * clip + 500, clip // 3)]
+    feats, labels = t_lp.embed_dataset(model, batches, max_len=clip)
+    model_cfg = {"audio_cfg": {**mel_audio_cfg(cfg.audio), "clip_samples": clip}}
+    with mock.patch.object(t_factory, "create_model", lambda *a, **k: (model, full, model_cfg)):
+        module = t_module.CLAPModule(enable_fusion=True, seed=0, device="cpu",
+                                     tokenizer=HashTokenizer(vocab_size=1000, context_length=16))
+    want = np.concatenate([module.get_audio_embedding_from_data(list(w)) for w, _ in batches])
+    np.testing.assert_array_equal(feats, want)
+    np.testing.assert_array_equal(labels, [1, 0, 1, 0])

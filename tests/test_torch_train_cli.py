@@ -150,8 +150,10 @@ def test_resume_reproduces_the_uninterrupted_run(run, toy, tmp_path):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path, toy):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        _run(tmp_path, toy, "shards", "--dataset-type", "webdataset")
+    """``--fsdp`` (not ported) and ``csv`` (the reference raises) refuse;
+    ``webdataset`` reads tar shards (``tests/test_torch_shards.py``), and
+    under the toy file, which holds none, it takes no step."""
+    assert _run(tmp_path, toy, "shards", "--dataset-type", "webdataset")["steps"] == 0
     with pytest.raises(NotImplementedError, match="fsdp"):
         _run(tmp_path, toy, "fsdp", "--fsdp")
     with pytest.raises(ValueError, match="Unsupported dataset type"):

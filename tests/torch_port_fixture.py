@@ -42,14 +42,21 @@ the inputs (a 0.5 s waveform; a fusion batch ``mel_fusion [2, 4, T, F]``
 with ``longer`` = [True, False]) and the JAX f32 outputs of
 ``encode_audio``.
 
-``chip_smoke.py`` runs the port's kernels on the card against all six
-without importing JAX; ``tests/test_torch_htsat.py``,
+``tests/data/torch_port_vision.npz`` holds two narrow CLIPs (a ModifiedResNet
+and a quick-GELU ViT, each with a 2-layer CLIP text tower of width 64). It
+stores no weights: the JAX pytree's leaf paths and shapes, values from the
+seed (:func:`seeded_tree_leaves`), reach the port through its
+``models/convert.py::clip_state_dict``. It holds NHWC images, CLIP tokens
+and the JAX f32 outputs of ``clip_apply``.
+
+``chip_smoke.py`` runs the port on the card against all seven without
+importing JAX; ``tests/test_torch_htsat.py``,
 ``tests/test_torch_wide_attention.py``, ``tests/test_torch_train_residual.py``
 and ``tests/test_torch_clap.py`` regenerate them and compare with the
 committed files, so they cannot drift.
 
 Regenerate with ``python -m tests.torch_port_fixture [tiny|wide|train|clap|
-pann|fusion ...]`` from the repo root (all six without an argument).
+pann|fusion|vision ...]`` from the repo root (all seven without an argument).
 """
 
 from __future__ import annotations
@@ -791,9 +798,136 @@ def run_port_fusion(arrays: dict, device, compute_dtype=None) -> dict[str, dict[
     return out
 
 
+VISION_PATH = PATH.with_name("torch_port_vision.npz")
+VISION_SEED = 0
+VISION_TEXT = dict(vocab_size=1000, width=64, heads=2, layers=2, context_length=CLAP_CONTEXT)
+VISION_MODELS = {  # narrow CLIPs: the ModifiedResNet (4 heads in its pool) and a quick-GELU ViT
+    "rn": dict(layers=[1, 1, 1, 1], width=8, image_size=64),
+    "vit": dict(layers=2, width=64, patch_size=8, image_size=32, quick_gelu=True),
+}
+VISION_EMBED = 32
+VISION_OUTPUT_KEYS = ("image", "text", "logit_scale")
+
+
+def seeded_tree_leaves(shapes: dict[str, tuple], seed: int) -> dict[str, np.ndarray]:
+    """Random leaves of a JAX param pytree, keyed by its ``/`` paths in the
+    order given: BN scales near 1, variances above 0.5, other vectors at
+    0.1, arrays of two or more axes at ``1/sqrt(fan_in)`` (all axes but the
+    last), ``logit_scale`` ``log(1/0.07)``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape in shapes.items():
+        z = rng.standard_normal(shape)
+        name = key.rsplit("/", 1)[-1]
+        if name == "var":
+            v = 0.5 + 0.5 * np.abs(z)
+        elif name == "scale":
+            v = 1 + 0.1 * z
+        elif name == "logit_scale":
+            v = np.full(shape, np.log(1 / 0.07))
+        elif len(shape) >= 2:
+            v = z / np.sqrt(np.prod(shape[:-1]))
+        else:
+            v = 0.1 * z
+        out[key] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+def eval_shapes(init_fn) -> dict[str, tuple]:
+    """``{path: shape}`` of the JAX pytree ``init_fn(key)`` returns, sorted
+    by path, from ``jax.eval_shape``: no weights are made."""
+    import jax
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: v for key in tree for k, v in walk(tree[key], f"{prefix}/{key}").items()}
+        if isinstance(tree, (list, tuple)):
+            return {k: v for i, x in enumerate(tree) for k, v in walk(x, f"{prefix}/{i}").items()}
+        return {prefix.lstrip("/"): tuple(tree.shape)}
+
+    return dict(sorted(walk(jax.eval_shape(init_fn, jax.random.PRNGKey(0)), "").items()))
+
+
+def vision_configs(package) -> dict:
+    """``{name: CLIPConfig}`` of the vision fixture in ``package``'s
+    classes (``audio_residual_tpu`` or ``audio_residual_tpu_torch``)."""
+    import importlib
+
+    clip = importlib.import_module(f"{package}.models.clip")
+    vision = importlib.import_module(f"{package}.models.vision")
+    clip_text = importlib.import_module(f"{package}.models.clip_text")
+    out = {}
+    for name, kw in VISION_MODELS.items():
+        kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+        text = clip_text.ClipTextConfig(**VISION_TEXT, quick_gelu=kw.get("quick_gelu", False))
+        out[name] = clip.CLIPConfig(embed_dim=VISION_EMBED, vision=vision.VisionCfg(**kw),
+                                    text=text)
+    return out
+
+
+def vision_inputs(seed: int = VISION_SEED) -> dict[str, np.ndarray]:
+    """NHWC images of each model's size (2 each) and 3 CLIP token rows."""
+    rng = np.random.default_rng(seed + 1)
+    out = {f"images/{name}": rng.standard_normal(
+        (2, kw["image_size"], kw["image_size"], 3)).astype(np.float32)
+        for name, kw in VISION_MODELS.items()}
+    return {**out, "tokens": text_inputs("transformer", batch=3, seed=seed + 2)["input_ids"]}
+
+
+def vision_params(arrays: dict, name: str) -> dict:
+    """The JAX CLIP pytree (numpy leaves) of fixture model ``name``: its
+    stored leaf shapes, values from the seed."""
+    shapes = json.loads(str(arrays[f"shapes/{name}"]))
+    return _unflatten(seeded_tree_leaves({k: tuple(v) for k, v in shapes.items()},
+                                         VISION_SEED))
+
+
+def build_vision() -> dict[str, np.ndarray]:
+    """The vision fixture's arrays: ``config``, ``shapes/<model>`` (the JAX
+    pytree's leaf paths and shapes, JSON), the inputs and
+    ``out/<model>/{image,text,logit_scale}``: ``clip_apply``'s outputs."""
+    import jax
+    import jax.numpy as jnp
+
+    from audio_residual_tpu.models import clip
+
+    arrays = {"config": np.asarray(json.dumps({"models": VISION_MODELS, "text": VISION_TEXT,
+                                               "embed": VISION_EMBED, "seed": VISION_SEED})),
+              **vision_inputs()}
+    for name, cfg in vision_configs("audio_residual_tpu").items():
+        shapes = eval_shapes(functools.partial(clip.init_clip_params, cfg=cfg))
+        arrays[f"shapes/{name}"] = np.asarray(json.dumps(shapes))
+        params = jax.tree.map(jnp.asarray, vision_params(arrays, name))
+        out = jax.jit(functools.partial(clip.clip_apply, cfg=cfg))(
+            params, jnp.asarray(arrays[f"images/{name}"]), jnp.asarray(arrays["tokens"]))
+        arrays.update({f"out/{name}/{k}": np.asarray(v)
+                       for k, v in zip(VISION_OUTPUT_KEYS, out)})
+    return arrays
+
+
+def run_port_vision(arrays: dict, device) -> dict[str, dict[str, np.ndarray]]:
+    """The port's ``clip_apply`` outputs of each vision fixture model (NCHW
+    images). Imports torch and the port only."""
+    import torch
+
+    from audio_residual_tpu_torch.models import clip
+    from audio_residual_tpu_torch.models.convert import load_jax_params
+
+    out = {}
+    for name, cfg in vision_configs("audio_residual_tpu_torch").items():
+        model = load_jax_params(clip.build_clip(cfg, device=device),
+                                vision_params(arrays, name))
+        images = torch.from_numpy(arrays[f"images/{name}"].transpose(0, 3, 1, 2).copy())
+        with torch.no_grad():
+            o = clip.clip_apply(model, images.to(model.logit_scale.device), arrays["tokens"])
+        out[name] = {k: v.float().cpu().numpy() for k, v in zip(VISION_OUTPUT_KEYS, o)}
+    return out
+
+
 FIXTURES = {"tiny": (PATH, build), "wide": (WIDE_PATH, build_wide),
             "train": (TRAIN_PATH, build_train), "clap": (CLAP_PATH, build_clap),
-            "pann": (PANN_PATH, build_pann), "fusion": (FUSION_PATH, build_fusion)}
+            "pann": (PANN_PATH, build_pann), "fusion": (FUSION_PATH, build_fusion),
+            "vision": (VISION_PATH, build_vision)}
 
 
 def main(names=()) -> None:
