@@ -144,6 +144,13 @@ class CLAP(CLAPAudio):
         self.logit_scale_a = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.logit_scale_t = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
+    def forward(self, audio_batch, input_ids, attention_mask=None, **kw) -> dict:
+        """:func:`clap_apply` of this model. The train step and validation
+        call the model rather than ``clap_apply``, so that the hooks of a
+        sharded model (``parallel/fsdp.py``) gather its weights around the
+        call."""
+        return clap_apply(self, audio_batch, input_ids, attention_mask, **kw)
+
 
 def build_clap_audio(cfg: CLAPConfig = CLAPConfig(), *, seed: int = 0,
                      device: str | torch.device | None = None) -> CLAPAudio:

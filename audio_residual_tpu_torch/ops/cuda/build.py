@@ -21,9 +21,10 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["build_all", "library", "bind", "check", "stream_of", "ptr",
-           "check_cuda_inputs"]
+           "check_cuda_inputs", "set_build_dir"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -85,6 +86,19 @@ def build_all() -> dict[str, float]:
     return seconds
 
 
+def set_build_dir(path) -> None:
+    """Build and load the libraries in ``path`` from now on. Raises when a
+    library is already loaded from another directory: the process would
+    run kernels from two places."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    with _lock:
+        if _libs and path != BUILD_DIR.resolve():
+            raise RuntimeError(f"kernels already loaded from {BUILD_DIR}; set the build "
+                               "directory before the first kernel runs")
+        BUILD_DIR = path
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
@@ -125,7 +139,14 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = ()) -> None:
-    """Device, dtype, contiguity and autograd checks shared by the wrappers."""
+    """Device, dtype, contiguity and autograd checks shared by the wrappers.
+    A sharded tensor (``DTensor``) is refused: its ``data_ptr()`` is this
+    rank's shard, not the whole weight."""
+    sharded = [name for name, t in tensors.items() if isinstance(t, DTensor)]
+    if sharded:
+        raise ValueError(f"{what}: {', '.join(sharded)} DTensor; the kernel needs whole "
+                         "tensors (run a sharded model through its forward, where FSDP "
+                         "gathers its weights)")
     device = None
     for name, t in tensors.items():
         if t is None:

@@ -14,8 +14,11 @@ so a resume at an epoch boundary replays the epochs it skips exactly; a toy
 set without ``--train-data`` is written in the run's log directory.
 ``--dataset-type auto`` (the default) and ``webdataset`` read local tar
 shards through ``data/shards.py`` (:func:`build_data`), the JAX package's
-batches bit for bit. ``--fsdp`` needs ``parallel/fsdp.py``, which is not
-ported yet (ROADMAP, slice 7c).
+batches bit for bit. ``--fsdp`` shards the parameters and the optimizer
+state over the ranks (``parallel/fsdp.py``), a world of one process too,
+before the optimizer is built; its checkpoints are the unsharded files a run
+without it writes, and its validation runs on every rank, since a sharded
+forward is a collective.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 from audio_residual_tpu_torch.data.shards import ShardedAudioText, resolve_tar_paths, sample_prop
 from audio_residual_tpu_torch.models import factory
-from audio_residual_tpu_torch.models.clap import clap_apply
 from audio_residual_tpu_torch.parallel.distributed import init_distributed
+from audio_residual_tpu_torch.parallel.fsdp import fsdp_mesh, shard_model
 from audio_residual_tpu_torch.parallel.mesh import data_parallel_mesh, shard_batch
 from audio_residual_tpu_torch.training import checkpoints
 from audio_residual_tpu_torch.training.logger import AverageMeter, MetricLogger, setup_logging
@@ -182,7 +185,10 @@ def train_one_epoch(state: dict, step_fn, batches, *, epoch: int, mesh,
 def _run_validation(model, val_fn, args, mesh, compute_dtype, epoch, metric_logger) -> dict:
     """In-training validation (`train.py:266-501`, the generic-val branch):
     embed the whole val set, then ``clap_val_metrics`` over the full
-    similarity matrix and a ``results.jsonl`` record (the ``all`` group)."""
+    similarity matrix and a ``results.jsonl`` record (the ``all`` group;
+    none without ``metric_logger``). Under ``--fsdp`` every rank runs it and
+    takes rank 0's metrics, so that every rank makes the same checkpoint
+    decisions."""
     from audio_residual_tpu_torch.evaluate.metrics import clap_val_metrics
 
     keys = ("audio_features", "text_features", "audio_features_mlp", "text_features_mlp")
@@ -191,8 +197,8 @@ def _run_validation(model, val_fn, args, mesh, compute_dtype, epoch, metric_logg
     n = 0
     for i, batch in enumerate(val_fn()):
         b = {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items() if k in BATCH_KEYS}
-        out = clap_apply(model, {"waveform": b["waveform"]}, b["input_ids"],
-                         b.get("attention_mask"), compute_dtype=compute_dtype)
+        out = model({"waveform": b["waveform"]}, b["input_ids"], b.get("attention_mask"),
+                    compute_dtype=compute_dtype)
         for k in keys:
             feats[k].append(out[k].float().cpu().numpy())
         scale_a, scale_t = float(out["logit_scale_a"]), float(out["logit_scale_t"])
@@ -207,9 +213,14 @@ def _run_validation(model, val_fn, args, mesh, compute_dtype, epoch, metric_logg
                          mlp_loss=args.clap_mlploss or args.mlp_loss)
     metrics = {f"all/{k}": v for k, v in m.items()}
     metrics["epoch"] = epoch
+    if args.fsdp and mesh.world_size > 1:
+        shared = [metrics]
+        torch.distributed.broadcast_object_list(shared, src=0, group=mesh.group)
+        metrics = shared[0]
     logging.info("Eval Epoch: %d %s", epoch, "\t".join(
         f"{k}: {v:.4f}" for k, v in metrics.items() if isinstance(v, float)))
-    metric_logger.log({f"val/{k}": v for k, v in metrics.items()}, step=epoch)
+    if metric_logger is not None:
+        metric_logger.log({f"val/{k}": v for k, v in metrics.items()}, step=epoch)
     return metrics
 
 
@@ -241,11 +252,10 @@ def _optimizer(args, model, total_steps: int):
 def main(argv=None, *, device: str | None = None, tokenizer=None) -> dict:
     """The CLI. ``device``: None is the card of this process's local rank;
     ``"cpu"`` runs the plain versions on the CPU over gloo. ``tokenizer``
-    replaces ``load_default_tokenizer``."""
+    replaces ``load_default_tokenizer``. Under ``--fsdp`` in a world of one
+    process, the group it shards over is destroyed on return: the returned
+    state is for reading, not for further steps."""
     args = parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError("--fsdp needs parallel/fsdp.py, which is not ported yet "
-                                  "(ROADMAP, slice 7c)")
     np.random.seed(args.seed)
     world = init_distributed(device=device)
     dev = world["device"]
@@ -276,68 +286,84 @@ def main(argv=None, *, device: str | None = None, tokenizer=None) -> dict:
 
     steps_per_epoch = (total_samples or (args.train_num_samples or 1024)) // args.batch_size
     total_steps = max(steps_per_epoch * args.epochs, 1)
-    state = init_train_state(model, _optimizer(args, model, total_steps))
-    mesh = data_parallel_mesh(device=dev)
-    compute_dtype = torch.bfloat16 if args.precision in ("amp", "bf16", "fp16") else None
+    # a world of one process shards over a group of its own, destroyed on return
+    own_group = args.fsdp and not torch.distributed.is_initialized()
+    try:
+        if args.fsdp:
+            # before the optimizer, so that Adam's moments lie on the shards
+            mesh = shard_mesh = fsdp_mesh(dev)
+            shard_model(model, mesh)
+        else:
+            mesh, shard_mesh = data_parallel_mesh(device=dev), None
+        state = init_train_state(model, _optimizer(args, model, total_steps))
+        compute_dtype = torch.bfloat16 if args.precision in ("amp", "bf16", "fp16") else None
 
-    def step_fn_for(freeze_text: bool):
-        return make_train_step(model, state["optimizer"],
-                               mlp_loss=args.clap_mlploss or args.mlp_loss,
-                               compute_dtype=compute_dtype, freeze_text=freeze_text,
-                               remat=args.remat, weight_loss_kappa=args.kappa, mesh=mesh)
+        def step_fn_for(freeze_text: bool):
+            return make_train_step(model, state["optimizer"],
+                                   mlp_loss=args.clap_mlploss or args.mlp_loss,
+                                   compute_dtype=compute_dtype, freeze_text=freeze_text,
+                                   remat=args.remat, weight_loss_kappa=args.kappa,
+                                   mesh=None if args.fsdp else mesh, fsdp_mesh=shard_mesh)
 
-    step_fn = step_fn_for(args.freeze_text)
-    start_epoch = 0
-    if args.resume:
-        checkpoints.load_checkpoint(args.resume, state)
-        start_epoch = state["step"] // max(steps_per_epoch, 1)
-        logging.info("resumed from %s at epoch %d", args.resume, start_epoch)
+        step_fn = step_fn_for(args.freeze_text)
+        start_epoch = 0
+        if args.resume:
+            checkpoints.load_checkpoint(args.resume, state)
+            start_epoch = state["step"] // max(steps_per_epoch, 1)
+            logging.info("resumed from %s at epoch %d", args.resume, start_epoch)
 
-    metric_logger = MetricLogger(
-        log_base, tuple(filter(None, args.report_to.split(","))) if master else (),
-        wandb_kwargs={"project": "clap", "name": name, "notes": args.wandb_notes,
-                      "id": args.wandb_id, "resume": "allow" if args.wandb_id else None})
-    top_k = ({i: -np.inf for i in range(args.save_top_performance)}
-             if args.save_top_performance else {})
-    last_metrics: dict = {}
+        metric_logger = MetricLogger(
+            log_base, tuple(filter(None, args.report_to.split(","))) if master else (),
+            wandb_kwargs={"project": "clap", "name": name, "notes": args.wandb_notes,
+                          "id": args.wandb_id, "resume": "allow" if args.wandb_id else None})
+        top_k = ({i: -np.inf for i in range(args.save_top_performance)}
+                 if args.save_top_performance else {})
+        last_metrics: dict = {}
 
-    def validate(epoch):
-        return _run_validation(model, val_fn, args, mesh, compute_dtype, epoch, metric_logger)
+        def validate(epoch):
+            return _run_validation(model, val_fn, args, mesh, compute_dtype, epoch,
+                                   metric_logger if master else None)
 
-    if val_fn is not None and not args.no_eval and start_epoch == 0 and master:
-        last_metrics = validate(0)  # eval before training (`main.py:497-501`)
-    for epoch in range(start_epoch, args.epochs):
-        if (args.freeze_text_after >= 0 and epoch == args.freeze_text_after
-                and not args.freeze_text):
-            logging.info("Text parameters frozen from epoch %d", epoch)  # `main.py:510-513`
-            args.freeze_text = True
-            step_fn = step_fn_for(True)
-        train_one_epoch(state, step_fn, epochs_fn(epoch), epoch=epoch, mesh=mesh,
-                        generator=epoch_generator(args.seed, epoch),
-                        metric_logger=metric_logger if master else None,
-                        prefetch_factor=args.prefetch_factor)
-        completed = epoch + 1
-        if not master:
-            continue
-        if (val_fn is not None and not args.no_eval and args.val_frequency
-                and (completed % args.val_frequency == 0 or completed == args.epochs)):
-            last_metrics = validate(completed)
-            if args.save_top_performance and last_metrics:
-                # the mean of the metrics of the select metric and dataset
-                # (`main.py:526-534`)
-                picked = [v for k, v in last_metrics.items()
-                          if args.top_k_checkpoint_select_metric in k
-                          and args.top_k_checkpoint_select_dataset in k]
-                if picked:
-                    top_k = checkpoints.update_top_k_performance(
-                        float(np.mean(picked)), top_k, ckpt_dir, state, epoch=epoch, name=name)
-        if completed % args.save_frequency == 0:
-            checkpoints.save_checkpoint(ckpt_dir, state, epoch, name)
-        if args.save_most_recent:
-            checkpoints.save_most_recent(ckpt_dir, state, epoch, name)
+        # a sharded model's forward and state dict are collectives: every rank
+        # validates and gathers the checkpoints, rank 0 writes
+        evaluates = master or args.fsdp
+        if val_fn is not None and not args.no_eval and start_epoch == 0 and evaluates:
+            last_metrics = validate(0)  # eval before training (`main.py:497-501`)
+        for epoch in range(start_epoch, args.epochs):
+            if (args.freeze_text_after >= 0 and epoch == args.freeze_text_after
+                    and not args.freeze_text):
+                logging.info("Text parameters frozen from epoch %d", epoch)  # `main.py:510-513`
+                args.freeze_text = True
+                step_fn = step_fn_for(True)
+            train_one_epoch(state, step_fn, epochs_fn(epoch), epoch=epoch, mesh=mesh,
+                            generator=epoch_generator(args.seed, epoch),
+                            metric_logger=metric_logger if master else None,
+                            prefetch_factor=args.prefetch_factor)
+            completed = epoch + 1
+            if not evaluates:
+                continue
+            if (val_fn is not None and not args.no_eval and args.val_frequency
+                    and (completed % args.val_frequency == 0 or completed == args.epochs)):
+                last_metrics = validate(completed)
+                if args.save_top_performance and last_metrics:
+                    # the mean of the metrics of the select metric and dataset
+                    # (`main.py:526-534`)
+                    picked = [v for k, v in last_metrics.items()
+                              if args.top_k_checkpoint_select_metric in k
+                              and args.top_k_checkpoint_select_dataset in k]
+                    if picked:
+                        top_k = checkpoints.update_top_k_performance(
+                            float(np.mean(picked)), top_k, ckpt_dir, state, epoch=epoch, name=name)
+            if completed % args.save_frequency == 0:
+                checkpoints.save_checkpoint(ckpt_dir, state, epoch, name)
+            if args.save_most_recent:
+                checkpoints.save_most_recent(ckpt_dir, state, epoch, name)
 
-    return {"state": state, "ckpt_dir": ckpt_dir, "steps": state["step"],
-            "metrics": last_metrics, "top_k": top_k, "log_dir": log_base}
+        return {"state": state, "ckpt_dir": ckpt_dir, "steps": state["step"],
+                "metrics": last_metrics, "top_k": top_k, "log_dir": log_base}
+    finally:
+        if own_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

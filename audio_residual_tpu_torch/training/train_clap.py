@@ -26,9 +26,12 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from audio_residual_tpu_torch.models.clap import clap_apply
+from audio_residual_tpu_torch.parallel.fsdp import (SHARDED_GROUP_SUFFIX, average_replicated_grads,
+                                                    is_sharded)
 from audio_residual_tpu_torch.training.losses import clip_loss
 from audio_residual_tpu_torch.training.scheduler import cosine_lr
 from audio_residual_tpu_torch.utils.misc import do_mixup
@@ -63,14 +66,22 @@ def decay_mask(model: nn.Module) -> dict[str, bool]:
 
 def _groups(named, *, label: str, lr: float, weight_decay: float, warmup: int,
             total_steps: int, skip_scheduler: bool, **extra) -> list[dict]:
-    decay = [p for n, p in named if p.ndim >= 2]
-    no_decay = [p for n, p in named if p.ndim < 2]
+    """The decayed and the undecayed parameters, each split once more into
+    plain and sharded ones (``DTensor``, ``parallel/fsdp.py``): a foreach
+    update takes no mix of the two. A checkpoint merges the split back
+    (``fsdp.full_state_dict``), so its file is the unsharded model's."""
     sched = dict(lr=lr, base_lr=lr, warmup=warmup, total_steps=total_steps,
                  skip_scheduler=skip_scheduler, **extra)
-    return [g for g in ({"params": decay, "weight_decay": weight_decay,
-                         "label": f"{label}/decay", **sched},
-                        {"params": no_decay, "weight_decay": 0.0,
-                         "label": f"{label}/no_decay", **sched}) if g["params"]]
+    groups = []
+    for kind, decayed, wd in (("decay", True, weight_decay), ("no_decay", False, 0.0)):
+        for sharded in (False, True):
+            params = [p for _, p in named
+                      if (p.ndim >= 2) == decayed and isinstance(p, DTensor) == sharded]
+            if params:
+                groups.append({"params": params, "weight_decay": wd,
+                               "label": f"{label}/{kind}" + (SHARDED_GROUP_SUFFIX if sharded else ""),
+                               **sched})
+    return groups
 
 
 def _optimizer(name: str, groups: list[dict]) -> torch.optim.Optimizer:
@@ -169,33 +180,41 @@ class ClapTowers(nn.Module):
         self.remat = remat
         self.bn_group = bn_group
 
-    def _apply(self, waveform, input_ids, attention_mask, seed):
+    def _forward(self, waveform, input_ids, attention_mask, seed):
         dev = self.model.logit_scale_a.device
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
-        return clap_apply(self.model, {"waveform": waveform}, input_ids, attention_mask,
-                          train=True, generator=gen, bn_group=self.bn_group,
+        return self.model({"waveform": waveform}, input_ids, attention_mask, train=True,
+                          generator=gen, bn_group=self.bn_group,
                           compute_dtype=self.compute_dtype)
 
     def forward(self, waveform, input_ids, attention_mask=None, seed: int | None = None):
         if self.remat:
             from torch.utils.checkpoint import checkpoint
 
-            return checkpoint(self._apply, waveform, input_ids, attention_mask, seed,
+            return checkpoint(self._forward, waveform, input_ids, attention_mask, seed,
                               use_reentrant=False)
-        return self._apply(waveform, input_ids, attention_mask, seed)
+        return self._forward(waveform, input_ids, attention_mask, seed)
 
 
 def grad_norm(params) -> torch.Tensor:
     """The global L2 norm of the parameters' gradients (optax's
-    ``global_norm``)."""
+    ``global_norm``). A sharded gradient (``DTensor``) counts in full: its
+    shards' squares are summed over its mesh."""
     grads = [p.grad for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(plain)))
+    if not sharded:
+        return norm
+    sq = torch.stack(torch._foreach_norm([g.to_local() for g in sharded])).square().sum()
+    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group())
+    return (norm.square() + sq).sqrt()
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                     mlp_loss: bool = False, compute_dtype=None, freeze_text: bool = False,
                     mixup_alpha: float = 0.0, remat: bool = False,
-                    weight_loss_kappa: float = 0.0, mesh=None) -> Callable:
+                    weight_loss_kappa: float = 0.0, mesh=None, fsdp_mesh=None) -> Callable:
     """``step(state, batch, generator=None) -> (state, metrics)``.
 
     ``batch``: ``{"waveform" [B, T], "input_ids" [B, L], "attention_mask"
@@ -214,14 +233,30 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     of the batch (:func:`~audio_residual_tpu_torch.parallel.mesh.shard_batch`)
     through ``DistributedDataParallel``, the loss gathers the features of
     every rank and bn0 takes its statistics over every rank, so the step is
-    the single-process step of the whole batch."""
-    group = mesh.group if mesh is not None and mesh.world_size > 1 else None
+    the single-process step of the whole batch.
+
+    ``fsdp_mesh`` (:func:`audio_residual_tpu_torch.parallel.fsdp.fsdp_mesh`),
+    in place of ``mesh``, runs the same step on a model that
+    :func:`~audio_residual_tpu_torch.parallel.fsdp.shard_model` sharded
+    before ``optimizer`` was built: FSDP gathers the weights around the
+    model's forward and backward and reduce-scatters their gradients, the
+    replicated parameters' gradients are averaged over the ranks, and the
+    update runs on the shards."""
+    if mesh is not None and fsdp_mesh is not None:
+        raise ValueError("pass mesh (data parallel) or fsdp_mesh (sharded), not both")
+    dp = fsdp_mesh or mesh
+    group = dp.group if dp is not None and dp.world_size > 1 else None
     towers: nn.Module = ClapTowers(model, compute_dtype=compute_dtype, remat=remat,
                                    bn_group=group)
-    if group is not None:
+    if fsdp_mesh is not None:
+        if not is_sharded(model):
+            raise ValueError("fsdp_mesh needs a model sharded by parallel.fsdp.shard_model "
+                             "before its optimizer is built")
+    elif group is not None:
         from audio_residual_tpu_torch.parallel.mesh import replicate
 
         towers = replicate(mesh, towers)
+    # taken after sharding, which replaces each sharded parameter
     named = list(model.named_parameters())
     params = [p for _, p in named]
     text = [p for n, p in named if is_text_param(n)]
@@ -245,6 +280,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if fsdp_mesh is not None and group is not None:
+                average_replicated_grads(params, group)
             if freeze_text:
                 for p in text:
                     p.grad.zero_()

@@ -193,6 +193,27 @@ line):
                over the 1000 ImageNet classes with the first 2 of the 80
                templates (time); the vision JAX fixture ([fixture-vision]
                lines). No kernel is on the vision path.
+  11. fsdp   -- FSDP on the card: torch's version and fully_shard's keywords;
+               phase 8's model (CLAPModule(): HTSAT-tiny + RoBERTa-base) and
+               batch, 2 AdamW steps from one state with the same draws,
+               without FSDP and through make_train_step(fsdp_mesh=...) over
+               a one-rank NCCL group (parallel/fsdp.py), without and with
+               remat, golden and AMP: each step's launches phase 8's census
+               (twice it under remat); the losses and every
+               parameter against the step without FSDP (golden: losses rtol
+               1e-5, parameters atol 2e-5, rtol 1e-4; AMP: losses within 2e-2,
+               each tower's update cosine >= 0.999); each run's own peak
+               memory, and its step ms over 10 rounds of one step of each
+               run in turn (each FSDP run's differences from the step
+               without FSDP in full); check_ckpt_diff between checkpoints
+               before and after a --freeze-text step (every parameter its
+               gradient reached moved, every text parameter not);
+               measure_seconds against time_ms on one forward (5 trials,
+               medians within 1.1x; each trial's reps, the garbage
+               collector's passes and the card's clock beside, and the
+               device time of a forward); dryrun_multichip over every
+               card, stages 1, 2 and 2b, one process a card (their
+               records as printed).
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -211,6 +232,13 @@ import sys
 import time
 
 import numpy as np
+
+try:  # the card's timing helpers; outside a checkout main() stops before any use
+    from audio_residual_tpu_torch.utils.profiling import (device_busy_ms, device_profile,
+                                                          profile_until, time_ms)
+except ModuleNotFoundError as e:
+    if e.name != "audio_residual_tpu_torch":  # a fault inside the package: say so
+        raise
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 32
@@ -282,24 +310,6 @@ GOLDEN_KERNELS = {"logmel_tf32x3_kernel", "gemm_tf32x3_kernel", "attention_core_
 
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings, after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return statistics.median(ts)
 
 
 class KernelStats:
@@ -976,22 +986,6 @@ def golden_attention_launches(kernel, label, call, r, c) -> None:
         tf32x3_peak_share=3 * ops * 1e3 / gemm_ms / PEAK["tf32"] if gemm_ms else None)
 
 
-def kernel_group(name: str) -> str:
-    """The port's kernels by role; everything else is PyTorch's."""
-    for key, group in (("gemm_kernel<", "bf16 GEMM (TMA + wgmma)"),
-                       ("gemm_tf32x3_kernel",
-                        "3xTF32 GEMM (golden qkv, proj, fc1, fc2; ResiDual)"),
-                       ("attention_core_kernel", "attention core (golden)"),
-                       ("window_attention_wgmma", "K2/K4/K5 qkv + attention, AMP (TMA + wgmma)"),
-                       ("add_layernorm_kernel", "LayerNorm"),
-                       ("ffn_cluster_kernel", "K3 FFN, AMP (clustered TMA + wgmma)"),
-                       ("logmel_wgmma_kernel", "K1 log-mel, AMP (wgmma)"),
-                       ("logmel_tf32x3_kernel", "K1 log-mel, golden (3xTF32 wgmma)")):
-        if key in name:
-            return group
-    return "PyTorch (glue, casts)"
-
-
 def port_kernels(counts: dict) -> collections.Counter:
     """{kernel name: launches} -> launches of the port's kernels by role
     (``PORT_KERNELS``); any other kernel of the port under its full name."""
@@ -1003,68 +997,9 @@ def port_kernels(counts: dict) -> collections.Counter:
     return out
 
 
-def device_profile(fn):
-    """One ``torch.profiler`` window over ``fn()``: ({kernel group: device
-    ms}, {kernel name: device ms}, busy ms, span ms, {kernel name: launches}),
-    or None when the trace holds no device time. Busy is the union of kernel
-    intervals, span the first kernel start to the last kernel end."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return None
-    groups, names, counts = collections.Counter(), collections.Counter(), collections.Counter()
-    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
-    for start, end, name in spans:
-        groups[kernel_group(name)] += (end - start) / 1e3
-        names[name] += (end - start) / 1e3
-        counts[name] += 1
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start = start
-        cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    return groups, names, busy / 1e3, (cur_end - spans[0][0]) / 1e3, counts
-
-
-def profile_until(fn, done, label: str):
-    """Up to three ``device_profile`` windows over ``fn()`` until
-    ``done(window)`` holds (a window now and then drops kernel records): the
-    last window that held device time. Raises when none did, so a census
-    that measured nothing fails."""
-    prof = None
-    for _ in range(3):
-        window = device_profile(fn)
-        if window is None:
-            continue
-        prof = window
-        if done(prof):
-            break
-    if prof is None:
-        raise AssertionError(f"{label}: three profiler windows held no device time")
-    return prof
-
-
 def launches_named(prof, key: str) -> int:
     """Launches of the kernels whose name holds ``key`` in a profiler window."""
     return sum(n for name, n in prof[4].items() if key in name)
-
-
-def device_busy_ms(fn, reps: int = 5) -> float | None:
-    """Device time of one ``fn()``, the mean of ``reps`` in one profiler
-    window; None when the trace holds no device time."""
-    fn()
-    for _ in range(3):  # a window now and then comes back without device events
-        prof = device_profile(lambda: [fn() for _ in range(reps)])
-        if prof is not None:
-            return prof[2] / reps
-    return None
 
 
 def log_profile(phase: str, label: str, prof, card: str | None = None) -> None:
@@ -3106,6 +3041,309 @@ def phase_vision(dev, card: str) -> None:
     log(phase, phase_s=time.perf_counter() - started, card=card)
 
 
+FSDP_STEPS = 2  # steps of each run, from one state
+# (label, sharded, remat): the step without FSDP, and with it without and with
+# the recomputed forward
+FSDP_RUNS = (("plain", False, False), ("fsdp", True, False), ("fsdp_remat", True, True))
+FSDP_TOL = dict(atol=2e-5, rtol=1e-4)  # golden parameters (tests/test_torch_distributed.py)
+FSDP_LOSS_RTOL = {"f32": 1e-5, "bf16": TOL["bf16"]}
+# one step of each run in turn, the order reversed every other round, after
+# one untimed step each: the runs' step ms and the paired differences
+FSDP_TIMING_ROUNDS = 10
+# measure_seconds against time_ms on one forward: trials, each time_ms of 5
+# calls in a row (what measure_seconds times, at one length) then
+# measure_seconds; their medians' ratio at most this
+TIMING_TRIALS, TIMING_AGREEMENT = 5, 1.1
+
+
+def fsdp_step_times(runs: dict, batch: dict, mode: str, card: str) -> None:
+    """Phase 11's step ms: :data:`FSDP_TIMING_ROUNDS` rounds of one
+    CUDA-event-timed step of each run (``runs[label]["live"]``, its state
+    and step), alternating, so that the card's and the host's drift falls
+    on every run alike; each run's median into ``runs[label]["step_ms"]``,
+    and each FSDP run's per-round difference from the step without FSDP
+    logged in full, the negative ones too. Frees the runs' states."""
+    import torch
+
+    labels = [label for label, _, _ in FSDP_RUNS]
+
+    def one(label):
+        state, step = runs[label]["live"]
+        return time_ms(lambda: step(state, batch, torch.Generator().manual_seed(3)),
+                       reps=1, warmup=0)
+
+    for label in labels:
+        one(label)
+    times = {label: [] for label in labels}
+    for r in range(FSDP_TIMING_ROUNDS):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            times[label].append(one(label))
+    for label in labels:
+        runs[label]["step_ms"] = statistics.median(times[label])
+        runs[label].pop("live")
+        extra = {}
+        if label != "plain":
+            d = [a - b for a, b in zip(times[label], times["plain"])]
+            extra = dict(minus_plain_ms_median=statistics.median(d), minus_plain_ms_min=min(d),
+                         minus_plain_ms_max=max(d),
+                         rounds_slower_than_plain=sum(x > 0 for x in d))
+        log("fsdp", step_times=label, mode=mode, rounds=FSDP_TIMING_ROUNDS,
+            step_ms_median=runs[label]["step_ms"], step_ms_min=min(times[label]),
+            step_ms_max=max(times[label]), step_ms_each=json.dumps(times[label]), **extra,
+            card=card)
+
+
+def tower_cosines(a: dict, b: dict, init: dict, names) -> dict:
+    """Per tower, the cosine between two runs' updates of the parameters
+    ``names`` (state after minus ``init``)."""
+    ua = {n: a[n].double() - init[n].double() for n in names}
+    ub = {n: b[n].double() - init[n].double() for n in names}
+    return {tower: _cosine(ua, ub, [n for n in names if tower_of(n) == tower])
+            for tower in ("audio", "text", "logit_scales")}
+
+
+def freeze_text_check(model, state, batch, md, mesh) -> tuple[dict, dict]:
+    """A sharded model's checkpoint (its unsharded state dict, returned),
+    one ``freeze_text`` step with a fresh AdamW without decay, a second
+    checkpoint, and ``check_ckpt_diff`` between the two: every parameter the
+    step's gradient reached must move, every text parameter stay."""
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from audio_residual_tpu_torch.training import checkpoints
+    from audio_residual_tpu_torch.training import train_clap as tc
+    from audio_residual_tpu_torch.utils.check_ckpt import check_ckpt_diff
+
+    with tempfile.TemporaryDirectory() as tmp:
+        before = checkpoints.save_checkpoint(tmp, state, 0, "fsdp")
+        sd = torch.load(before, map_location="cpu", weights_only=True)["state_dict"]
+        optimizer = tc.make_optimizer(model, **{**CONTRASTIVE_OPT, "weight_decay": 0.0})
+        step = tc.make_train_step(model, optimizer, compute_dtype=md, freeze_text=True,
+                                  fsdp_mesh=mesh)
+        step(tc.init_train_state(model, optimizer), batch, torch.Generator().manual_seed(2))
+        reached = [n for n, p in model.named_parameters() if float(
+            (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad).abs().max()) > 0]
+        after = checkpoints.save_checkpoint(tmp, {"model": model, "optimizer": optimizer,
+                                                  "step": 1}, 1, "fsdp")
+        diffs = check_ckpt_diff(before, after, verbose=False)
+    text = [n for n, _ in model.named_parameters() if tc.is_text_param(n)]
+    moved = [n for n in reached if diffs[n] > 0]
+    still = [n for n in text if diffs[n] == 0]
+    ok = bool(reached) and len(moved) == len(reached) and len(still) == len(text) and bool(text)
+    return sd, dict(keys=len(diffs), reached=len(reached), moved=len(moved), text=len(text),
+                    text_unchanged=len(still), ok=ok)
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """The Python garbage collector's passes during the block: a list,
+    filled as they end, of ``[generation, ms]``."""
+    import gc
+
+    seen, start = [], []
+
+    def note(phase, info):
+        if phase == "start":
+            start[:] = [time.perf_counter()]
+        elif start:
+            seen.append([info["generation"], (time.perf_counter() - start[0]) * 1e3])
+
+    gc.callbacks.append(note)
+    try:
+        yield seen
+    finally:
+        gc.callbacks.remove(note)
+
+
+def sm_clock() -> str:
+    """The card's SM clock and power draw now, as ``nvidia-smi`` reads
+    them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def phase_fsdp(dev, card: str) -> None:
+    """Phase 11: FSDP on the card (module docstring). Phase 8's model and
+    batch through ``make_train_step(fsdp_mesh=...)`` over a one-rank NCCL
+    group against the step without FSDP, golden and AMP; the dry run's
+    stages 1, 2 and 2b in a process of their own; the utilities. Any miss
+    raises."""
+    import copy
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import DTensor
+
+    from audio_residual_tpu_torch.dryrun import dryrun_multichip
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.parallel import fsdp
+    from audio_residual_tpu_torch.training import train_clap as tc
+    from audio_residual_tpu_torch.utils.profiling import measure_seconds
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+    from tests import torch_port_fixture as fx
+
+    phase = "fsdp"
+    started = time.perf_counter()
+    keywords = {k: k in inspect.signature(fully_shard).parameters
+                for k in ("shard_placement_fn", "ignored_params")}
+    log(phase, torch=torch.__version__, cuda=torch.version.cuda,
+        fully_shard_keywords=json.dumps(keywords), card=card)
+    if not all(keywords.values()):
+        raise AssertionError(f"fsdp: this torch's fully_shard lacks {keywords}")
+    tok = HashTokenizer(context_length=TEXT_CONTEXT)
+    base = CLAPModule(device=dev, seed=0, tokenizer=tok)
+    cfg = base.cfg
+    init = {k: v.detach().clone() for k, v in base.model.state_dict().items()}
+    batch = contrastive_batch(tok, dev)
+    mesh = fsdp.fsdp_mesh(dev)
+    try:
+        for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
+            want_census = {k: v for k, v in dict(fx.expected_launches(cfg.audio, train=True),
+                                                  gemm=TEXT_GEMMS if md is not None else 0
+                                                  ).items() if v}
+            runs = {}
+            for label, sharded, remat in FSDP_RUNS:
+                # the run's own peak: above what was resident before its
+                # model, the earlier runs of this mode (kept for the timing
+                # rounds) too
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                model = copy.deepcopy(base.model)
+                model.load_state_dict(init)
+                kw = {}
+                if sharded:
+                    fsdp.shard_model(model, mesh)
+                    kw["fsdp_mesh"] = mesh
+                optimizer = tc.make_optimizer(model, **CONTRASTIVE_OPT)
+                state = tc.init_train_state(model, optimizer)
+                step = tc.make_train_step(model, optimizer, compute_dtype=md, remat=remat, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                losses, norms, census, frozen = [], [], [], None
+                for i in range(FSDP_STEPS):
+                    launch_counts.clear()
+                    state, m = step(state, batch, torch.Generator().manual_seed(i))
+                    census.append(dict(launch_counts))
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - resident
+                if label == "fsdp":
+                    # the unsharded file a run without FSDP writes; then one
+                    # step with the text side frozen (--freeze-text), checked
+                    # on the two checkpoints
+                    sd, frozen = freeze_text_check(model, state, batch, md, mesh)
+                else:
+                    sd = {k: v.detach().to("cpu", copy=True) for k, v in (
+                        fsdp.full_state_dict(model)[0] if sharded else model.state_dict()
+                    ).items()}
+                runs[label] = dict(losses=losses, norms=norms, sd=sd, frozen=frozen, peak=peak,
+                                   params=[n for n, _ in model.named_parameters()],
+                                   sharded=sum(isinstance(p, DTensor)
+                                               for p in model.parameters()),
+                                   live=(state, step))
+                # the recomputed forward launches the kernels again in the backward
+                want = {k: v * (2 if remat else 1) for k, v in want_census.items()}
+                ok = all(c == want for c in census)
+                log(phase, run=label, mode=mode, steps=FSDP_STEPS, losses=json.dumps(losses),
+                    grad_norms=json.dumps(norms), launches=json.dumps(census),
+                    expected_each_step=json.dumps(want), census_ok=ok,
+                    sharded_params=runs[label]["sharded"],
+                    own_peak_allocated_gb=peak / 1e9, card=card)
+                if not ok:
+                    raise AssertionError(f"fsdp {mode} {label}: a step launched {census}, "
+                                         f"phase 8's census gives {want}")
+                del state, optimizer, step, model
+            fsdp_step_times(runs, batch, mode, card)
+            torch.cuda.empty_cache()
+            plain = runs["plain"]
+            names = plain["params"]
+            for label in ("fsdp", "fsdp_remat"):
+                run = runs[label]
+                loss_ok = bool(np.allclose(run["losses"], plain["losses"],
+                                           rtol=FSDP_LOSS_RTOL[mode], atol=0))
+                if md is None:
+                    bad = [n for n in plain["sd"] if not np.allclose(
+                        run["sd"][n].numpy(), plain["sd"][n].numpy(), **FSDP_TOL)]
+                    worst = max(names, key=lambda n: float(
+                        (run["sd"][n] - plain["sd"][n]).abs().max()))
+                    limit = f"atol={FSDP_TOL['atol']},rtol={FSDP_TOL['rtol']}"
+                    detail = {"worst_param": worst, "worst_max_abs_diff": float(
+                        (run["sd"][worst] - plain["sd"][worst]).abs().max())}
+                else:
+                    cos = tower_cosines(run["sd"], plain["sd"],
+                                        {n: init[n].cpu() for n in names}, names)
+                    bad = [t for t, c in cos.items() if c < GRAD_COS]
+                    limit = f"update cosine a tower >= {GRAD_COS}"
+                    detail = {"worst_tower": min(cos, key=cos.get),
+                              "update_cosines": json.dumps(cos)}
+                ok = (loss_ok and not bad and set(run["sd"]) == set(plain["sd"])
+                      and run["sharded"] > 0)
+                log(phase, check=f"{label} against plain, {mode}", losses_ok=loss_ok,
+                    loss_rtol=FSDP_LOSS_RTOL[mode],
+                    max_loss_rel_diff=max(abs(a - b) / abs(b) for a, b in
+                                          zip(run["losses"], plain["losses"])),
+                    params=len(names), params_limit=limit, params_out_of_bounds=len(bad),
+                    **detail, step_ms_plain=plain["step_ms"], step_ms=run["step_ms"],
+                    peak_gb_plain=plain["peak"] / 1e9, peak_gb=run["peak"] / 1e9, ok=ok,
+                    card=card)
+                if not ok:
+                    raise AssertionError(f"fsdp {mode}: the {label} step differs from the step "
+                                         f"without FSDP (out of bounds: {bad[:5]})")
+            log(phase, check_ckpt_diff=f"before -> after a --freeze-text step, {mode}",
+                **runs["fsdp"]["frozen"])
+            if not runs["fsdp"]["frozen"]["ok"]:
+                raise AssertionError(f"fsdp {mode}: check_ckpt_diff found a trained weight that "
+                                     "did not move or a frozen one that did")
+    finally:
+        dist.destroy_process_group()
+
+    # measure_seconds against time_ms on one zero-shot forward, in trials,
+    # with the card's clock and the device time of a forward beside them
+    with torch.no_grad():
+        args = (batch["waveform"], batch["input_ids"], batch["attention_mask"])
+
+        def forward(w, i, a):
+            return base.model({"waveform": w}, i, a)
+
+        busy = device_busy_ms(lambda: forward(*args))
+        in_a_row, by_two_lengths = [], []
+        for trial in range(TIMING_TRIALS):
+            clock = sm_clock()
+            in_a_row.append(time_ms(lambda: [forward(*args) for _ in range(5)],
+                                    reps=3, warmup=1) / 5)
+            attempts = []
+            with gc_pauses() as pauses:
+                by_two_lengths.append(measure_seconds(forward, args, iters=5,
+                                                      record=attempts) * 1e3)
+            log(phase, timing_trial=trial, time_ms_5_in_a_row=in_a_row[-1],
+                measure_seconds_ms=by_two_lengths[-1], ratio=by_two_lengths[-1] / in_a_row[-1],
+                attempts=json.dumps(attempts), gc_passes=json.dumps(pauses),
+                sm_clock_before=clock, sm_clock_after=sm_clock(), card=card)
+    ratio = statistics.median(by_two_lengths) / statistics.median(in_a_row)
+    ok = 1 / TIMING_AGREEMENT <= ratio <= TIMING_AGREEMENT
+    log(phase, timing="clap forward, f32, B=32", trials=TIMING_TRIALS,
+        time_ms_5_in_a_row_median=statistics.median(in_a_row),
+        measure_seconds_ms_median=statistics.median(by_two_lengths), ratio=ratio,
+        ratio_each=json.dumps([b / a for a, b in zip(in_a_row, by_two_lengths)]),
+        device_busy_ms=busy, limit=TIMING_AGREEMENT, ok=ok, card=card)
+    if not ok:
+        raise AssertionError("fsdp: measure_seconds and time_ms disagree on one forward")
+    del base
+    torch.cuda.empty_cache()
+
+    # the dry run: one process a card, its stage records as it prints them
+    n = torch.cuda.device_count()
+    summary = dryrun_multichip(n, stages=("1", "2", "2b"), timeout_s=600)
+    log(phase, dryrun=json.dumps(summary), phase_s=time.perf_counter() - started, card=card)
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None, run=None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include. ``run(arrays)`` -> ``{key:
@@ -3189,6 +3427,7 @@ def main() -> int:
     phase_towers(dev, card, stats)
     phase_shards(dev, card, stats)
     phase_vision(dev, card)
+    phase_fsdp(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)

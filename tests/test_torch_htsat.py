@@ -112,7 +112,8 @@ def test_port_imports_no_jax():
         "       'training.params', 'training.main', 'training.infer_demo', 'utils.misc',\n"
         "       'data.toy', 'parallel.distributed', 'parallel.mesh', 'ops.fusion',\n"
         "       'models.pann', 'data.datasets', 'native', 'training.lp_main',\n"
-        "       'evaluate.eval_zeroshot_classification']\n"
+        "       'evaluate.eval_zeroshot_classification', 'parallel.fsdp',\n"
+        "       'utils.profiling', 'utils.check_ckpt', 'utils.cache', 'dryrun']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -158,3 +158,107 @@ def train_batch(b: int = 4) -> dict:
     return {"waveform": (0.1 * r.standard_normal((b, fx.AUDIO_KW["clip_samples"])))
             .astype(np.float32), "input_ids": text["input_ids"],
             "attention_mask": text["attention_mask"]}
+
+
+def fsdp_worker(rank: int, world: int, steps: int) -> dict:
+    """``make_train_step`` over FSDP (``parallel/fsdp.py``) on ``world`` gloo
+    ranks on the CLAP fixture's model, each rank its shard of one global
+    batch: the losses and gradient norms; the unsharded model and optimizer
+    state dicts after ``steps`` steps (rank 0; empty on the others); each
+    sharded parameter's
+    placements and local shape and its Adam moments'; every replicated
+    parameter."""
+    from torch.distributed.tensor import DTensor
+
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.parallel import fsdp
+    from audio_residual_tpu_torch.parallel.mesh import shard_batch
+    from audio_residual_tpu_torch.training import train_clap as t_tc
+
+    from tests import torch_port_fixture as fx
+
+    model = t_clap.build_clap(fx.port_clap_config("roberta"), seed=0, device="cpu")
+    mesh = fsdp.fsdp_mesh("cpu")
+    fsdp.shard_model(model, mesh)
+    opt = t_tc.make_optimizer(model, lr=1e-4, warmup=1, total_steps=10, eps=1e-3,
+                              weight_decay=0.1)
+    state = t_tc.init_train_state(model, opt)
+    step = t_tc.make_train_step(model, opt, fsdp_mesh=mesh)
+    batch = shard_batch(mesh, train_batch())
+    losses, norms = [], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+
+    def where(t):
+        return [str(p) for p in t.placements], tuple(t.to_local().shape)
+
+    shards = {n: {"param": where(p), "moments": [where(opt.state[p][k])
+                                                 for k in ("exp_avg", "exp_avg_sq")]}
+              for n, p in model.named_parameters() if isinstance(p, DTensor)}
+    replicated = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not isinstance(p, DTensor)}
+    sd, optim_sd = fsdp.full_state_dict(model, opt)
+    return {"losses": losses, "grad_norms": norms, "state_dict": sd, "optimizer": optim_sd,
+            "shards": shards, "replicated": replicated}
+
+
+def narrow_create_model(*a, device=None, seed=0, **k):
+    """``factory.create_model`` of the CLI tests: the CLAP fixture's narrow
+    roberta model, HTSAT-tiny's config at the fixture's clip length."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import factory as t_factory
+
+    from tests import torch_port_fixture as fx
+
+    model = t_clap.build_clap(fx.port_clap_config("roberta"), seed=seed, device=device)
+    model_cfg = t_factory.get_model_config("HTSAT-tiny")
+    return model, fx.port_clap_config("roberta"), {
+        **model_cfg, "audio_cfg": {**model_cfg["audio_cfg"],
+                                   "clip_samples": fx.AUDIO_KW["clip_samples"]}}
+
+
+def fsdp_main_worker(rank: int, world: int, argv: list, resume_argv: list) -> dict:
+    """``training/main.py`` with ``--fsdp`` on ``world`` gloo ranks
+    (``factory.create_model`` swapped for :func:`narrow_create_model`): a
+    run from ``argv``, then a resumed one from ``resume_argv``; each one's
+    step count and checkpoint directory."""
+    import unittest.mock as mock
+
+    from audio_residual_tpu_torch.models import factory as t_factory
+    from audio_residual_tpu_torch.training import main as t_main
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    from tests import torch_port_fixture as fx
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    tok = HashTokenizer(vocab_size=1000, context_length=fx.CLAP_CONTEXT)
+    out = {}
+    with mock.patch.object(t_factory, "create_model", narrow_create_model):
+        for key, args in (("run", argv), ("resumed", resume_argv)):
+            res = t_main.main(args, device="cpu", tokenizer=tok)
+            out[key] = {"steps": res["steps"], "ckpt_dir": res["ckpt_dir"]}
+    return out
+
+
+def assert_moments_close(got: dict, want: dict) -> None:
+    """Two optimizer states, ``{key: {moment: tensor}}`` with the same keys:
+    each moment within rtol 1e-4 and an atol of 1e-4 of its own largest
+    magnitude, or of a millionth of the largest of its kind over all keys
+    where that is more (a gradient zero in exact arithmetic, such as an
+    attention key bias's, leaves a moment of rounding noise alone). A
+    moment on another parameter is off by its whole scale."""
+    import numpy as np
+
+    assert got.keys() == want.keys()
+    kinds = {k for m in want.values() for k in m if k != "step"}
+    top = {k: max(float(m[k].abs().max()) for m in want.values() if k in m) for k in kinds}
+    for key, moments in want.items():
+        assert got[key].keys() == moments.keys(), key
+        for k, v in moments.items():
+            assert got[key][k].shape == v.shape, (key, k)
+            floor = 1e-6 * top[k] if k in top else 0.0
+            np.testing.assert_allclose(got[key][k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-4 * max(float(v.abs().max()), floor),
+                                       err_msg=f"{key} {k}")
