@@ -23,7 +23,7 @@ from audio_residual_tpu_torch.evaluate.retrieval import evaluate_retrieval, sele
 from audio_residual_tpu_torch.module import CLAPModule
 from audio_residual_tpu_torch.training.logger import setup_logging
 
-__all__ = ["read_params_txt", "main"]
+__all__ = ["read_params_txt", "parse_args", "main"]
 
 
 def read_params_txt(path: str) -> dict:
@@ -37,9 +37,8 @@ def read_params_txt(path: str) -> dict:
     return out
 
 
-def main(argv=None, *, tokenizer=None) -> dict:
-    """The CLI -> ``{"history": [metrics of each checkpoint], "best": ...}``.
-    ``tokenizer`` replaces ``load_default_tokenizer``."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments."""
     p = argparse.ArgumentParser()
     p.add_argument("--ckpt-dir", default=None, help="sweep every epoch_* checkpoint")
     p.add_argument("--pretrained", default=None, help="single checkpoint")
@@ -54,7 +53,13 @@ def main(argv=None, *, tokenizer=None) -> dict:
     p.add_argument("--out", default=None)
     p.add_argument("--device", default=None, help="'cpu' for the plain versions; the card "
                                                   "by default")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None, *, tokenizer=None) -> dict:
+    """The CLI -> ``{"history": [metrics of each checkpoint], "best": ...}``.
+    ``tokenizer`` replaces ``load_default_tokenizer``."""
+    args = parse_args(argv)
 
     setup_logging()
     if args.params_txt:

@@ -20,14 +20,11 @@ from audio_residual_tpu_torch.evaluate.zero_shot import evaluate_zeroshot
 from audio_residual_tpu_torch.module import CLAPModule
 from audio_residual_tpu_torch.training.logger import setup_logging
 
-__all__ = ["main"]
+__all__ = ["parse_args", "main"]
 
 
-def main(argv=None, *, device: str | None = None, tokenizer=None, compute_dtype=None) -> dict:
-    """The CLI; ``device``: None is the card, ``"cpu"`` the plain versions on
-    the CPU; ``tokenizer`` replaces ``load_default_tokenizer``;
-    ``compute_dtype`` is the module's AMP mode. Returns ``{checkpoint or
-    "init": metrics}``."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments."""
     p = argparse.ArgumentParser()
     p.add_argument("--amodel", default="HTSAT-tiny")
     p.add_argument("--tmodel", default="roberta")
@@ -37,7 +34,15 @@ def main(argv=None, *, device: str | None = None, tokenizer=None, compute_dtype=
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--enable-fusion", action="store_true")
     p.add_argument("--out", default=None, help="write metrics json here")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None, *, device: str | None = None, tokenizer=None, compute_dtype=None) -> dict:
+    """The CLI; ``device``: None is the card, ``"cpu"`` the plain versions on
+    the CPU; ``tokenizer`` replaces ``load_default_tokenizer``;
+    ``compute_dtype`` is the module's AMP mode. Returns ``{checkpoint or
+    "init": metrics}``."""
+    args = parse_args(argv)
 
     setup_logging()
     module = CLAPModule(enable_fusion=args.enable_fusion, amodel=args.amodel, tmodel=args.tmodel,

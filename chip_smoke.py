@@ -214,6 +214,31 @@ line):
                device time of a forward); dryrun_multichip over every
                card, stages 1, 2 and 2b, one process a card (their
                records as printed).
+  12. experiments -- the paper's experiment drivers
+               (audio_residual_tpu_torch/examples/), golden f32. 12a:
+               full_workflow.main(["--size", "full"]) at its defaults
+               (HTSAT-tiny + RoBERTa-base, 5 classes, 2 folds, 32 clips a
+               split of 240 000 samples repeat-padded to 480 000, 16
+               epochs, ResiDual at layer 3, anchored text): each stage's
+               seconds, wrapper launches and port kernels in a
+               torch.profiler window (CUDA activity); every learning check
+               printed; asserted: λ moved, the loss finite, the two npz and
+               two pkl, K1-K4 launched and K5 not (counts set to 0 before
+               main, read after). 12b: the baseline eval of fold 0 and one
+               λ epoch (one Adam step) through the kernels and under
+               plain_kernels(), the same weights: predictions equal,
+               similarities, λ and the loss of fold 0's first batch within
+               atol 2e-3, rtol 1e-3, and λ's gradient on that batch within
+               GRAD_REL (max relative error; λ after one Adam step sees
+               only the gradient's signs). 12c: drivers
+               1-3 through CLAPModule() (seed 0) on a seeded ESC-50 tree
+               (esc50.csv and the audio directory, 5 folds, 50 classes x 2
+               clips of 5 s at 48 kHz): analyze_clap_attention
+               --max-batches 2, apply_residual_to_clap --layers 0 --epochs
+               2, evaluate_and_compare --epochs 2; each one's files (the
+               CSV, 5 PCA pickles, 15 npz, ESC50_table.json). 12d:
+               perf_breakdown.main at B = 32 (AMP), its PERF_BREAKDOWN line
+               beside the card's name and power limit.
 Then one JSON line of per-kernel numbers (bf16, summed over one forward of
 each main path: ``launches`` is the sum of the two paths' counts), the card
 line, and the final ``{"ok": true, "device": ...}`` line. Imports nothing of
@@ -3344,6 +3369,248 @@ def phase_fsdp(dev, card: str) -> None:
     log(phase, dryrun=json.dumps(summary), phase_s=time.perf_counter() - started, card=card)
 
 
+WORKFLOW_KERNELS = ("fused_logmel", "fused_window_attention", "fused_residual_ffn",
+                    "fused_swin_block")  # K1-K4: each launched by phase 12's workflow, K5 never
+ESC50_A_CLASS = 2  # 12c's tree: clips a class (50 classes, 5 folds)
+ESC50_CLIP = 240000  # 5 s at 48 kHz: no resample on the host
+PERF_BATCH = B  # 12d: perf_breakdown's batch
+
+
+def workflow_stage(stages: dict, name: str, fn):
+    """``fn`` wrapped to add, to ``stages[name]``, its seconds (synchronised),
+    the launches its wrappers counted and the port's kernels a
+    ``torch.profiler`` window (CUDA activity) saw, by CUDA kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_residual_tpu_torch.ops.cuda import launch_counts
+
+    def spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = collections.Counter(launch_counts)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        kernels = collections.Counter(e.name for e in prof.events()
+                                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        rec = stages.setdefault(name, {"calls": 0, "s": 0.0, "launches": collections.Counter(),
+                                       "census": collections.Counter()})
+        rec["calls"] += 1
+        rec["s"] += seconds
+        rec["launches"].update(collections.Counter(launch_counts) - before)
+        rec["census"].update(port_kernels(kernels))
+        return out
+
+    return spy
+
+
+def write_esc50_tree(root: str, rng) -> int:
+    """ESC-50's own layout (``DATASETS["ESC50"]``: ``esc50.csv`` and the audio
+    directory), all 50 classes, ``ESC50_A_CLASS`` seeded 5 s clips a class
+    at 48 kHz (PCM16 mono: a tone a class in noise) over the 5 folds."""
+    from audio_residual_tpu_torch.data.datasets import DATASETS
+
+    spec = DATASETS["ESC50"]
+    audio = os.path.join(root, spec["audio_dir"])
+    os.makedirs(audio)
+    os.makedirs(os.path.dirname(os.path.join(root, spec["csv_path"])))
+    t = np.arange(ESC50_CLIP) / 48000
+    rows = []
+    for c in range(N_CLASSES):
+        for k in range(ESC50_A_CLASS):
+            fold = 1 + (ESC50_A_CLASS * c + k) % 5
+            name = f"{fold}-{1000 * c + k}-A-{c}.wav"
+            x = 0.3 * np.sin(2 * np.pi * (100 + 60 * c) * t) + 0.05 * rng.standard_normal(t.size)
+            write_wav(os.path.join(audio, name), x[:, None], 48000)
+            rows.append(f"{name},{fold},{c},{spec['class_labels'][c]},False,{1000 * c + k},A")
+    with open(os.path.join(root, spec["csv_path"]), "w") as f:
+        f.write("filename,fold,target,category,esc10,src_file,take\n" + "\n".join(rows) + "\n")
+    return len(rows)
+
+
+def phase_experiments(dev, card: str) -> None:
+    """Phase 12: the paper's experiment drivers (``audio_residual_tpu_torch/
+    examples/``) on the card, golden f32. (a) ``full_workflow --size full``
+    at its defaults; (b) its baseline eval of fold 0, one λ epoch and λ's
+    gradient through the kernels against the plain versions; (c) drivers 1-3 on a
+    seeded ESC-50 tree through ``CLAPModule()``; (d) ``perf_breakdown`` at
+    B = 32."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from audio_residual_tpu_torch.evaluate import harness
+    from audio_residual_tpu_torch.examples import (analyze_clap_attention,
+                                                   apply_residual_to_clap,
+                                                   evaluate_and_compare, full_workflow,
+                                                   perf_breakdown)
+    from audio_residual_tpu_torch.ops.cuda import build, launch_counts
+    from audio_residual_tpu_torch.residual import analyze
+    from audio_residual_tpu_torch.residual.module import load_residual_params
+    from audio_residual_tpu_torch.training import linear_probe, train_residual
+
+    phase, started = "experiments", time.perf_counter()
+    # the drivers call enable_compile_cache(): keep the kernels built in phase 1
+    with mock.patch.dict(os.environ, {"ART_COMPILE_CACHE": str(build.BUILD_DIR),
+                                      "BENCH_BATCH": str(PERF_BATCH)}):
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) the whole experiment at full width
+            t0 = time.perf_counter()
+            model, cfg, _ = full_workflow.build_model("full", 0, None, dev)
+            log(phase, workflow="build_model full", model="HTSAT-tiny + RoBERTa-base",
+                s=time.perf_counter() - t0)
+            stages: dict = {}
+            spies = [(full_workflow, "anchored_text_embeds", "anchors"),
+                     (analyze, "compute_pca_components", "pca"),
+                     (train_residual, "train_and_evaluate_residual", "residual"),
+                     (train_residual, "evaluate_baseline_clap", "baseline"),
+                     (linear_probe, "train_and_eval_linear_head", "linear"),
+                     (harness, "visualize_eval_metrics", "harness"),
+                     (harness, "compare_variants", "harness")]
+            out_dir = os.path.join(tmp, "workflow")
+            with contextlib.ExitStack() as stack:
+                for mod, fn_name, stage in spies:
+                    stack.enter_context(mock.patch.object(
+                        mod, fn_name, workflow_stage(stages, stage, getattr(mod, fn_name))))
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                summary = full_workflow.main(["--size", "full", "--out-dir", out_dir],
+                                             model=model)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                total = collections.Counter(launch_counts)
+            if sum((rec["launches"] for rec in stages.values()), collections.Counter()) != total:
+                raise AssertionError(f"{phase}: launches outside the workflow's stages: {total}")
+            for stage, rec in stages.items():
+                log(phase, stage=stage, calls=rec["calls"], s=rec["s"],
+                    launches=json.dumps(dict(rec["launches"])),
+                    census=json.dumps(dict(rec["census"])), card=card)
+            log(phase, workflow="main", s=wall, launches=json.dumps(dict(total)),
+                summary=json.dumps(summary), card=card)
+            for check, ok in summary["checks"].items():
+                log(phase, learning_check=check, value=ok)
+            layer = summary["inject_layers"][0]
+            want_files = sorted([f"lambda_layer{layer}_evalfold_{i}.pkl" for i in range(2)]
+                                + [f"layers_{layer}_evalfold_{i}.npz" for i in range(2)])
+            problems = [k for k in WORKFLOW_KERNELS if not total[k]]
+            if total["wide_window_attention"]:
+                problems.append("wide_window_attention launched")
+            if not (summary["lambda_moved"] and summary["checks"]["loss_finite"]):
+                problems.append("λ did not move or the loss is not finite")
+            if summary["artifacts"]["npz"] != want_files:
+                problems.append(f"artifacts {summary['artifacts']['npz']}")
+            log(phase, structural="lambda_moved, loss_finite, 2 npz + 2 pkl, K1-K4 launched, "
+                "no K5", ok=not problems)
+            if problems:
+                raise AssertionError(f"{phase} workflow: {problems}")
+
+            # (b) the baseline eval of fold 0 and one λ epoch: kernels against
+            # the plain versions, the same weights
+            max_len = cfg.audio.clip_samples
+            folds, templates = full_workflow.synth_folds(5, 2, 32, max_len // 2, 0)
+            text = full_workflow.anchored_text_embeds(model, templates, max_len, wav_noise=0.05,
+                                                      anchor_noise=1.2, seed=0)
+            pca_path = os.path.join(out_dir, "pca", "SYNTH", f"layer_{layer}_evalfold_0")
+            residual = {layer: load_residual_params(pca_path, device=dev)}
+            runs = {}
+            for route in ("kernels", "plain"):
+                with plain_kernels() if route == "plain" else contextlib.nullcontext():
+                    launch_counts.clear()
+                    preds, targets, sims = train_residual.evaluate_zero_shot(
+                        model, folds[0][1](), text, max_len=max_len)
+                    trained, hist = train_residual.train_residual(
+                        model, folds[0][0], text, residual, epochs=1, lr=0.05, max_len=max_len)
+                    # λ's gradient on fold 0's first batch, as the epoch's
+                    # step takes it: tokens cached below the injected layer
+                    lam, frozen = train_residual._split_residual(residual)
+                    _, loss_fn = train_residual.make_zero_shot_step(
+                        model, text, frozen, train_residual.adam(lam, 0.05), max_len=max_len,
+                        start_layer=layer, tokens_input=True)
+                    tokens, y = train_residual.cache_prefix_tokens(
+                        model, folds[0][0](), layer, max_len=max_len)[0]
+                    loss, _ = loss_fn(lam, tokens, y)
+                    (grad,) = torch.autograd.grad(loss, [lam[layer]])
+                    torch.cuda.synchronize()
+                    runs[route] = (preds, sims, trained[layer]["lam"], hist, dict(launch_counts),
+                                   loss.detach(), grad)
+            (pk, sk, lk, hk, ck, fk, gk), (pp, sp, lp_, hp, cp, fp, gp) = (runs["kernels"],
+                                                                          runs["plain"])
+            top2 = np.sort(sp, axis=-1)[:, -2:]
+            log(phase, check="baseline fold 0 predictions, kernels against plain",
+                equal=bool((pk == pp).all()), min_top2_margin=float((top2[:, 1] - top2[:, 0]).min()),
+                launches_kernels=json.dumps(ck), launches_plain=json.dumps(cp))
+            if not (pk == pp).all() or cp:
+                raise AssertionError(f"{phase}: baseline predictions differ from the plain "
+                                     f"route's, or the plain route launched {cp}")
+            golden_check(phase, "baseline fold 0 similarities, kernels against plain",
+                         torch.from_numpy(sk), torch.from_numpy(sp), cos=False)
+            golden_check(phase, "λ-step loss, kernels against plain", fk[None], fp[None],
+                         cos=False)
+            rel = float((gk - gp).abs().max() / gp.abs().max())
+            ok = bool(torch.isfinite(gk).all()) and rel <= GRAD_REL
+            log(phase, check="λ-gradient of fold 0's first batch, kernels against plain",
+                grad_max_abs=float(gp.abs().max()), max_rel_err=rel,
+                limit=f"max_rel_err<={GRAD_REL}", ok=ok)
+            if not ok:
+                raise AssertionError(f"{phase}: the λ-gradient disagrees with the plain "
+                                     f"versions' (max_rel_err {rel})")
+            # Adam's first step moves each λ by about lr·sign(g): this check
+            # sees the gradient's signs, the one above its size
+            log(phase, check="one λ epoch, kernels against plain", loss_kernels=hk[0]["train_loss"],
+                loss_plain=hp[0]["train_loss"], lam_sign_flips=int(((lk - 1) * (lp_ - 1) < 0).sum()))
+            golden_check(phase, "λ after one epoch, kernels against plain", lk[None], lp_[None],
+                         cos=False)
+
+            # (c) the notebook drivers on a seeded ESC-50 tree, CLAPModule()
+            t0 = time.perf_counter()
+            root = os.path.join(tmp, "esc50")
+            clips = write_esc50_tree(root, np.random.default_rng(12))
+            log(phase, esc50_tree=clips, folds=5, classes=N_CLASSES, clip_samples=ESC50_CLIP,
+                sr=48000, write_s=time.perf_counter() - t0)
+            drivers = [
+                (analyze_clap_attention, ["--root", root, "--max-batches", "2",
+                                          "--save-dir", os.path.join(tmp, "pca_results")]),
+                (apply_residual_to_clap, ["--root", root, "--layers", "0", "--epochs", "2",
+                                          "--pca-path", os.path.join(tmp, "residual_pca")]),
+                (evaluate_and_compare, ["--root", root, "--epochs", "2", "--pca-path",
+                                        os.path.join(tmp, "residual_pca"), "--save-dir",
+                                        os.path.join(tmp, "eval")]),
+            ]
+            for driver, argv in drivers:
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                driver.main(argv)
+                torch.cuda.synchronize()
+                log(phase, driver=driver.__name__.rsplit(".", 1)[1], argv=" ".join(argv[2:]),
+                    s=time.perf_counter() - t0, launches=json.dumps(dict(launch_counts)),
+                    card=card)
+            want = ([os.path.join("pca_results", "ESC50-fold0.csv")]
+                    + [os.path.join("residual_pca", "ESC50", f"layer_0_evalfold_{i}")
+                       for i in range(5)]
+                    + [os.path.join("eval", "ESC50", v, f"{p}evalfold_{i}.npz")
+                       for v, p in (("Baseline", ""), ("ResiDual", "layers_0_"), ("Linear", ""))
+                       for i in range(5)]
+                    + [os.path.join("eval", "ESC50_table.json")])
+            missing = [f for f in want if not os.path.isfile(os.path.join(tmp, f))]
+            with open(os.path.join(tmp, "eval", "ESC50_table.json")) as f:
+                table = json.load(f)
+            log(phase, driver_files=len(want), missing=json.dumps(missing),
+                table=json.dumps({k: {m: v[m] for m in ("accuracy_mean", "folds") if m in v}
+                                  for k, v in table.items()}), ok=not missing)
+            if missing or set(table) != {"Baseline", "ResiDual", "Linear"}:
+                raise AssertionError(f"{phase}: the drivers did not write {missing} or the "
+                                     f"table's variants {sorted(table)}")
+
+        # (d) the per-stage breakdown
+        t0 = time.perf_counter()
+        line = perf_breakdown.main([], device=dev)
+        log(phase, perf_breakdown=json.dumps(line), s=time.perf_counter() - t0, card=card)
+    log(phase, phase_s=time.perf_counter() - started, card=card)
+
+
 def phase_fixture(path, phase: str, expected: dict | None = None, run=None) -> None:
     """A JAX golden fixture through the port's kernels, golden f32;
     ``expected``: launches the run must include. ``run(arrays)`` -> ``{key:
@@ -3428,6 +3695,7 @@ def main() -> int:
     phase_shards(dev, card, stats)
     phase_vision(dev, card)
     phase_fsdp(dev, card)
+    phase_experiments(dev, card)
 
     print(stats.json_line(launches), flush=True)
     print(card, flush=True)
