@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from audio_residual_tpu_torch import resolve_device
 from audio_residual_tpu_torch.ops import frontend, interpolate
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["featurize_batch", "fusion_frontend_config", "get_mel", "fusion_mel",
            "get_audio_features", "fusion_batch", "mel_audio_cfg", "DEFAULT_AUDIO_CFG"]
@@ -49,29 +50,30 @@ def featurize_batch(
     generator: torch.Generator | None = None,
 ) -> dict:
     """``[B, T] -> {"waveform": [B, max_len], "longer": [B] bool}``."""
-    b, t = wav.shape
-    if t > max_len:
-        longer = torch.ones(b, dtype=torch.bool, device=wav.device)
-        if data_truncating != "rand_trunc":
-            raise NotImplementedError(f"batched data_truncating={data_truncating!r}")
-        if starts is None:
-            starts = torch.randint(0, t - max_len + 1, (b,), generator=generator)
-        idx = starts.to(wav.device)[:, None] + torch.arange(max_len, device=wav.device)[None, :]
-        wav = torch.gather(wav, 1, idx)
-    elif t < max_len:
-        longer = torch.zeros(b, dtype=torch.bool, device=wav.device)
-        if data_filling == "repeatpad":
-            wav = wav.repeat(1, max_len // t)
-            wav = F.pad(wav, (0, max_len - wav.shape[1]))
-        elif data_filling == "pad":
-            wav = F.pad(wav, (0, max_len - t))
-        elif data_filling == "repeat":
-            wav = wav.repeat(1, max_len // t + 1)[:, :max_len]
+    with annotate("featurize"):
+        b, t = wav.shape
+        if t > max_len:
+            longer = torch.ones(b, dtype=torch.bool, device=wav.device)
+            if data_truncating != "rand_trunc":
+                raise NotImplementedError(f"batched data_truncating={data_truncating!r}")
+            if starts is None:
+                starts = torch.randint(0, t - max_len + 1, (b,), generator=generator)
+            idx = starts.to(wav.device)[:, None] + torch.arange(max_len, device=wav.device)[None, :]
+            wav = torch.gather(wav, 1, idx)
+        elif t < max_len:
+            longer = torch.zeros(b, dtype=torch.bool, device=wav.device)
+            if data_filling == "repeatpad":
+                wav = wav.repeat(1, max_len // t)
+                wav = F.pad(wav, (0, max_len - wav.shape[1]))
+            elif data_filling == "pad":
+                wav = F.pad(wav, (0, max_len - t))
+            elif data_filling == "repeat":
+                wav = wav.repeat(1, max_len // t + 1)[:, :max_len]
+            else:
+                raise NotImplementedError(f"data_filling {data_filling!r}")
         else:
-            raise NotImplementedError(f"data_filling {data_filling!r}")
-    else:
-        longer = torch.zeros(b, dtype=torch.bool, device=wav.device)
-    return {"waveform": wav, "longer": longer}
+            longer = torch.zeros(b, dtype=torch.bool, device=wav.device)
+        return {"waveform": wav, "longer": longer}
 
 
 def fusion_frontend_config(audio_cfg: dict) -> frontend.FrontendConfig:

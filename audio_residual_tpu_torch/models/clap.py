@@ -31,6 +31,7 @@ from audio_residual_tpu_torch.models.clip_text import (Transformer, add_text_emb
 from audio_residual_tpu_torch.models.htsat import HTSAT, HTSATConfig, htsat_apply
 from audio_residual_tpu_torch.models.pann import PANN, pann_apply
 from audio_residual_tpu_torch.models.roberta import Roberta, RobertaConfig, roberta_apply
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["CLAPConfig", "CLAPAudio", "CLAP", "build_clap_audio", "build_clap",
            "text_tower_width", "apply_projection", "apply_transform", "l2_normalize",
@@ -217,22 +218,23 @@ def encode_audio(model: CLAPAudio, batch, *, train: bool = False,
     only where a ResiDual ``lam`` requires grad (λ-training) or the caller
     made the weights trainable (``training/train_clap.py``); callers that
     only embed need no ``torch.no_grad()``, though it saves the check."""
-    if model.cfg.audio_model_type == "PANN":
-        if taps or residual or start_layer or stop_at_layer is not None or stop_at_image:
-            raise ValueError("taps/residual/start_layer/stop_at_layer are HTSAT-only")
-        out = pann_apply(model.audio_branch, batch, train=train, generator=generator)
-    else:
-        out = htsat_apply(model.audio_branch, batch, train=train, generator=generator,
-                          bn_group=bn_group, taps=taps, residual=residual,
-                          double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
-                          start_layer=start_layer, stop_at_layer=stop_at_layer,
-                          stop_at_image=stop_at_image)
-    if stop_at_layer is not None or stop_at_image:
+    with annotate("encode_audio"):
+        if model.cfg.audio_model_type == "PANN":
+            if taps or residual or start_layer or stop_at_layer is not None or stop_at_image:
+                raise ValueError("taps/residual/start_layer/stop_at_layer are HTSAT-only")
+            out = pann_apply(model.audio_branch, batch, train=train, generator=generator)
+        else:
+            out = htsat_apply(model.audio_branch, batch, train=train, generator=generator,
+                              bn_group=bn_group, taps=taps, residual=residual,
+                              double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
+                              start_layer=start_layer, stop_at_layer=stop_at_layer,
+                              stop_at_image=stop_at_image)
+        if stop_at_layer is not None or stop_at_image:
+            return out
+        proj = apply_projection(model, out["embedding"])
+        out["projected"] = proj
+        out["normalized"] = l2_normalize(proj)
         return out
-    proj = apply_projection(model, out["embedding"])
-    out["projected"] = proj
-    out["normalized"] = l2_normalize(proj)
-    return out
 
 
 def encode_text(model: CLAP, input_ids, attention_mask=None, *, normalize: bool = True,

@@ -81,6 +81,7 @@ from audio_residual_tpu_torch.ops.cuda.swin_block import fused_swin_block, split
 from audio_residual_tpu_torch.ops.cuda.window_attention import fused_window_attention
 from audio_residual_tpu_torch.ops.spec_augment import sample_spec_augment, spec_augment
 from audio_residual_tpu_torch.residual.module import residual_apply
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["HTSATConfig", "HTSAT_VARIANTS", "HTSAT", "reshape_wav2img", "window_attention",
            "TAPS", "drop_path", "sample_drop_path", "drop_path_rates", "fuse_1d"]
@@ -683,9 +684,10 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
             if compute_dtype is not None:
                 x = x.to(compute_dtype)
             frames_num = x.shape[1]
-            x = _patch_embed(model.patch_embed, x, cfg)
-            if compute_dtype is not None:
-                x = x.to(compute_dtype)
+            with annotate("htsat.patch_embed"):
+                x = _patch_embed(model.patch_embed, x, cfg)
+                if compute_dtype is not None:
+                    x = x.to(compute_dtype)
         else:
             # in the dtype they were cached in: under AMP the port's
             # PatchMerging hands the next layer f32 (the JAX package casts
@@ -701,12 +703,14 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
     if isinstance(batch, dict) and "mel_fusion" in batch:
         if stop_at_image:
             raise ValueError("stop_at_image supports non-fusion waveforms only")
-        x = _fusion_image(model, batch, train=train, generator=generator,
-                          compute_dtype=compute_dtype)
+        with annotate("htsat.frontend"):
+            x = _fusion_image(model, batch, train=train, generator=generator,
+                              compute_dtype=compute_dtype)
         frames_num = x.shape[1]
-        x = _patch_embed(model.patch_embed, x, cfg, longer=batch.get("longer"))
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
+        with annotate("htsat.patch_embed"):
+            x = _patch_embed(model.patch_embed, x, cfg, longer=batch.get("longer"))
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
         return _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
                                 double_ffn_compat=double_ffn_compat,
                                 compute_dtype=compute_dtype, start_layer=0,
@@ -722,25 +726,27 @@ def htsat_apply(model: HTSAT, batch, *, train: bool = False,
     if dft == "bf16x3":
         raise ValueError("dft_mode 'bf16x3': the split dot is a TPU-only workaround (Mosaic has "
                          "no Precision.HIGH) and is not carried over; use 'f32' or 'bf16'")
-    x = fused_logmel(wav.float().contiguous(), cfg.frontend_config, dft_mode=dft)
-    bn0_state = None
-    if train:
-        # batch statistics in f32 over [B, T, F], then SpecAugment, before
-        # the AMP cast (htsat.py:704-707)
-        x, bn0_state = model.bn0.train_forward(x, group=bn_group)
-        if generator is not None:
-            x = spec_augment(x, *sample_spec_augment(generator, x.shape, device=x.device))
-    else:
-        x = model.bn0(x)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    x = reshape_wav2img(x, cfg)
+    with annotate("htsat.frontend"):
+        x = fused_logmel(wav.float().contiguous(), cfg.frontend_config, dft_mode=dft)
+        bn0_state = None
+        if train:
+            # batch statistics in f32 over [B, T, F], then SpecAugment, before
+            # the AMP cast (htsat.py:704-707)
+            x, bn0_state = model.bn0.train_forward(x, group=bn_group)
+            if generator is not None:
+                x = spec_augment(x, *sample_spec_augment(generator, x.shape, device=x.device))
+        else:
+            x = model.bn0(x)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        x = reshape_wav2img(x, cfg)
     if stop_at_image:
         return {"image": x}
     frames_num = x.shape[1]
-    x = _patch_embed(model.patch_embed, x, cfg)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
+    with annotate("htsat.patch_embed"):
+        x = _patch_embed(model.patch_embed, x, cfg)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
     out = _layers_and_head(model, x, frames_num, taps=taps, residual=residual,
                            double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype,
                            start_layer=0, stop_at_layer=stop_at_layer, train=train,
@@ -792,52 +798,55 @@ def _layers_and_head(model: HTSAT, x: torch.Tensor, frames_num: int, *, taps=(),
     dpr = drop_path_rates(cfg)
     blk_idx = sum(cfg.depths[:start_layer])
     for i in range(start_layer, end_layer):
-        layer = model.layers[i]
-        res_i = residual.get(i) if residual is not None else None
-        resolution = cfg.layer_resolution(i)
-        layer_attns, layer_residuals = [], []
-        for j, blk in enumerate(layer.blocks):
-            rate = float(dpr[blk_idx])
-            masks = None
-            if train and generator is not None and rate > 0.0:
-                masks = tuple(sample_drop_path(generator, x.shape[0], rate, x.device)
-                              for _ in range(2))
-            x, probs, res_x = swin_block(
-                blk, x, resolution=resolution, nh=cfg.num_heads[i], window=cfg.window_size,
-                shift=0 if j % 2 == 0 else cfg.window_size // 2, residual_params=res_i,
-                double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype, taps=taps,
-                drop_path_rate=rate, train=train, drop_masks=masks,
-            )
-            blk_idx += 1
+        with annotate("htsat.layer", i):
+            layer = model.layers[i]
+            res_i = residual.get(i) if residual is not None else None
+            resolution = cfg.layer_resolution(i)
+            layer_attns, layer_residuals = [], []
+            for j, blk in enumerate(layer.blocks):
+                rate = float(dpr[blk_idx])
+                masks = None
+                if train and generator is not None and rate > 0.0:
+                    masks = tuple(sample_drop_path(generator, x.shape[0], rate, x.device)
+                                  for _ in range(2))
+                x, probs, res_x = swin_block(
+                    blk, x, resolution=resolution, nh=cfg.num_heads[i], window=cfg.window_size,
+                    shift=0 if j % 2 == 0 else cfg.window_size // 2, residual_params=res_i,
+                    double_ffn_compat=double_ffn_compat, compute_dtype=compute_dtype, taps=taps,
+                    drop_path_rate=rate, train=train, drop_masks=masks,
+                )
+                blk_idx += 1
+                if "attention" in taps:
+                    layer_attns.append(probs)
+                if "residual" in taps:
+                    layer_residuals.append(res_x)
+            if layer.downsample is not None:
+                with annotate("htsat.merge", i):
+                    x = _patch_merge(layer.downsample, x, resolution)
             if "attention" in taps:
-                layer_attns.append(probs)
+                tap_attn.append(torch.stack(layer_attns).mean(dim=0))
             if "residual" in taps:
-                layer_residuals.append(res_x)
-        if layer.downsample is not None:
-            x = _patch_merge(layer.downsample, x, resolution)
-        if "attention" in taps:
-            tap_attn.append(torch.stack(layer_attns).mean(dim=0))
-        if "residual" in taps:
-            tap_res.append(torch.cat(layer_residuals, dim=1))
+                tap_res.append(torch.cat(layer_residuals, dim=1))
     if stop_at_layer is not None:
         return {"tokens": x}
 
-    x = _ln(model.norm, x.float())
-    b, _, c = x.shape
-    nl = cfg.num_layers
-    sf = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[0]
-    st = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[1]
-    c_freq_bin = sf // cfg.freq_ratio
-    # regroup the chunk-folded frequency axis back into (freq, time)
-    x = x.reshape(b, cfg.freq_ratio, c_freq_bin, st, c)
-    x = x.permute(0, 2, 1, 3, 4).reshape(b, c_freq_bin, cfg.freq_ratio * st, c)
+    with annotate("htsat.head"):
+        x = _ln(model.norm, x.float())
+        b, _, c = x.shape
+        nl = cfg.num_layers
+        sf = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[0]
+        st = frames_num // (2 ** (nl - 1)) // cfg.patch_stride[1]
+        c_freq_bin = sf // cfg.freq_ratio
+        # regroup the chunk-folded frequency axis back into (freq, time)
+        x = x.reshape(b, cfg.freq_ratio, c_freq_bin, st, c)
+        x = x.permute(0, 2, 1, 3, 4).reshape(b, c_freq_bin, cfg.freq_ratio * st, c)
 
-    fine_grained = interpolate.repeat_frames(x.mean(dim=1), 8 * cfg.patch_stride[1])
-    latent = x.mean(dim=(1, 2))
-    with golden_convs():  # an f32 conv in both modes, as in JAX (`htsat.py:843-849`)
-        logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
-    logits_map = logits_map[:, :, 0].transpose(1, 2)  # [B, T', classes]
-    fpx = interpolate.repeat_frames(torch.sigmoid(logits_map), 8 * cfg.patch_stride[1])
+        fine_grained = interpolate.repeat_frames(x.mean(dim=1), 8 * cfg.patch_stride[1])
+        latent = x.mean(dim=(1, 2))
+        with golden_convs():  # an f32 conv in both modes, as in JAX (`htsat.py:843-849`)
+            logits_map = model.tscam_conv(x.permute(0, 3, 1, 2))  # [B, classes, 1, T']
+        logits_map = logits_map[:, :, 0].transpose(1, 2)  # [B, T', classes]
+        fpx = interpolate.repeat_frames(torch.sigmoid(logits_map), 8 * cfg.patch_stride[1])
     out = {
         "framewise_output": fpx,
         "clipwise_output": torch.sigmoid(logits_map.mean(dim=1)),

@@ -12,9 +12,11 @@ final cast to the store dtype passes it up), and each grad comes back in its
 input's dtype, as ``_fsb_bwd`` casts ``dx``. The backward launches no kernel.
 
 Each wrapper's ``*_autograd`` entry builds the :class:`Op` of its kernel and
-applies :class:`Recompute`; the wrapper takes that entry for CUDA tensors only
-when :func:`needs_graph` holds, so a forward without a tensor that requires
-grad launches the kernels directly and builds no graph.
+applies :class:`Recompute`, whose backward runs in the span
+``recompute.<kernel>`` (``utils/profiling.py::annotate``); the wrapper
+takes that entry for CUDA tensors only when :func:`needs_graph` holds, so a
+forward without a tensor that requires grad launches the kernels directly
+and builds no graph.
 """
 
 from __future__ import annotations
@@ -23,13 +25,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from audio_residual_tpu_torch.utils.profiling import annotate
+
 __all__ = ["Op", "Recompute", "needs_graph"]
 
 
 class Op(NamedTuple):
     """A kernel and its plain version, both ``f(*tensors) -> tensor`` on the
-    same positional tensors (None where an optional input is absent)."""
+    same positional tensors (None where an optional input is absent), and
+    the name of the backward's span, ``recompute.<launch_counts key>``."""
 
+    span: str
     kernel: Callable
     plain: Callable
 
@@ -52,7 +58,7 @@ class Recompute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
+        with annotate(ctx.op.span), torch.enable_grad():
             inputs = [t.detach().requires_grad_() if n else t
                       for t, n in zip(ctx.saved_tensors, need)]
             out = ctx.op.plain(*inputs)

@@ -27,6 +27,7 @@ from audio_residual_tpu_torch.ops import frontend as fe
 from audio_residual_tpu_torch.ops.common import mxu_round
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda.tf32x3 import split_tf32
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["fused_logmel", "logmel_plain", "check_tc_config", "tc_constants",
            "tf32x3_constants", "bf16_signal", "f32_signal"]
@@ -142,8 +143,14 @@ def fused_logmel(wav: torch.Tensor, cfg: fe.FrontendConfig, dft_mode: str | None
         raise ValueError(f"dft_mode {mode!r}: expected one of {sorted(DFT_MODES)}")
     if cfg.top_db is not None:
         raise ValueError("fused_logmel: top_db is not supported")
-    if wav.device.type == "cpu":
-        return logmel_plain(wav, cfg, mode)
+    with annotate("kernel.fused_logmel"):
+        if wav.device.type == "cpu":
+            return logmel_plain(wav, cfg, mode)
+        return _kernel(wav, cfg, mode)
+
+
+def _kernel(wav: torch.Tensor, cfg: fe.FrontendConfig, mode: str) -> torch.Tensor:
+    """The kernel of ``mode`` on a CUDA tensor: checks, one call, its count."""
     build.check_cuda_inputs("fused_logmel", {"wav": wav}, float_only=("wav",))
     if wav.ndim != 2:
         raise ValueError(f"fused_logmel: wav must be [B, T], got {tuple(wav.shape)}")

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
 from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["gemm", "gemm_plain", "gemm_autograd", "gemm_tf32x3", "gemm_tf32x3_plain"]
 
@@ -52,11 +53,12 @@ def gemm(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
     tensors take :func:`gemm_plain`; CUDA tensors with an input that
     requires grad (in grad mode) :func:`gemm_autograd`; on the card K and N
     must be multiples of 8."""
-    if a.device.type == "cpu":
-        return gemm_plain(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
-    if needs_graph(a, w, bias, col_scale, r1, r2):
-        return gemm_autograd(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
-    return _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+    with annotate("kernel.gemm"):
+        if a.device.type == "cpu":
+            return gemm_plain(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+        if needs_graph(a, w, bias, col_scale, r1, r2):
+            return gemm_autograd(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+        return _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
 
 
 def gemm_autograd(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
@@ -64,7 +66,7 @@ def gemm_autograd(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, 
     """:func:`gemm` under autograd: the kernel forward (the plain version for
     CPU tensors), :func:`gemm_plain`'s backward."""
     kernel = gemm_plain if a.device.type == "cpu" else _kernel
-    op = Op(lambda *t: kernel(*t[:4], gelu, *t[4:], out_dtype),
+    op = Op("recompute.gemm", lambda *t: kernel(*t[:4], gelu, *t[4:], out_dtype),
             lambda *t: gemm_plain(*t[:4], gelu, *t[4:], out_dtype))
     return Recompute.apply(op, a, w, bias, col_scale, r1, r2)
 
@@ -117,8 +119,14 @@ def gemm_tf32x3(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None,
     3xTF32, ``w`` split once per weight version; ``r2`` f32 or bf16. CPU
     tensors take :func:`gemm_tf32x3_plain`; on the card K must be a
     multiple of 4 and N of 8 (:func:`.tf32x3.gemm_plan`)."""
-    if a.device.type == "cpu":
-        return gemm_tf32x3_plain(a, w, bias, col_scale, gelu, r1, r2, a_sub)
+    with annotate("kernel.gemm_tf32x3"):
+        if a.device.type == "cpu":
+            return gemm_tf32x3_plain(a, w, bias, col_scale, gelu, r1, r2, a_sub)
+        return _tf32x3_kernel(a, w, bias, col_scale, gelu, r1, r2, a_sub)
+
+
+def _tf32x3_kernel(a, w, bias, col_scale, gelu, r1, r2, a_sub) -> torch.Tensor:
+    """The 3xTF32 kernel on CUDA tensors: checks, one call, its count."""
     if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[1]:
         raise ValueError(f"gemm_tf32x3: a must be [M, K] and w [N, K], got {tuple(a.shape)}, "
                          f"{tuple(w.shape)}")

@@ -39,6 +39,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     weight_map,
 )
 from audio_residual_tpu_torch.residual.module import residual_apply
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_autograd", "amp_plan",
            "FfnPlan", "residual_operands", "residual_inputs"]
@@ -174,14 +175,15 @@ def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | N
     """``x, a [R, C]`` -> post-block rows ``[R, C]``. CPU tensors take
     :func:`residual_ffn_plain`; CUDA tensors with an input that requires
     grad (in grad mode) take :func:`residual_ffn_autograd`."""
-    if x.device.type == "cpu":
-        return residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
-                                  double_ffn=double_ffn, mxu_dtype=mxu_dtype)
-    if needs_graph(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, *_residual_tensors(rparams)):
-        return residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
-                                     double_ffn=double_ffn, mxu_dtype=mxu_dtype)
-    return _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams, double_ffn=double_ffn,
-                   mxu_dtype=mxu_dtype)
+    with annotate("kernel.fused_residual_ffn"):
+        if x.device.type == "cpu":
+            return residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
+                                      double_ffn=double_ffn, mxu_dtype=mxu_dtype)
+        if needs_graph(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, *_residual_tensors(rparams)):
+            return residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
+                                         double_ffn=double_ffn, mxu_dtype=mxu_dtype)
+        return _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams, double_ffn=double_ffn,
+                       mxu_dtype=mxu_dtype)
 
 
 def _residual_tensors(rparams) -> tuple:
@@ -204,7 +206,7 @@ def residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, 
                              mxu_dtype=mxu_dtype)
 
     kernel = residual_ffn_plain if x.device.type == "cpu" else _kernel
-    op = Op(call(kernel), call(residual_ffn_plain))
+    op = Op("recompute.fused_residual_ffn", call(kernel), call(residual_ffn_plain))
     return Recompute.apply(op, x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
                            *_residual_tensors(rparams))
 

@@ -56,6 +56,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     sm_count,
     store_dtype,
 )
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["fused_swin_block", "swin_block_plain", "swin_block_autograd", "split_block"]
 
@@ -134,11 +135,12 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
             mxu_dtype)
     if x.shape[-1] >= WIDE_MIN_C:
         return split_block(x, flat_params, *args)[0]
-    if x.device.type == "cpu":
-        return swin_block_plain(x, flat_params, *args)
-    if needs_graph(x, *flat_params):
-        return swin_block_autograd(x, flat_params, *args)
-    return _kernel(x, flat_params, *args)
+    with annotate("kernel.fused_swin_block"):
+        if x.device.type == "cpu":
+            return swin_block_plain(x, flat_params, *args)
+        if needs_graph(x, *flat_params):
+            return swin_block_autograd(x, flat_params, *args)
+        return _kernel(x, flat_params, *args)
 
 
 def swin_block_autograd(x, flat_params, nh, window, num_windows_per_image, shift, resolution,
@@ -149,7 +151,7 @@ def swin_block_autograd(x, flat_params, nh, window, num_windows_per_image, shift
     args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
             mxu_dtype)
     kernel = swin_block_plain if x.device.type == "cpu" else _kernel
-    op = Op(lambda x_, *fp: kernel(x_, fp, *args),
+    op = Op("recompute.fused_swin_block", lambda x_, *fp: kernel(x_, fp, *args),
             lambda x_, *fp: swin_block_plain(x_, fp, *args))
     return Recompute.apply(op, x, *flat_params)
 

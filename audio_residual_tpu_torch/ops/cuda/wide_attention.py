@@ -43,6 +43,7 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     window_attention_call,
     window_attention_plain,
 )
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["wide_window_attention", "wide_attention_plain", "wide_attention_autograd",
            "amp_plan", "AmpPlan", "padded_bias_and_mask", "SMEM_LIMIT"]
@@ -75,14 +76,14 @@ def wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int, 
     dtype. CPU tensors take :func:`wide_attention_plain`; CUDA tensors with
     an input that requires grad (in grad mode) take
     :func:`wide_attention_autograd`."""
-    if x.device.type == "cpu":
-        return wide_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                                    num_windows_per_image, shift, resolution, mxu_dtype)
-    if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
-        return wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                                       num_windows_per_image, shift, resolution, mxu_dtype)
-    return _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                   num_windows_per_image, shift, resolution, mxu_dtype)
+    args = (x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
+            shift, resolution, mxu_dtype)
+    with annotate("kernel.wide_window_attention"):
+        if x.device.type == "cpu":
+            return wide_attention_plain(*args)
+        if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
+            return wide_attention_autograd(*args)
+        return _kernel(*args)
 
 
 def wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
@@ -91,7 +92,8 @@ def wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, win
     version for CPU tensors), the plain version's backward."""
     meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
     kernel = wide_attention_plain if x.device.type == "cpu" else _kernel
-    op = Op(lambda *t: kernel(*t, *meta), lambda *t: wide_attention_plain(*t, *meta))
+    op = Op("recompute.wide_window_attention", lambda *t: kernel(*t, *meta),
+            lambda *t: wide_attention_plain(*t, *meta))
     return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
 
 

@@ -41,6 +41,7 @@ from audio_residual_tpu_torch.ops import windows as win_ops
 from audio_residual_tpu_torch.ops.common import attention_core, linear
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["fused_window_attention", "window_attention_plain", "window_attention_autograd",
            "WIDE_MIN_C", "mxu_weights", "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
@@ -286,15 +287,14 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
 
         return wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                      num_windows_per_image, shift, resolution, mxu_dtype)
-    if x.device.type == "cpu":
-        return window_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                                      num_windows_per_image, shift, resolution, mxu_dtype)
-    if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
-        return window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh,
-                                         window, num_windows_per_image, shift, resolution,
-                                         mxu_dtype)
-    return _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                   num_windows_per_image, shift, resolution, mxu_dtype)
+    args = (x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
+            shift, resolution, mxu_dtype)
+    with annotate("kernel.fused_window_attention"):
+        if x.device.type == "cpu":
+            return window_attention_plain(*args)
+        if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
+            return window_attention_autograd(*args)
+        return _kernel(*args)
 
 
 def window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
@@ -303,7 +303,8 @@ def window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, w
     version for CPU tensors), the plain version's backward."""
     meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
     kernel = window_attention_plain if x.device.type == "cpu" else _kernel
-    op = Op(lambda *t: kernel(*t, *meta), lambda *t: window_attention_plain(*t, *meta))
+    op = Op("recompute.fused_window_attention", lambda *t: kernel(*t, *meta),
+            lambda *t: window_attention_plain(*t, *meta))
     return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from audio_residual_tpu_torch.utils.profiling import annotate
+
 __all__ = [
     "float32_to_int16",
     "int16_to_float32",
@@ -31,7 +33,8 @@ def quantize_roundtrip(x: torch.Tensor) -> torch.Tensor:
     """float -> int16 -> float, computed in f32: every truncated value is an
     integer in [-32767, 32767], exact in f32, so skipping the int16 dtype is
     bit-identical."""
-    return torch.trunc(torch.clamp(x, -1.0, 1.0) * 32767.0) / 32767.0
+    with annotate("quantize"):
+        return torch.trunc(torch.clamp(x, -1.0, 1.0) * 32767.0) / 32767.0
 
 
 def pad_or_truncate(x: torch.Tensor, target_len: int = 480000) -> torch.Tensor:

@@ -27,6 +27,7 @@ import torch
 
 from audio_residual_tpu_torch import resolve_device
 from audio_residual_tpu_torch.ops import pca as pca_ops
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "intrinsic_dim",
@@ -160,10 +161,12 @@ def run_pca(
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        with torch.no_grad():
+        with annotate("pca.encode"), torch.no_grad():
             out = encode_fn(torch.as_tensor(batch, device=ap.device))
-        ap.update(out["layers_attention"])
-    return ap.finalize(n_components)
+        with annotate("pca.update"):
+            ap.update(out["layers_attention"])
+    with annotate("pca.finalize"):
+        return ap.finalize(n_components)
 
 
 def save_pca_results_on_file(save_dir: str, dataset_name: str, fold: int, results: dict) -> str:

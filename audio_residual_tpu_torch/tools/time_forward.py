@@ -35,12 +35,13 @@ def _busy_ms(fn) -> float | None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from audio_residual_tpu_torch.utils.profiling import device_events
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
     if not spans:
         return None
     busy, start, end = 0.0, *spans[0]

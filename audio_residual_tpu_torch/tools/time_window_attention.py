@@ -44,13 +44,14 @@ def _profile(fn, reps: int) -> tuple[float, dict]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from audio_residual_tpu_torch.utils.profiling import device_events
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device_events(prof))
     if not spans:
         raise RuntimeError("the profiler's trace holds no device time")
     names = collections.Counter()

@@ -41,6 +41,7 @@ from audio_residual_tpu_torch.data.featurize import featurize_batch
 from audio_residual_tpu_torch.models.clap import CLAPAudio, encode_audio
 from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
 from audio_residual_tpu_torch.residual.module import load_residual_params, save_residual_params
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "adam",
@@ -130,8 +131,10 @@ def make_zero_shot_step(
 
     def step(lam, x, labels, generator=None):
         optimizer.zero_grad(set_to_none=True)
-        loss, correct = loss_fn(lam, x, labels, generator)
-        loss.backward()
+        with annotate("train.forward"):
+            loss, correct = loss_fn(lam, x, labels, generator)
+        with annotate("train.backward"):
+            loss.backward()
         optimizer.step()
         return loss.detach(), correct
 

@@ -3,12 +3,13 @@
 The JAX package traces with the XLA profiler and times a jitted scan at two
 lengths, since a call through its device relay does not wait for the
 device. Here :func:`trace` records a ``torch.profiler`` Chrome trace,
-:func:`annotate` names a region in it (and an NVTX range on the card), and
-:func:`measure_seconds` times calls by CUDA events on the card (the host's
-clock on the CPU) at two lengths, the per-call time taken from the
-difference, with the JAX package's noise guard. :func:`time_ms`,
-:func:`device_profile`, :func:`profile_until` and :func:`device_busy_ms`
-are the card's timing helpers ``chip_smoke.py`` and the tools use;
+:func:`annotate` names a region in it (the port's spans, free while no
+profiler records), and :func:`measure_seconds` times calls by CUDA events
+on the card (the host's clock on the CPU) at two lengths, the per-call time
+taken from the difference, with the JAX package's noise guard.
+:func:`time_ms`, :func:`device_events`, :func:`device_profile`,
+:func:`profile_until` and :func:`device_busy_ms` are the card's timing
+helpers ``chip_smoke.py`` and the tools use;
 :func:`htsat_flops_per_clip` and :func:`text_tower_flops_per_sample` count
 the forward's operations.
 """
@@ -22,11 +23,12 @@ import statistics
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
 
 from audio_residual_tpu_torch.ops.frontend import mel_active_bins
 
-__all__ = ["trace", "annotate", "measure_seconds", "measure_throughput",
+__all__ = ["trace", "annotate", "device_events", "measure_seconds", "measure_throughput",
            "htsat_flops_per_clip", "text_tower_flops_per_sample", "TimingUnreliableError",
            "MIN_SECONDS_PER_CALL", "time_ms", "kernel_group", "device_profile",
            "profile_until", "device_busy_ms"]
@@ -60,21 +62,31 @@ def trace(log_dir: str):
                                           f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region of the profiler's timeline, and an NVTX range on the
-    card."""
-    from torch.profiler import record_function
+_NO_SPAN = contextlib.nullcontext()
 
-    nvtx = torch.cuda.is_available()
-    with record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+
+def annotate(name: str, index: int | None = None):
+    """A named region of the profiler's timeline: a ``record_function``,
+    which lands as a ``user_annotation`` on the calling thread, beside the
+    kernels it launches. ``index``, when given, is appended to the name.
+
+    While no profiler records (``torch.profiler.profile`` or the autograd
+    profiler, both of which set the flag read here on entry), this reads
+    one flag and returns a shared no-op context: no ``record_function``, no
+    string, so a span site on the hot path costs a flag read."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _autograd_profiler.record_function(name if index is None else f"{name}{index}")
+
+
+def device_events(prof) -> list:
+    """A profiler's device work: its kernels, memcpys and memsets. A span
+    recorded with CUDA activity also comes back as a device event over its
+    kernels, named as the span on the host; those are left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = {e.name for e in events if e.device_type != cuda and e.is_user_annotation}
+    return [e for e in events if e.device_type == cuda and e.name not in spans]
 
 
 def measure_seconds(fn, args, *, iters: int = 10, reps: int = 3,
@@ -245,8 +257,7 @@ def device_profile(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device_events(prof))
     if not spans:
         return None
     groups, names, counts = collections.Counter(), collections.Counter(), collections.Counter()

@@ -1,0 +1,13 @@
+"""Device ms a batch of the kernels launched inside the port's spans
+``htsat.patch_embed`` and ``htsat.layer*`` but outside every ``kernel.``
+span: the Swin layers' glue (rolls, partitions, copies, casts, LayerNorms,
+PatchMerging), what the hand-written kernels' wrappers do not launch."""
+
+
+def read(ctx):
+    t = ctx.trace
+    names = [n for n in t.spans if n == "htsat.patch_embed" or n.startswith("htsat.layer")]
+    batches = t.span_count("bench.batch")
+    if not names or not batches:
+        return None
+    return sum(t.device_ms(n, ("kernel.",)) or 0.0 for n in names) / batches

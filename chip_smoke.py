@@ -3384,6 +3384,7 @@ def workflow_stage(stages: dict, name: str, fn):
     from torch.profiler import ProfilerActivity, profile
 
     from audio_residual_tpu_torch.ops.cuda import launch_counts
+    from audio_residual_tpu_torch.utils.profiling import device_events
 
     def spy(*args, **kwargs):
         torch.cuda.synchronize()
@@ -3393,8 +3394,7 @@ def workflow_stage(stages: dict, name: str, fn):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        kernels = collections.Counter(e.name for e in prof.events()
-                                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        kernels = collections.Counter(e.name for e in device_events(prof))
         rec = stages.setdefault(name, {"calls": 0, "s": 0.0, "launches": collections.Counter(),
                                        "census": collections.Counter()})
         rec["calls"] += 1

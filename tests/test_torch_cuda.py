@@ -24,6 +24,7 @@ from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+from audio_residual_tpu_torch.utils.profiling import annotate, device_events
 
 from . import torch_f64_reference as f64
 from . import torch_port_fixture as fx
@@ -167,11 +168,33 @@ def test_residual_ffn_amp_is_one_launch_a_pass(dev, variant):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             k3.fused_residual_ffn(*args, double_ffn=dffn, mxu_dtype=torch.bfloat16)
             torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in device_events(prof)]
     passes = 2 if dffn else 1
     want = {"ffn_cluster_kernel": passes, "gemm_tf32x3_kernel": 2 if use_res else 0}
     assert _port_kernels(names) == +collections.Counter(want), names
     assert len(names) == passes + (2 if use_res else 0), names
+
+
+def test_device_events_leave_out_the_spans_on_card(dev):
+    """A span recorded with CUDA activity comes back as a device event named
+    as the span; :func:`device_events` keeps the kernels and drops it, so the
+    census and busy time of ``device_profile`` read kernels only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(256, 256, device=dev, dtype=torch.bfloat16)
+    kg.gemm(a, a)
+    for _ in range(3):  # a window now and then comes back without device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with annotate("htsat.layer", 0):
+                kg.gemm(a, a)
+            torch.cuda.synchronize()
+        names = [e.name for e in device_events(prof)]
+        if names:
+            break
+    raw = [(e.name, e.device_type, e.is_user_annotation) for e in prof.events()]
+    assert any("gemm_kernel" in n for n in names), raw
+    assert not {"htsat.layer0", "kernel.gemm"} & set(names), raw
 
 
 def test_residual_ffn_amp_gives_equal_bits_twice(dev):
@@ -426,9 +449,8 @@ def _device_kernels(fn, expect=lambda names: True) -> list:
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.name) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and "FillFunctor<short>" not in e.name)
+        spans = sorted((e.time_range.start, e.name) for e in device_events(prof)
+                       if "FillFunctor<short>" not in e.name)
         if spans and expect([name for _, name in spans]):
             break
     return [name for _, name in spans]

@@ -4,6 +4,7 @@ checkpoints key for key, the FLOP counts (``utils/profiling.py``) number
 for number; the timer's noise guard, the trace file and the kernels' build
 cache (``utils/cache.py``)."""
 
+import json
 import os
 
 import numpy as np
@@ -125,12 +126,20 @@ def test_measure_seconds_on_the_cpu_and_its_noise_guard():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    with t_prof.annotate("untraced"):  # no profiler records: no span
+        torch.ones(8, 8) @ torch.ones(8, 8)
     with t_prof.trace(str(tmp_path / "trace")):
         with t_prof.annotate("matmul"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
-    assert '"matmul"' in (tmp_path / "trace" / files[0]).read_text()
+    events = json.loads((tmp_path / "trace" / files[0]).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    assert [e["name"] for e in spans] == ["matmul"]  # the profiler's own range, no NVTX
+    (span,) = spans
+    mm = [e for e in events if e.get("cat") == "cpu_op" and e["name"] == "aten::matmul"]
+    assert mm and all(e["tid"] == span["tid"] and span["ts"] <= e["ts"]
+                      and e["ts"] + e["dur"] <= span["ts"] + span["dur"] for e in mm)
 
 
 def test_enable_compile_cache_moves_the_build_dir(tmp_path, monkeypatch):
