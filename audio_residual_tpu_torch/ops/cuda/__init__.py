@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels for Hopper, one module per TPU kernel, and
-``gemm``, the bf16 GEMM they share under AMP.
+"""Hand-written CUDA kernels for Hopper, one module per TPU kernel,
+``gemm``, the bf16 GEMM they share under AMP, and ``qr``, the blocked
+float64 Householder QR of the PCA finalize.
 
 Each kernel module holds the wrapper (checks, allocation, launch on the
 current stream), its plain PyTorch version and, for K2-K5, its autograd
@@ -28,6 +29,9 @@ KERNELS = {
     "fused_swin_block": ("swin_block", "audio_residual_tpu/ops/pallas/swin_block.py:208"),
     "wide_window_attention": ("wide_attention",
                               "audio_residual_tpu/ops/pallas/window_attention.py:234"),
+    "householder_qr": ("householder_qr",
+                       "none: the JAX package whitens by a clamped Gram matrix "
+                       "(audio_residual_tpu/ops/pca.py:161)"),
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -138,9 +138,11 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = ()) -> None:
-    """Device, dtype, contiguity and autograd checks shared by the wrappers.
-    A sharded tensor (``DTensor``) is refused: its ``data_ptr()`` is this
+def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = (),
+                      dtypes: tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)) -> None:
+    """Device, dtype, contiguity and autograd checks shared by the wrappers:
+    each tensor of ``dtypes``, those named in ``float_only`` float32. A
+    sharded tensor (``DTensor``) is refused: its ``data_ptr()`` is this
     rank's shard, not the whole weight."""
     sharded = [name for name, t in tensors.items() if isinstance(t, DTensor)]
     if sharded:
@@ -159,7 +161,7 @@ def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = ()
             raise ValueError(f"{what}: {name} is on {t.device}, others on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-        allowed = (torch.float32,) if name in float_only else (torch.float32, torch.bfloat16)
+        allowed = (torch.float32,) if name in float_only else dtypes
         if t.dtype not in allowed:
             raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected one of {allowed}")
         if torch.is_grad_enabled() and t.requires_grad:

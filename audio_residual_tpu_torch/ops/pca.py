@@ -20,7 +20,8 @@ at its f32 CUDA-core rate, and the covariance is formed once from the raw
 moments in float64, so the mean term, far larger than the spread of
 attention-probability rows, cancels without f32 rounding. Two departures
 from the JAX package's TPU design: the block is orthonormalised by
-Householder QR, not by gram whitening (``Q G^-1/2``, ``G`` clamped at 1e-6
+Householder QR (``ops/cuda/qr.py``: blocked, its panels a hand-written
+kernel on the card), not by gram whitening (``Q G^-1/2``, ``G`` clamped at 1e-6
 of its largest eigenvalue), whose clamp shrinks every direction under 1e-3
 of the first eigenvalue a little more each iteration, so the JAX package
 reports such eigenvalues orders of magnitude too small; and the starting
@@ -39,6 +40,7 @@ import torch
 
 from audio_residual_tpu_torch import resolve_device
 from audio_residual_tpu_torch.ops.common import golden_convs
+from audio_residual_tpu_torch.ops.cuda.qr import householder_qr
 
 __all__ = [
     "PCAState",
@@ -117,7 +119,9 @@ def _randomized_topk_eigh(n: torch.Tensor, s: torch.Tensor, outer: torch.Tensor,
     their device, in float64 (Halko et al. 2011 subspace iteration, as
     ``audio_residual_tpu/ops/pca.py::_randomized_topk_eigh``):
     ``iters + 1`` products by the covariance, each followed by a Householder
-    QR of the block, then Rayleigh-Ritz on ``QᵀCQ``; m = k + oversample.
+    QR of the block (:func:`.cuda.qr.householder_qr`: the blocked kernel on
+    the card, the library's QR on the CPU), then Rayleigh-Ritz on ``QᵀCQ``;
+    m = k + oversample.
 
     Returns ``(eigvals [..., k] descending, components [..., k, D] (or
     [..., 0, D] without them), mean [..., D], trace [...])``, float64 on the
@@ -135,7 +139,7 @@ def _randomized_topk_eigh(n: torch.Tensor, s: torch.Tensor, outer: torch.Tensor,
 
     q = torch.randn((*batch_shape, d, m), generator=generator, dtype=f64, device=cov.device)
     for _ in range(iters + 1):
-        q = torch.linalg.qr(cov @ q).Q
+        q = householder_qr(cov @ q)
     b = q.transpose(-1, -2) @ (cov @ q)
     b = 0.5 * (b + b.transpose(-1, -2))
     w, u = torch.linalg.eigh(b)  # ascending, eigenvectors in columns
@@ -174,7 +178,9 @@ def pca_finalize(
         crossing of the reference's shipped CSVs). Ratios divide by the
         exact trace, so they, the intrinsic dimension and the participation
         ratio match the dense path wherever the cumulative ratio crosses the
-        threshold within k.
+        threshold within k. On the card its QR takes D up to 131072
+        (:func:`.cuda.qr.qr_plan`), past the largest ``[D, D]`` float64
+        covariance the card's 80 GiB hold.
       * ``"auto"`` -- randomized iff D >= 1024.
 
     ``return_components=False`` skips the ``[k, D]`` eigenvector block (the

@@ -95,7 +95,17 @@ line):
                4096, 4096] f32 moments), its randomized finalize against a
                float64 eigh of one head's moments (layers 0 and 3), and the
                CSV; each stage's time by CUDA events beside the bounds, and
-               the peak memory.
+               the peak memory. 6b (qr): the blocked float64 Householder QR
+               (ops/cuda/qr.py) at each layer's [heads, 4096, 784] (heads 4,
+               8, 16, 32): Q against torch.linalg.qr (orthonormal and
+               spanning A within 1e-12, each column the library's up to its
+               sign within 1e-10), its ms beside its bound (4 D m^2 - 4/3 m^3
+               a head at 67 TFLOP/s of float64; A read and Q written once)
+               and torch.linalg.qr's (library_ms), 7 calls a layer, which
+               make its row of the kernels line; layer 3's device time by
+               kernel; one run_pca of the attention tap on B clips: 28
+               householder_qr calls (the row's launches), no torch.linalg.qr
+               on a card tensor.
   7. clap    -- ESC-50 zero-shot with a real text classifier: CLAPModule
                (HTSAT-tiny + RoBERTa-base at full width, seed 0,
                HashTokenizer), golden and AMP. The text tower at the 50
@@ -286,7 +296,7 @@ TRAIN_FIXTURE_TOL = {"loss": dict(rtol=1e-4, atol=0), "step_loss": dict(rtol=1e-
                      "lam": dict(rtol=0, atol=1e-4), "sims": dict(rtol=0, atol=2e-3)}
 K1_AMP_DB = 0.05  # K1 bf16 against its plain version, dB: the JAX kernel's AMP error
 HBM_BYTES_S = 3.35e12  # H100 SXM peaks: HBM3 bandwidth, dense f32 / TF32 / bf16 rates
-PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "f64": 67e12}
 # golden routes against float64: at most this times the plain f32 version's error
 GOLDEN_F64_RATIO = 4.0
 # a golden forward's 3xTF32 GEMMs: fc1 and fc2 of each FFN pass (layer 0's
@@ -306,6 +316,11 @@ ATTENTION_TAP_LAUNCHES = {"fused_logmel": 1, "fused_residual_ffn": 12}
 BASE_TAPPED_LAUNCHES = {"fused_logmel": 1, "fused_window_attention": 16,
                         "wide_window_attention": 2, "fused_residual_ffn": 18}
 PCA_F64_CHECK = dict(top=32, rtol=1e-3, span=0.99)  # tests/test_pca.py:181-192
+# the PCA finalize's QRs: [heads, D = 8^4, m = 768 + 16] at each of the 4
+# layers (the widest, layer 3's, checked and profiled); one run_pca
+# orthonormalises iters + 1 = 7 blocks a layer
+QR_HEADS, QR_SHAPE, QR_PER_LAYER = (4, 8, 16, 32), (32, 4096, 784), 7
+RUN_PCA_QR_CALLS = QR_PER_LAYER * len(QR_HEADS)
 # the CLAP phase: RoBERTa's context, the zero-shot batches of B clips; the
 # AMP text forward's bf16 GEMMs (q, k, v, out, fc1, fc2 a layer, the pooler);
 # the port's kernels of one audio forward without a ResiDual by profiler
@@ -328,7 +343,7 @@ TAP_AMP_COS = 0.99999  # AMP taps against the plain route: cosine, beside TOL["b
 # port (namespace arpu) counts under its own name
 PORT_KERNELS = ("gemm_tf32x3_kernel", "gemm_kernel", "attention_core_kernel",
                 "add_layernorm_kernel", "window_attention_wgmma_kernel", "ffn_cluster_kernel",
-                "logmel_tf32x3_kernel", "logmel_wgmma_kernel")
+                "logmel_tf32x3_kernel", "logmel_wgmma_kernel", "householder_panel_kernel")
 GOLDEN_KERNELS = {"logmel_tf32x3_kernel", "gemm_tf32x3_kernel", "attention_core_kernel",
                   "add_layernorm_kernel"}
 
@@ -339,9 +354,11 @@ def log(phase: str, **kv) -> None:
 
 class KernelStats:
     """Phase 2's per-kernel numbers. The JSON line holds the bench's AMP mode
-    (bf16), summed over the launches of one forward of each main path."""
+    (bf16), summed over the launches of one forward of each main path, and
+    the QR's one mode (float64), summed over the 28 calls of one
+    ``run_pca`` of the attention tap (phase 6b)."""
 
-    JSON_MODE = "bf16"
+    JSON_MODES = ("bf16", "f64")
 
     def __init__(self, kernels: dict):
         self.kernels = kernels
@@ -362,7 +379,7 @@ class KernelStats:
             tol=TOL[mode], ok=ok)
         if not ok:
             raise AssertionError(f"{name} {label} ({mode}) disagrees with its plain version")
-        if mode == self.JSON_MODE:
+        if mode in self.JSON_MODES:
             self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], err)
 
     def time(self, name, label, mode, kernel_fn, plain_fn, nbytes, flops, launches=1,
@@ -392,7 +409,7 @@ class KernelStats:
                      route_bound_ms=route_ms if route_ms is not None else max(b_ms, o_ms))
             if lib is not None:
                 g["library_ms"] += lib
-        if mode == self.JSON_MODE:
+        if mode in self.JSON_MODES:
             r = self.rows[name]
             r["ms"] += ms
             r["plain_ms"] += plain
@@ -408,6 +425,8 @@ class KernelStats:
         ``bound_ms`` at the f32 CUDA-core rate, ``route_bound_ms`` for the
         arithmetic the route runs (3xTF32 where it does)."""
         for name, g in self.golden.items():
+            if not g:  # no f32 route: the QR runs float64 alone
+                continue
             extra = {k: g[k] for k in ("stft_chain_ms",) if k in g}
             log("kernels", golden_summary=name, mode="f32", ms=g["ms"], plain_ms=g["plain_ms"],
                 bound_ms=g["bound_ms"], route_bound_ms=g["route_bound_ms"],
@@ -1910,6 +1929,88 @@ def phase_analysis(stats: KernelStats, dev, card: str) -> None:
             card=card)
         if not ok:
             raise AssertionError("the attention PCA's CSV does not read back")
+
+
+def phase_qr(stats: KernelStats, dev, card: str) -> int:
+    """Phase 6b: the blocked Householder QR at each layer's ``[heads, 4096,
+    784]`` against the library's QR, timed beside its bound and the
+    library's (its ``KERNELS`` row: the 28 calls of one ``run_pca``); the
+    device time of ``QR_SHAPE`` by kernel; one run_pca of the attention tap
+    counted. Returns that count. Any miss raises."""
+    import torch
+
+    from audio_residual_tpu_torch.data.featurize import featurize_batch
+    from audio_residual_tpu_torch.models.clap import CLAPConfig, build_clap_audio, encode_audio
+    from audio_residual_tpu_torch.ops.cuda import launch_counts, qr
+    from audio_residual_tpu_torch.residual import analyze
+
+    _, d, m = QR_SHAPE
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    row = stats.rows["householder_qr"]
+    for heads in QR_HEADS:
+        shape = (heads, d, m)
+        g = torch.Generator(device=dev).manual_seed(23 + heads)
+        a = torch.randn(shape, generator=g, dtype=torch.float64, device=dev)
+        q, ref = qr.householder_qr(a), qr.householder_qr_plain(a)
+        ortho = float((q.mT @ q - eye).abs().max())
+        resid = float((torch.linalg.norm(q @ (q.mT @ a) - a, dim=(-2, -1))
+                       / torch.linalg.norm(a, dim=(-2, -1))).max())
+        signs = torch.sign(torch.diagonal(ref.mT @ q, dim1=-2, dim2=-1))
+        err = float((q - ref * signs[:, None, :]).abs().max())
+        ok = ortho <= 1e-12 and resid <= 1e-12 and err <= 1e-10
+        log("qr", check=f"householder_qr {list(shape)} against torch.linalg.qr",
+            orthonormality_err=ortho, span_residual=resid, max_abs_err_to_signs=err,
+            tol="1e-12,1e-12,1e-10", plan=json.dumps(qr.qr_plan(d, m)._asdict()), ok=ok)
+        if not ok:
+            raise AssertionError("householder_qr leaves the library's QR")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        del q, ref
+        stats.time("householder_qr", f"{list(shape)} float64", "f64",
+                   lambda: qr.householder_qr(a), lambda: qr.householder_qr_plain(a),
+                   nbytes=2 * a.numel() * 8,
+                   flops={"f64": heads * (4 * d * m * m - 4 / 3 * m ** 3)},
+                   launches=QR_PER_LAYER, library_fn=lambda: torch.linalg.qr(a).Q,
+                   library_what="torch.linalg.qr(a).Q")
+        if shape == QR_SHAPE:
+            prof = profile_until(lambda: qr.householder_qr(a), lambda p: True, "householder_qr")
+            ours = port_kernels(prof[4])
+            log("qr", device_ms=prof[2], by_kernel=json.dumps(
+                {k: round(v, 4) for k, v in prof[1].most_common(8)}),
+                launches=sum(prof[4].values()), port=json.dumps(dict(ours)), card=card)
+            if not ours["householder_panel_kernel"]:
+                raise AssertionError(f"householder_qr: no panel kernel of the port among {ours}")
+        del a
+
+    # one run_pca of the attention tap: every block through the kernel
+    cfg = CLAPConfig()
+    model = build_clap_audio(cfg, seed=0, device=dev)
+    wav = torch.from_numpy((0.1 * np.random.default_rng(24).standard_normal((B, CLIP))
+                            ).astype(np.float32)).to(dev)
+    library_calls = []
+    library_qr = torch.linalg.qr
+
+    def counted(x, *args, **kwargs):
+        if x.is_cuda:
+            library_calls.append(tuple(x.shape))
+        return library_qr(x, *args, **kwargs)
+
+    launch_counts.clear()
+    torch.linalg.qr = counted
+    try:
+        analyze.run_pca(lambda w: encode_audio(model, featurize_batch(w, cfg.audio.clip_samples),
+                                               taps=("attention",)),
+                        [wav], cfg.audio.num_layers, cfg.audio.num_heads, device=dev)
+    finally:
+        torch.linalg.qr = library_qr
+    calls = launch_counts["householder_qr"]
+    ok = calls == RUN_PCA_QR_CALLS and not library_calls
+    log("qr", check="run_pca of the attention tap", householder_qr=calls,
+        expected=RUN_PCA_QR_CALLS, library_qr_on_card=len(library_calls), ok=ok)
+    if not ok:
+        raise AssertionError("run_pca does not orthonormalise through householder_qr alone")
+    del model, wav
+    torch.cuda.empty_cache()  # the float64 blocks and the model leave the allocator
+    return calls
 
 
 def text_flops(cfg, tokens: int, texts: int) -> dict:
@@ -3689,6 +3790,7 @@ def main() -> int:
     phase_fixture(fx.WIDE_PATH, "fixture-wide", {"wide_window_attention": 2})
     phase_train(dev, card)
     phase_analysis(stats, dev, card)
+    launches["householder_qr"] = phase_qr(stats, dev, card)
     phase_clap(dev, card)
     phase_contrastive(dev, card)
     phase_towers(dev, card, stats)

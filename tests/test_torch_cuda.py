@@ -1226,10 +1226,66 @@ def test_randomized_finalize_on_card_matches_dense(dev):
     outer = torch.from_numpy((((q * lam) @ q.T) * (d - 1)).astype(np.float32))
     state = pca.PCAState(n=torch.tensor(float(d)), sum=torch.zeros(d), outer=outer)
     card = pca.PCAState(*(t.to(dev) for t in state))
+    launch_counts.clear()
     got = pca.pca_finalize(card, k, method="randomized")
+    assert launch_counts["householder_qr"] == 7  # iters + 1 blocks orthonormalised
     want = pca.pca_finalize(state, k, method="dense")
     np.testing.assert_allclose(got["explained_variance"], want["explained_variance"], rtol=1e-6)
     assert np.abs(np.sum(got["components"] * want["components"], axis=-1)).min() > 0.999
+
+
+def _qr_block(dev, shape, seed, rank=None, decades=None):
+    """A float64 block on the card: Gaussian; of rank ``rank`` (a product
+    through ``rank`` columns); or with singular values spread evenly over
+    ``decades`` decades (random orthonormal sides)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, d, m = shape
+
+    def gauss(*s):
+        return torch.randn(s, generator=g, dtype=torch.float64, device=dev)
+
+    if rank is not None:
+        return gauss(b, d, rank) @ gauss(b, rank, m)
+    if decades is not None:
+        u, w = torch.linalg.qr(gauss(b, d, m)).Q, torch.linalg.qr(gauss(b, m, m)).Q
+        sigma = torch.logspace(0, -decades, m, dtype=torch.float64, device=dev)
+        return (u * sigma) @ w.mT
+    return gauss(b, d, m)
+
+
+@pytest.mark.parametrize("shape,rank,decades", [
+    ((4, 4096, 784), None, None), ((32, 4096, 784), None, None), ((2, 1024, 24), None, None),
+    ((4, 4096, 784), 399, None), ((4, 4096, 784), None, 5), ((1, 8192, 64), None, None),
+    ((1, 10000, 44), None, None), ((1, 20736, 24), None, None), ((1, 40000, 24), None, None),
+    ((1, 70000, 24), None, None),
+], ids=["h4", "h32", "narrow", "rank399", "five_decades", "w16", "w8", "w4", "w2", "w1"])
+def test_householder_qr_on_card(dev, shape, rank, decades):
+    """The blocked QR against the library's on the card: Q orthonormal
+    (max |QᵀQ - I| <= 1e-12) with A in its span (||QQᵀA - A||_F / ||A||_F <=
+    1e-12), on Gaussian blocks, a block of rank 399 (layer 3's covariance
+    under one window a clip: 400 rows a job) and one whose singular values
+    spread over five decades, and past 4096 rows, where the panels narrow
+    (16 columns at D = 8192 down to one at D = 70000, the last panel of a
+    block cut short at m = 44); on a full-rank block each column the
+    library's up to its sign (max 1e-10: the factor's rounding through the
+    block's condition number). One count a call."""
+    from audio_residual_tpu_torch.ops.cuda import qr
+
+    a = _qr_block(dev, shape, seed=sum(shape) + (rank or 0), rank=rank, decades=decades)
+    launch_counts.clear()
+    q = qr.householder_qr(a)
+    torch.cuda.synchronize()
+    assert launch_counts["householder_qr"] == 1
+    assert q.shape == a.shape and q.dtype == torch.float64 and q.is_contiguous()
+    m = shape[-1]
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    assert float((q.mT @ q - eye).abs().max()) <= 1e-12
+    resid = torch.linalg.norm(q @ (q.mT @ a) - a, dim=(-2, -1)) / torch.linalg.norm(a, dim=(-2, -1))
+    assert float(resid.max()) <= 1e-12
+    if rank is None and decades is None:
+        ref = qr.householder_qr_plain(a)
+        signs = torch.sign(torch.diagonal(ref.mT @ q, dim1=-2, dim2=-1))
+        assert float((q - ref * signs[:, None, :]).abs().max()) <= 1e-10
 
 
 TEXT_MODELS = ("roberta", "bert", "bart", "transformer")
