@@ -10,8 +10,11 @@ so every caller of the audio half also takes a full model.
 in eval and in training mode. Training draws its randomness from one
 ``torch.Generator``, split into the audio tower's, the audio transform's and
 the text transform's streams (:func:`split_generator`), where the JAX package
-splits a ``jax.random`` key three ways; the text towers have no training
-mode (the JAX package's neither: ``encode_text`` takes no ``train``).
+splits a ``jax.random`` key three ways, and then once more for the text
+tower's: RoBERTa and BERT train with HF's dropout
+(:func:`~audio_residual_tpu_torch.models.roberta.sample_dropout`), which the
+JAX package's text towers lack (its ``encode_text`` takes no ``train``); the
+CLIP and BART text towers have no training mode.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from audio_residual_tpu_torch.models.clip_text import (Transformer, add_text_emb
                                                        clip_text_apply)
 from audio_residual_tpu_torch.models.htsat import HTSAT, HTSATConfig, htsat_apply
 from audio_residual_tpu_torch.models.pann import PANN, pann_apply
-from audio_residual_tpu_torch.models.roberta import Roberta, RobertaConfig, roberta_apply
+from audio_residual_tpu_torch.models.roberta import (Roberta, RobertaConfig, roberta_apply,
+                                                     sample_dropout)
 from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["CLAPConfig", "CLAPAudio", "CLAP", "build_clap_audio", "build_clap",
@@ -238,28 +242,36 @@ def encode_audio(model: CLAPAudio, batch, *, train: bool = False,
 
 
 def encode_text(model: CLAP, input_ids, attention_mask=None, *, normalize: bool = True,
-                compute_dtype=None) -> torch.Tensor:
+                compute_dtype=None, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
     """Text branch -> tower feature -> projection (-> L2 normalise),
     dispatched on ``cfg.text_model_type`` (`model.py:602-648`): roberta /
     bert take the pooler output, transformer the EOT token's feature, bart
     the **unmasked** mean over all positions (the reference averages the
     padding too). ``compute_dtype`` reaches the roberta / bert tower only;
-    the others run f32 whatever it is."""
+    the others run f32 whatever it is. ``train`` with ``generator`` draws
+    the roberta / bert tower's dropout from it (HF's training mode); the
+    other towers and a call without a generator draw nothing."""
     cfg = model.cfg
     t = cfg.text_model_type
-    if t in ("roberta", "bert"):
-        pooled = roberta_apply(model.text_branch, input_ids, attention_mask,
-                               compute_dtype=compute_dtype)["pooler_output"]
-    elif t == "transformer":
-        pooled = clip_text_apply(model.text_branch, model, input_ids, cfg.text)
-    elif t == "bart":
-        hidden = bart_apply(model.text_branch, input_ids,
-                            attention_mask)["encoder_last_hidden_state"]
-        pooled = hidden.mean(dim=1)
-    else:
-        raise RuntimeError(f"Model type {t} not found.")
-    x = model.text_projection(pooled)
-    return l2_normalize(x) if normalize else x
+    with annotate("encode_text"):
+        if t in ("roberta", "bert"):
+            dropout = None
+            if train and generator is not None:
+                ids = torch.as_tensor(input_ids)
+                dropout = sample_dropout(generator, cfg.text, ids.shape[0], ids.shape[-1])
+            pooled = roberta_apply(model.text_branch, input_ids, attention_mask,
+                                   compute_dtype=compute_dtype, dropout=dropout)["pooler_output"]
+        elif t == "transformer":
+            pooled = clip_text_apply(model.text_branch, model, input_ids, cfg.text)
+        elif t == "bart":
+            hidden = bart_apply(model.text_branch, input_ids,
+                                attention_mask)["encoder_last_hidden_state"]
+            pooled = hidden.mean(dim=1)
+        else:
+            raise RuntimeError(f"Model type {t} not found.")
+        x = model.text_projection(pooled)
+        return l2_normalize(x) if normalize else x
 
 
 def split_generator(generator: torch.Generator, n: int, device=None) -> list:
@@ -282,16 +294,21 @@ def clap_apply(model: CLAP, audio_batch, input_ids, attention_mask=None, *,
     ``bn0_state``, bn0's updated running statistics, for the train step to
     merge; with ``generator`` it also draws SpecAugment, drop-path and the
     transform heads' dropout from it, split three ways on the model's
-    device. Without one nothing random happens (the JAX package's
-    ``rng=None``). ``bn_group`` takes bn0's statistics over every rank of a
+    device, and then the text tower's dropout from a fourth split, so the
+    first three streams are the JAX package's split's counterparts. Without
+    one nothing random happens (the JAX package's ``rng=None``).
+    ``bn_group`` takes bn0's statistics over every rank of a
     ``torch.distributed`` process group."""
-    g_audio = g_at = g_tt = None
+    g_audio = g_at = g_tt = g_text = None
     if train and generator is not None:
-        g_audio, g_at, g_tt = split_generator(generator, 3, model.logit_scale_a.device)
+        dev = model.logit_scale_a.device
+        g_audio, g_at, g_tt = split_generator(generator, 3, dev)
+        (g_text,) = split_generator(generator, 1, dev)
     audio_out = encode_audio(model, audio_batch, train=train, generator=g_audio,
                              bn_group=bn_group, compute_dtype=compute_dtype)
     audio_features = audio_out["normalized"]
-    text_features = encode_text(model, input_ids, attention_mask, compute_dtype=compute_dtype)
+    text_features = encode_text(model, input_ids, attention_mask, compute_dtype=compute_dtype,
+                                train=train, generator=g_text)
     extra = {"bn0_state": audio_out["bn0_state"]} if train and "bn0_state" in audio_out else {}
     return {
         **extra,

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio_residual_tpu_torch.ops import frontend, interpolate
-from audio_residual_tpu_torch.ops.common import golden_convs
+from audio_residual_tpu_torch.ops.common import dropout, golden_convs
 from audio_residual_tpu_torch.ops.cuda.frontend import fused_logmel
 from audio_residual_tpu_torch.ops.fusion import (EvalBatchNorm, batch_norm_eval, fusion_kind,
                                                  make_fusion)
@@ -163,12 +163,6 @@ class PANN(nn.Module):
     def blocks(self) -> list[ConvBlock]:
         n = len(self.cfg.variant["channels"])
         return [getattr(self, f"conv_block{i + 1}") for i in range(n)]
-
-
-def dropout(x: torch.Tensor, mask: torch.Tensor | None, rate: float) -> torch.Tensor:
-    """``x * mask / (1 - rate)``, ``mask`` of x's shape; None is the
-    identity."""
-    return x if mask is None else x * mask.to(x.dtype) / (1.0 - rate)
 
 
 def sample_dropout(generator: torch.Generator | None, shape, rate: float, device=None):

@@ -12,6 +12,16 @@ Arithmetic, as in the JAX package: RoBERTa's padding-offset position ids
 finfo.min``, post-LN blocks with exact-erf GELU, ``tanh`` pooler on token
 0.
 
+Training mode, as HF's ``RobertaModel`` trains (roberta-base's
+``config.json``: ``hidden_dropout_prob`` and ``attention_probs_dropout_prob``
+both 0.1): dropout after the embeddings' LayerNorm, on the attention
+probabilities, and on each attention output and FFN output before its
+residual LayerNorm; none on the pooler. The JAX package's tower has none
+(its ``encode_text`` takes no ``train``). The draws are split from the
+arithmetic, as HTSAT's drop-path and SpecAugment are: :func:`sample_dropout`
+draws the keep masks from a ``torch.Generator``, :func:`roberta_apply`
+takes them (``dropout=``); without masks nothing random happens.
+
 Two modes. Golden (``compute_dtype=None``): plain f32 products (the JAX
 package runs them outside any Pallas kernel, ``x @ kernel``). AMP
 (``compute_dtype=torch.bfloat16``), the JAX contract
@@ -34,12 +44,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audio_residual_tpu_torch.ops.common import layer_norm
+from audio_residual_tpu_torch.ops.common import dropout as _drop, layer_norm
 from audio_residual_tpu_torch.ops.cuda.gemm import gemm
 from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["RobertaConfig", "Roberta", "roberta_apply", "position_ids_from_input_ids",
-           "init_normal_"]
+           "init_normal_", "DROPOUT", "sample_dropout"]
+
+# roberta-base's config.json: hidden_dropout_prob = attention_probs_dropout_prob
+# = 0.1 (a module constant: RobertaConfig's fields are the JAX package's)
+DROPOUT = 0.1
 
 
 @dataclass(frozen=True)
@@ -152,6 +167,23 @@ def bf16_round(t: torch.Tensor, dt) -> torch.Tensor:
     return t if dt is None else t.to(dt).to(t.dtype)
 
 
+def sample_dropout(generator: torch.Generator, cfg: RobertaConfig, b: int, l: int) -> dict:
+    """The keep masks of one training forward of ``b`` texts of ``l``
+    tokens at :data:`DROPOUT`, bool, drawn in this order on the generator's
+    device: ``"embed"`` ``[b, l, D]``, then for each layer ``(probs [b,
+    heads, l, l], attention output [b, l, D], FFN output [b, l, D])`` in
+    ``"layers"``; ``"rate"``. An element is kept where its uniform draw is
+    below ``1 - rate``."""
+    d, nh = cfg.hidden_size, cfg.num_heads
+
+    def keep(*shape):
+        return torch.rand(shape, generator=generator, device=generator.device) < 1.0 - DROPOUT
+
+    embed = keep(b, l, d)
+    layers = [(keep(b, nh, l, l), keep(b, l, d), keep(b, l, d)) for _ in range(cfg.num_layers)]
+    return {"rate": DROPOUT, "embed": embed, "layers": layers}
+
+
 def _dense(lin: nn.Linear, x: torch.Tensor, dt, *, gelu: bool = False, residual=None,
            out_dtype=torch.float32) -> torch.Tensor:
     """``[gelu](x @ W^T + b) [+ residual]`` in f32. Under AMP bf16 operands
@@ -171,30 +203,36 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dt, *, gelu: bool = False, residual=
 
 
 def roberta_apply(model: Roberta, input_ids, attention_mask=None, *,
-                  compute_dtype=None) -> dict:
+                  compute_dtype=None, dropout: dict | None = None) -> dict:
     """``input_ids [B, L]`` (and ``attention_mask``, 1 = attend) ->
     ``{"last_hidden_state": [B, L, D], "pooler_output": [B, D]}`` in the
     model's float type. ``compute_dtype=torch.bfloat16`` is the AMP mode
-    (module docstring)."""
+    (module docstring). ``dropout``: :func:`sample_dropout`'s masks, the
+    training forward; None, no dropout."""
     cfg, dt = model.cfg, compute_dtype
     if dt not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {dt}")
     emb = model.embeddings
     dev = emb.word_embeddings.weight.device
-    input_ids = torch.as_tensor(input_ids, device=dev).long()
-    if attention_mask is None:
-        attention_mask = (input_ids != cfg.pad_token_id).long()
-    attention_mask = torch.as_tensor(attention_mask, device=dev)
-    if cfg.style == "bert":
-        pos_ids = torch.arange(input_ids.shape[-1], device=dev).expand_as(input_ids)
-    else:
-        pos_ids = position_ids_from_input_ids(input_ids, cfg.pad_token_id)
-    x = (emb.word_embeddings.weight[input_ids] + emb.position_embeddings.weight[pos_ids]
-         + emb.token_type_embeddings.weight[torch.zeros_like(input_ids)])
-    eps = cfg.layer_norm_eps
-    x = layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias, eps)
-    # additive attention bias: 0 where attended, the dtype's lowest where masked
-    bias = (1.0 - attention_mask[:, None, None, :].to(x.dtype)) * torch.finfo(x.dtype).min
+    rate, keep_e, layer_masks = 0.0, None, [(None, None, None)] * cfg.num_layers
+    if dropout is not None:
+        rate, keep_e, layer_masks = dropout["rate"], dropout["embed"], dropout["layers"]
+    with annotate("roberta.embed"):
+        input_ids = torch.as_tensor(input_ids, device=dev).long()
+        if attention_mask is None:
+            attention_mask = (input_ids != cfg.pad_token_id).long()
+        attention_mask = torch.as_tensor(attention_mask, device=dev)
+        if cfg.style == "bert":
+            pos_ids = torch.arange(input_ids.shape[-1], device=dev).expand_as(input_ids)
+        else:
+            pos_ids = position_ids_from_input_ids(input_ids, cfg.pad_token_id)
+        x = (emb.word_embeddings.weight[input_ids] + emb.position_embeddings.weight[pos_ids]
+             + emb.token_type_embeddings.weight[torch.zeros_like(input_ids)])
+        eps = cfg.layer_norm_eps
+        x = layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias, eps)
+        x = _drop(x, keep_e, rate)
+        # additive attention bias: 0 where attended, the dtype's lowest where masked
+        bias = (1.0 - attention_mask[:, None, None, :].to(x.dtype)) * torch.finfo(x.dtype).min
 
     b, l, d = x.shape
     nh = cfg.num_heads
@@ -203,20 +241,28 @@ def roberta_apply(model: Roberta, input_ids, attention_mask=None, *,
     def heads(t):
         return t.reshape(b, l, nh, hd).transpose(1, 2)
 
-    for layer in model.encoder.layer:
-        sa, out = layer.attention.self, layer.attention.output
-        xq = x if dt is None else x.to(dt)  # one cast for the three products
-        q, k, v = (heads(_dense(lin, xq, dt)) for lin in (sa.query, sa.key, sa.value))
-        s = bf16_round(q, dt) @ bf16_round(k, dt).transpose(-1, -2)
-        p = torch.softmax(s / math.sqrt(hd) + bias, dim=-1)
-        ctx = bf16_round(p, dt) @ bf16_round(v, dt)
-        ctx = ctx.transpose(1, 2).reshape(b, l, d)
-        x = _dense(out.dense, ctx, dt, residual=x)
-        x = layer_norm(x, out.LayerNorm.weight, out.LayerNorm.bias, eps)
-        h = _dense(layer.intermediate.dense, x, dt, gelu=True,
-                   out_dtype=torch.float32 if dt is None else dt)
-        fo = layer.output
-        x = layer_norm(_dense(fo.dense, h, dt, residual=x), fo.LayerNorm.weight,
-                       fo.LayerNorm.bias, eps)
-    pooled = torch.tanh(_dense(model.pooler.dense, x[:, 0], dt))
+    def add_dense(lin, t, residual, keep):
+        # the residual goes into the GEMM's epilogue unless dropout lies between
+        if keep is None:
+            return _dense(lin, t, dt, residual=residual)
+        return residual + _drop(_dense(lin, t, dt), keep, rate)
+
+    for i, (layer, (keep_p, keep_a, keep_f)) in enumerate(zip(model.encoder.layer, layer_masks)):
+        with annotate("roberta.layer", i):
+            sa, out = layer.attention.self, layer.attention.output
+            xq = x if dt is None else x.to(dt)  # one cast for the three products
+            q, k, v = (heads(_dense(lin, xq, dt)) for lin in (sa.query, sa.key, sa.value))
+            s = bf16_round(q, dt) @ bf16_round(k, dt).transpose(-1, -2)
+            p = _drop(torch.softmax(s / math.sqrt(hd) + bias, dim=-1), keep_p, rate)
+            ctx = bf16_round(p, dt) @ bf16_round(v, dt)
+            ctx = ctx.transpose(1, 2).reshape(b, l, d)
+            x = add_dense(out.dense, ctx, x, keep_a)
+            x = layer_norm(x, out.LayerNorm.weight, out.LayerNorm.bias, eps)
+            h = _dense(layer.intermediate.dense, x, dt, gelu=True,
+                       out_dtype=torch.float32 if dt is None else dt)
+            fo = layer.output
+            x = layer_norm(add_dense(fo.dense, h, x, keep_f), fo.LayerNorm.weight,
+                           fo.LayerNorm.bias, eps)
+    with annotate("roberta.pooler"):
+        pooled = torch.tanh(_dense(model.pooler.dense, x[:, 0], dt))
     return {"last_hidden_state": x, "pooler_output": pooled}

@@ -17,7 +17,7 @@ import contextlib
 
 import torch
 
-__all__ = ["layer_norm", "mxu_round", "linear", "attention_core", "golden_convs"]
+__all__ = ["layer_norm", "mxu_round", "linear", "attention_core", "golden_convs", "dropout"]
 
 
 @contextlib.contextmanager
@@ -32,6 +32,13 @@ def golden_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def dropout(x: torch.Tensor, mask: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """``x * mask / (1 - rate)`` in x's dtype, ``mask`` a bool keep mask
+    broadcasting to x's shape (autograd keeps it as bool); None is the
+    identity."""
+    return x if mask is None else x * mask / (1.0 - rate)
 
 
 def layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:

@@ -35,6 +35,7 @@ from audio_residual_tpu_torch.parallel.fsdp import (SHARDED_GROUP_SUFFIX, averag
 from audio_residual_tpu_torch.training.losses import clip_loss
 from audio_residual_tpu_torch.training.scheduler import cosine_lr
 from audio_residual_tpu_torch.utils.misc import do_mixup
+from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["MAX_LOGIT_SCALE", "decay_mask", "is_text_param", "is_pretrained_param",
            "make_optimizer", "make_split_optimizer", "set_lrs", "init_train_state",
@@ -224,7 +225,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     not reach, the text gradients zeroed under ``freeze_text``, the rates of
     this step (:func:`set_lrs`), the optimizer's update, the logit scales
     clamped to ln(100) (`train.py:154-159`) and bn0's running statistics
-    replaced by the forward's ``bn0_state``. ``metrics``: ``loss``,
+    replaced by the forward's ``bn0_state``; under a profiler the spans
+    ``train.forward``, ``train.loss``, ``train.backward`` and
+    ``train.update`` (from the zero-fill to bn0's merge). ``metrics``: ``loss``,
     ``logit_scale_a`` (after the clamp) and ``grad_norm`` (of the gradients
     the update took).
 
@@ -271,12 +274,15 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device))
-        out = towers(wav, batch["input_ids"], batch.get("attention_mask"), seed)
-        loss = clip_loss(out, group=group, mlp_loss=mlp_loss,
-                         weight_loss_kappa=weight_loss_kappa)
+        with annotate("train.forward"):
+            out = towers(wav, batch["input_ids"], batch.get("attention_mask"), seed)
+        with annotate("train.loss"):
+            loss = clip_loss(out, group=group, mlp_loss=mlp_loss,
+                             weight_loss_kappa=weight_loss_kappa)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        with torch.no_grad():
+        with annotate("train.backward"):
+            loss.backward()
+        with torch.no_grad(), annotate("train.update"):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

@@ -126,9 +126,10 @@ def test_apply_transform_drops_out_in_training_only():
 
 
 def test_clap_apply_has_no_train_mode_yet(committed):
-    """The text side has no training mode (the JAX package's neither):
-    ``clap_apply(train=True)`` without a generator gives eval's text
-    features, its transforms without dropout, and adds ``bn0_state``."""
+    """Without a generator the text side's training mode draws nothing (the
+    JAX package's text towers have none): ``clap_apply(train=True)`` gives
+    eval's text features, its transforms without dropout, and adds
+    ``bn0_state``."""
     model = t_clap.build_clap(fx.port_clap_config("roberta"), device="cpu")
     wav = torch.from_numpy(committed["wav"][:, :24000])
     ids = committed["text/roberta/input_ids"][:2]
