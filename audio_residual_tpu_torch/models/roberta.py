@@ -22,8 +22,12 @@ arithmetic, as HTSAT's drop-path and SpecAugment are: :func:`sample_dropout`
 draws the keep masks from a ``torch.Generator``, :func:`roberta_apply`
 takes them (``dropout=``); without masks nothing random happens.
 
-Two modes. Golden (``compute_dtype=None``): plain f32 products (the JAX
-package runs them outside any Pallas kernel, ``x @ kernel``). AMP
+Two modes. Golden (``compute_dtype=None``): f32 products (the JAX package
+runs them outside any Pallas kernel, ``x @ kernel``); on the card the dense
+products run the port's 3xTF32 GEMM, forward and both gradients
+(:func:`~audio_residual_tpu_torch.ops.cuda.linear.linear_tf32x3`, about
+f32's accuracy; q, k and v as one product, :func:`_qkv`), on
+the CPU and for a sharded weight ``F.linear``. AMP
 (``compute_dtype=torch.bfloat16``), the JAX contract
 (``roberta.py:98-106,151-167``): every dense product takes bf16 operands
 with f32 accumulation and gives f32; q/k and probabilities/v enter their
@@ -41,11 +45,11 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from audio_residual_tpu_torch.ops.common import dropout as _drop, layer_norm
 from audio_residual_tpu_torch.ops.cuda.gemm import gemm
+from audio_residual_tpu_torch.ops.cuda.linear import linear_plain, linear_tf32x3, takes
 from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights
 from audio_residual_tpu_torch.utils.profiling import annotate
 
@@ -186,20 +190,36 @@ def sample_dropout(generator: torch.Generator, cfg: RobertaConfig, b: int, l: in
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dt, *, gelu: bool = False, residual=None,
            out_dtype=torch.float32) -> torch.Tensor:
-    """``[gelu](x @ W^T + b) [+ residual]`` in f32. Under AMP bf16 operands
-    on the bf16 GEMM (f32 accumulate; the bias, GELU and residual in its
-    epilogue); ``out_dtype=bf16`` rounds the f32 result once, for a product
-    whose only reader rounds it to bf16 anyway."""
+    """``[gelu](x @ W^T + b) [+ residual]`` in f32. Golden: on the 3xTF32
+    linear where it takes the product (f32 CUDA tensors, a whole weight),
+    else ``F.linear``. Under AMP bf16 operands on the bf16 GEMM (f32
+    accumulate; the bias, GELU and residual in its epilogue);
+    ``out_dtype=bf16`` rounds the f32 result once, for a product whose only
+    reader rounds it to bf16 anyway."""
     if dt is None:
-        y = F.linear(x, lin.weight, lin.bias)
-        if gelu:
-            y = F.gelu(y)
+        linear = linear_tf32x3 if takes(x, lin.weight) else linear_plain
+        y = linear(x, lin.weight, lin.bias, gelu=gelu)
         return y if residual is None else residual + y
     lead = x.shape[:-1]
     (w,) = mxu_weights(dt, lin.weight)
     a = x.reshape(-1, x.shape[-1]).to(dt).contiguous()
     r1 = None if residual is None else residual.reshape(-1, residual.shape[-1]).contiguous()
     return gemm(a, w, bias=lin.bias, gelu=gelu, r1=r1, out_dtype=out_dtype).reshape(*lead, -1)
+
+
+def _qkv(sa, x: torch.Tensor, dt) -> tuple:
+    """The self-attention's q, k and v ``[..., D]``. Golden on the card: one
+    product on the three weights concatenated (N = 3D), the same sums of
+    products as three, with one call's host work, one weight split and, in
+    training, one autograd node, one split of the activation for the
+    weight gradient and one dx product for all three. Otherwise three
+    products."""
+    lins = (sa.query, sa.key, sa.value)
+    if dt is None and takes(x, sa.query.weight):
+        w = torch.cat([lin.weight for lin in lins])
+        b = torch.cat([lin.bias for lin in lins])
+        return linear_tf32x3(x, w, b).split(x.shape[-1], dim=-1)
+    return tuple(_dense(lin, x, dt) for lin in lins)
 
 
 def roberta_apply(model: Roberta, input_ids, attention_mask=None, *,
@@ -251,7 +271,7 @@ def roberta_apply(model: Roberta, input_ids, attention_mask=None, *,
         with annotate("roberta.layer", i):
             sa, out = layer.attention.self, layer.attention.output
             xq = x if dt is None else x.to(dt)  # one cast for the three products
-            q, k, v = (heads(_dense(lin, xq, dt)) for lin in (sa.query, sa.key, sa.value))
+            q, k, v = (heads(t) for t in _qkv(sa, xq, dt))
             s = bf16_round(q, dt) @ bf16_round(k, dt).transpose(-1, -2)
             p = _drop(torch.softmax(s / math.sqrt(hd) + bias, dim=-1), keep_p, rate)
             ctx = bf16_round(p, dt) @ bf16_round(v, dt)

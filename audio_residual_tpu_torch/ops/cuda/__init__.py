@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, one module per TPU kernel,
-``gemm``, the bf16 GEMM they share under AMP, and ``qr``, the blocked
-float64 Householder QR of the PCA finalize.
+``gemm``, the bf16 GEMM they share under AMP, ``linear``, the text tower's
+golden dense products and their gradients on the 3xTF32 GEMM, and ``qr``,
+the blocked float64 Householder QR of the PCA finalize.
 
 Each kernel module holds the wrapper (checks, allocation, launch on the
 current stream), its plain PyTorch version and, for K2-K5, its autograd
@@ -29,6 +30,10 @@ KERNELS = {
     "fused_swin_block": ("swin_block", "audio_residual_tpu/ops/pallas/swin_block.py:208"),
     "wide_window_attention": ("wide_attention",
                               "audio_residual_tpu/ops/pallas/window_attention.py:234"),
+    "linear_tf32x3": ("gemm",
+                      "none: the JAX package's text tower runs its dense products as "
+                      "x @ kernel outside any Pallas kernel (audio_residual_tpu/models/"
+                      "roberta.py:105)"),
     "householder_qr": ("householder_qr",
                        "none: the JAX package whitens by a clamped Gram matrix "
                        "(audio_residual_tpu/ops/pca.py:161)"),

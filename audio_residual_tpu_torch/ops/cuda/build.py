@@ -130,7 +130,15 @@ def check(lib_name: str, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+# the current stream's handle without a Stream object (about 0.1 µs a call
+# against 4 on the H100's host); CPU builds of PyTorch lack it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current stream on ``t``'s card."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

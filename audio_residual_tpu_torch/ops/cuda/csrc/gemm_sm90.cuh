@@ -64,6 +64,11 @@
 //     build.
 // Weights arrive in bf16 or split, made by the wrappers once per weight
 // version, never per tile.
+//   * 3xTF32's K loop loads and splits the next k-tile's A while the
+//     current k-tile's wgmmas run (tf32x3_k_loop). For the weight gradient
+//     of the text tower's linear (ops/cuda/linear.py), whose reduction runs
+//     over the batch's rows, A is read transposed from [32, 32] TMA boxes
+//     (A_T) and K is cut into slabs (splits).
 //
 // Tried on the H100 while the bf16 design was made and not kept, for none
 // was faster at HTSAT-tiny's layer-0 shapes: stores straight from the
@@ -106,6 +111,10 @@ constexpr int BK = 64;        // 64 bf16 = 128 bytes: one row of the 128-byte sw
 constexpr int BK_TF32 = 32;   // 32 f32: the same 128-byte row
 constexpr int ROW_BYTES = 128;
 constexpr int THREADS = 384;
+// 3xTF32 with A transposed (A_T): the A tile arrives as BM / 32 boxes of
+// [32 k, 32 rows] f32, each one 128-byte swizzled line a k
+constexpr int A_T_BOX = 32 * ROW_BYTES;
+constexpr int A_T_BOXES = BM / 32;
 constexpr int SMEM_LIMIT = 232448;  // what a block may use on the H100
 
 // W_PARTS: 1 (bf16 W) or 2 (3xTF32: W's hi tile, then its lo tile)
@@ -544,23 +553,28 @@ struct WgmmaTf32<128> {
 
 // One K step of 32 f32 of a 3xTF32 product on a consumer warpgroup:
 // part[64, BN] = A[64, 32] @ W[BN, 32]^T as lo_A hi_W + hi_A lo_W + hi_A hi_W
-// per k8 step, the small terms first. a_tile: the warpgroup's 64 rows of A,
-// 128-byte rows written by TMA with the 128-byte swizzle (16-byte chunk c
-// of row r at c ^ (r % 8): the 32 lanes of a load hit 32 banks); dhi, dlo:
-// descriptors of W's hi and lo tiles. Commits one wgmma group, which reads
-// the fragment registers until it completes: the caller waits for it before
-// the registers are reused.
+// per k8 step, the small terms first. tf32x3_split_a loads the warpgroup's
+// fragment of A and splits it into hi and lo; tf32x3_issue commits the
+// k-tile's 12 wgmmas on it, which read the fragment registers until they
+// complete. a_tile: the warpgroup's 64 rows of A, 128-byte rows written by
+// TMA with the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8):
+// the 32 lanes of a load hit 32 banks); dhi, dlo: descriptors of W's hi and
+// lo tiles.
 // CENTRE: a_sub [K] is subtracted from A's columns before the split; the
 // k-tile's columns k0 .. k0 + 31, those from K on read as 0 (A's ragged K
 // edge arrives zero-filled, but a_sub past its end may hold a NaN). A
 // compile-time switch: the fragment registers that wgmma reads stay
 // straight-line code.
-template <int BN, bool CENTRE>
-__device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsigned char* a_tile,
-                                             uint64_t dhi, uint64_t dlo, const float* a_sub,
-                                             int k0, int K) {
+// A_T: the tile holds A transposed, as A_T_BOXES boxes of [32 k, 32 rows]
+// (A_T_BOX bytes each, the rows along the 128-byte swizzled line): element
+// (row, k) of box row / 32 lies in line k, chunk ((row % 32) / 4) ^ (k % 8).
+// The 32 lanes of a load then meet 16 banks, two lanes each.
+template <bool CENTRE, bool A_T>
+__device__ __forceinline__ void tf32x3_split_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                               const unsigned char* a_tile, const float* a_sub,
+                                               int k0, int K) {
   const int t = threadIdx.x % 128, lane = t % 32;
-  const int r = 16 * (t / 32) + lane / 4, q = lane % 4, sw = lane / 4;  // sw = r % 8
+  const int r = 16 * (t / 32) + lane / 4, q = lane % 4;
   // the thread's 8 columns of the k-tile: chunk c holds columns 4c .. 4c + 3
   float sub[8];
 #pragma unroll
@@ -568,17 +582,30 @@ __device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsign
     const int k = k0 + 4 * c + q;
     sub[c] = CENTRE && k < K ? __ldg(a_sub + k) : 0.0f;
   }
-  uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r + 8 * (i & 1), chunk = 2 * s + (i >> 1);
-      float x = *reinterpret_cast<const float*>(a_tile + row * ROW_BYTES +
-                                                ((chunk ^ sw) << 4) + 4 * q);
+      float x;
+      if constexpr (A_T) {
+        const int k = 4 * chunk + q;
+        x = *reinterpret_cast<const float*>(a_tile + (row >> 5) * A_T_BOX + k * ROW_BYTES +
+                                            ((((row & 31) >> 2) ^ (k & 7)) << 4) +
+                                            4 * (row & 3));
+      } else {
+        x = *reinterpret_cast<const float*>(a_tile + row * ROW_BYTES +
+                                            ((chunk ^ (row & 7)) << 4) + 4 * q);
+      }
       if constexpr (CENTRE) x -= sub[chunk];
       split_tf32(x, hi[s][i], lo[s][i]);
     }
+}
+
+template <int BN>
+__device__ __forceinline__ void tf32x3_issue(float (&part)[BN / 2], const uint32_t (&hi)[4][4],
+                                             const uint32_t (&lo)[4][4], uint64_t dhi,
+                                             uint64_t dlo) {
   fence_regs(part);
   wgmma_fence();
 #pragma unroll
@@ -592,42 +619,107 @@ __device__ __forceinline__ void tf32x3_ktile(float (&part)[BN / 2], const unsign
   wgmma_commit();
 }
 
+// keeps the compiler from reusing a fragment's registers while a wgmma in
+// flight still reads them
+__device__ __forceinline__ void keep_regs(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[s][i])::"memory");
+}
+
+// One k-tile of tf32x3_k_loop: its wgmmas on fragment (hi, lo), and while
+// they run the next k-tile's fragment loaded and split into (nhi, nlo);
+// then the stage released and the partial sum added. Each k-tile goes into
+// its own partial sum, added to acc on the CUDA cores (round to nearest):
+// the tensor core's own adds, which do not round to nearest, then run 12
+// times on a sum of 32 products, not 3 K / 8 times on the whole; this keeps
+// the error against float64 near an f32 GEMM's.
+template <int BN, int STAGES, int W_BYTES, bool CENTRE, bool A_T>
+__device__ __forceinline__ void tf32x3_k_step(float (&acc)[BN / 2], uint32_t (&hi)[4][4],
+                                              uint32_t (&lo)[4][4], uint32_t (&nhi)[4][4],
+                                              uint32_t (&nlo)[4][4], unsigned char* a_ring,
+                                              unsigned char* w_ring, int a_off, uint64_t* full,
+                                              uint64_t* empty, int kt, int k_tiles, int& stage,
+                                              uint32_t& phase, const float* a_sub, int K,
+                                              int kt0) {
+  constexpr int A_BYTES = BM * ROW_BYTES;
+  unsigned char* w = w_ring + stage * W_BYTES;
+  float part[BN / 2];
+  tf32x3_issue<BN>(part, hi, lo, smem_desc(w), smem_desc(w + BN * ROW_BYTES));
+  int next = stage + 1;
+  uint32_t next_phase = phase;
+  if (next == STAGES) next = 0, next_phase ^= 1;
+  if (kt + 1 < k_tiles) {
+    mbar_wait(&full[next], next_phase);
+    tf32x3_split_a<CENTRE, A_T>(nhi, nlo, a_ring + next * A_BYTES + a_off, a_sub,
+                                (kt0 + kt + 1) * BK_TF32, K);
+  }
+  wgmma_wait<0>();  // the fragment registers are free, the stage is read
+  fence_regs(part);
+  keep_regs(hi);
+  keep_regs(lo);
+  if (threadIdx.x % 32 == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = kt ? acc[i] + part[i] : part[i];
+  stage = next;
+  phase = next_phase;
+}
+
+// consume_k_loop's 3xTF32 K loop: the next k-tile's A fragment is loaded and
+// split while the current k-tile's wgmmas run, in a second set of fragment
+// registers, so that the fragment's load and split stay off the
+// warpgroup's critical path. The two sets take turns, the loop unrolled by
+// two so that each stays in registers.
+template <int BN, int STAGES, int W_BYTES, bool CENTRE, bool A_T>
+__device__ __forceinline__ void tf32x3_k_loop(float (&acc)[BN / 2], unsigned char* a_ring,
+                                              unsigned char* w_ring, int a_off, uint64_t* full,
+                                              uint64_t* empty, int k_tiles, int& stage,
+                                              uint32_t& phase, const float* a_sub, int K,
+                                              int kt0) {
+  constexpr int A_BYTES = BM * ROW_BYTES;
+  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+  mbar_wait(&full[stage], phase);
+  tf32x3_split_a<CENTRE, A_T>(h0, l0, a_ring + stage * A_BYTES + a_off, a_sub, kt0 * BK_TF32,
+                              K);
+  for (int kt = 0; kt < k_tiles; kt += 2) {
+    tf32x3_k_step<BN, STAGES, W_BYTES, CENTRE, A_T>(acc, h0, l0, h1, l1, a_ring, w_ring, a_off,
+                                                    full, empty, kt, k_tiles, stage, phase,
+                                                    a_sub, K, kt0);
+    if (kt + 1 < k_tiles) {
+      tf32x3_k_step<BN, STAGES, W_BYTES, CENTRE, A_T>(acc, h1, l1, h0, l0, a_ring, w_ring,
+                                                      a_off, full, empty, kt + 1, k_tiles,
+                                                      stage, phase, a_sub, K, kt0);
+    }
+  }
+}
+
 // The consumer side of one output tile's K loop over the ring, shared by
 // the GEMM and K1's DFT (logmel.cu): acc[64, BN] = A @ W^T for the
 // warpgroup's 64 rows (a_off bytes into each A tile). Stage s holds A at
 // a_ring + s A_BYTES and W at w_ring + s W_BYTES (3xTF32: hi, then lo
 // BN rows later). Lane 0 of each warp releases a stage once its products
-// are done; `stage` and `phase` carry over to the next tile. 3xTF32 with
-// CENTRE: a_sub [K] is subtracted from A's columns (tf32x3_ktile).
-template <bool X3, int BN, int STAGES, int W_BYTES, bool CENTRE = false>
+// are done; `stage` and `phase` carry over to the next tile. 3xTF32 runs
+// tf32x3_k_loop: with CENTRE a_sub [K] is subtracted from A's columns, with
+// A_T the A tiles hold A transposed (tf32x3_split_a). The loop covers
+// k-tiles kt0 .. kt0 + k_tiles - 1 of A's columns (a split of K).
+template <bool X3, int BN, int STAGES, int W_BYTES, bool CENTRE = false, bool A_T = false>
 __device__ __forceinline__ void consume_k_loop(float (&acc)[BN / 2], unsigned char* a_ring,
                                                unsigned char* w_ring, int a_off, uint64_t* full,
                                                uint64_t* empty, int k_tiles, int& stage,
                                                uint32_t& phase, const float* a_sub = nullptr,
-                                               int K = 0) {
-  constexpr int A_BYTES = BM * ROW_BYTES;
-  const bool signals = threadIdx.x % 32 == 0;
-  int reading = -1;  // bf16: the stage the wgmma group in flight reads
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    mbar_wait(&full[stage], phase);
-    unsigned char* w = w_ring + stage * W_BYTES;
-    if constexpr (X3) {
-      // each k-tile into its own partial sum, added to acc on the CUDA cores
-      // (round to nearest): the tensor core's own adds, which do not round
-      // to nearest, then run 12 times on a sum of 32 products, not 3 K / 8
-      // times on the whole; this keeps the error against float64 near an
-      // f32 GEMM's
-      float part[BN / 2];
-      tf32x3_ktile<BN, CENTRE>(part, a_ring + stage * A_BYTES + a_off, smem_desc(w),
-                       smem_desc(w + BN * ROW_BYTES), a_sub, kt * BK_TF32, K);
-      wgmma_wait<0>();  // the fragment registers are free, the stage is read
-      fence_regs(part);
-      if (signals) mbar_arrive(&empty[stage]);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = kt ? acc[i] + part[i] : part[i];
-    } else {
+                                               int K = 0, int kt0 = 0) {
+  if constexpr (X3) {
+    tf32x3_k_loop<BN, STAGES, W_BYTES, CENTRE, A_T>(acc, a_ring, w_ring, a_off, full, empty,
+                                                    k_tiles, stage, phase, a_sub, K, kt0);
+  } else {
+    constexpr int A_BYTES = BM * ROW_BYTES;
+    const bool signals = threadIdx.x % 32 == 0;
+    int reading = -1;  // the stage the wgmma group in flight reads
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      mbar_wait(&full[stage], phase);
       const uint64_t da = smem_desc(a_ring + stage * A_BYTES + a_off);
-      const uint64_t dw = smem_desc(w);
+      const uint64_t dw = smem_desc(w_ring + stage * W_BYTES);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -641,10 +733,8 @@ __device__ __forceinline__ void consume_k_loop(float (&acc)[BN / 2], unsigned ch
       fence_regs(acc);
       if (reading >= 0 && signals) mbar_arrive(&empty[reading]);
       reading = stage;
+      if (++stage == STAGES) stage = 0, phase ^= 1;
     }
-    if (++stage == STAGES) stage = 0, phase ^= 1;
-  }
-  if constexpr (!X3) {
     wgmma_wait<0>();
     fence_regs(acc);
     if (signals) mbar_arrive(&empty[reading]);
@@ -746,11 +836,19 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], float* st
 
 // The GEMM on one block: X3 selects 3xTF32 (f32 A, less a_sub with CENTRE;
 // W's hi map tma_w and lo map *tma_w_lo) over bf16 (A and W bf16; tma_w_lo
-// and a_sub unused).
-template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false>
+// and a_sub unused). 3xTF32 with A_T: tma_a maps A^T, [K, M] row-major, in
+// boxes of [32, 32] (tf32x3_split_a). `splits` > 1 splits K: split s sums
+// k-tiles s * k_per .. (s + 1) * k_per - 1 into C + s M N (the caller sums
+// the splits; the epilogue then has nothing to add), the (split, M tile, N
+// tile) triples walked as the tiles are, N fastest.
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false,
+          bool A_T = false>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtensorMap& tma_w,
                                           const CUtensorMap* tma_w_lo, OutT* C, int M, int N,
-                                          int K, const Epilogue& e, const float* a_sub) {
+                                          int K, const Epilogue& e, const float* a_sub,
+                                          int splits = 1) {
+  static_assert(X3 || !A_T, "A_T reads f32 A");
+  static_assert(!(CENTRE && A_T), "no centring of a transposed A");
   using T = Tiles<BN, X3 ? 2 : 1>;
   constexpr int KB = X3 ? BK_TF32 : BK;  // elements a K step
   extern __shared__ unsigned char smem_raw[];
@@ -762,7 +860,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtens
   uint64_t* empty = full + T::STAGES;
 
   const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = ((M + BM - 1) / BM) * n_tiles, k_tiles = (K + KB - 1) / KB;
+  const int mn_tiles = ((M + BM - 1) / BM) * n_tiles, k_all = (K + KB - 1) / KB;
+  const int k_per = (k_all + splits - 1) / splits, tiles = mn_tiles * splits;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
@@ -779,12 +878,22 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtens
     int stage = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-      for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = t / mn_tiles, mt = t - s * mn_tiles;
+      const int m0 = (mt / n_tiles) * BM, n0 = (mt % n_tiles) * BN;
+      const int kt0 = s * k_per, kt1 = min(kt0 + k_per, k_all);
+      for (int kt = kt0; kt < kt1; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], T::STAGE_BYTES);
         unsigned char* w = w_ring + stage * T::W_BYTES;
-        tma_load(a_ring + stage * T::A_BYTES, &tma_a, &full[stage], kt * KB, m0);
+        unsigned char* a = a_ring + stage * T::A_BYTES;
+        if constexpr (A_T) {
+#pragma unroll
+          for (int j = 0; j < A_T_BOXES; ++j) {
+            tma_load(a + j * A_T_BOX, &tma_a, &full[stage], m0 + 32 * j, kt * KB);
+          }
+        } else {
+          tma_load(a, &tma_a, &full[stage], kt * KB, m0);
+        }
         tma_load(w, &tma_w, &full[stage], kt * KB, n0);
         if constexpr (X3) tma_load(w + BN * ROW_BYTES, tma_w_lo, &full[stage], kt * KB, n0);
         if (++stage == T::STAGES) stage = 0, phase ^= 1;
@@ -803,10 +912,13 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a, const CUtens
   int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
-    consume_k_loop<X3, BN, T::STAGES, T::W_BYTES, CENTRE>(acc, a_ring, w_ring, a_off, full,
-                                                          empty, k_tiles, stage, phase, a_sub, K);
-    store_tile<BN, OutT, R1T, R2T>(acc, stage_out, C, M, N, m0 + 64 * (wg - 1), n0, e, wg);
+    const int s = t / mn_tiles, mt = t - s * mn_tiles;
+    const int m0 = (mt / n_tiles) * BM, n0 = (mt % n_tiles) * BN;
+    const int kt0 = s * k_per, kt1 = min(kt0 + k_per, k_all);
+    consume_k_loop<X3, BN, T::STAGES, T::W_BYTES, CENTRE, A_T>(
+        acc, a_ring, w_ring, a_off, full, empty, kt1 - kt0, stage, phase, a_sub, K, kt0);
+    store_tile<BN, OutT, R1T, R2T>(acc, stage_out, C + (size_t)s * M * N, M, N,
+                                   m0 + 64 * (wg - 1), n0, e, wg);
   }
 }
 
@@ -818,13 +930,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   gemm_body<false, BN, OutT, R1T, R2T>(tma_a, tma_w, nullptr, C, M, N, K, e, nullptr);
 }
 
-template <int BN, typename OutT, typename R1T, typename R2T, bool CENTRE>
+template <int BN, typename OutT, typename R1T, typename R2T, bool CENTRE, bool A_T>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap tma_a,
                        const __grid_constant__ CUtensorMap tma_hi,
                        const __grid_constant__ CUtensorMap tma_lo, OutT* __restrict__ C, int M,
-                       int N, int K, Epilogue e, const float* __restrict__ a_sub) {
-  gemm_body<true, BN, OutT, R1T, R2T, CENTRE>(tma_a, tma_hi, &tma_lo, C, M, N, K, e, a_sub);
+                       int N, int K, Epilogue e, const float* __restrict__ a_sub, int splits) {
+  gemm_body<true, BN, OutT, R1T, R2T, CENTRE, A_T>(tma_a, tma_hi, &tma_lo, C, M, N, K, e, a_sub,
+                                                   splits);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -845,12 +958,25 @@ static inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// The TMA encoder (cuTensorMapEncodeTiled) needs a context current on the
+// calling thread. A thread that has made no runtime call that binds one may
+// have none (the autograd engine's, where the 3xTF32 linear's backward
+// runs: PyTorch binds no context there when the device it sets is already
+// the runtime's default), and the encoder then fails with
+// CUDA_ERROR_INVALID_CONTEXT; the runtime binds the current device's
+// primary context at its first call that needs one, once a thread.
+static inline bool bind_context() {
+  static thread_local bool bound = false;
+  if (!bound) bound = cudaFree(nullptr) == cudaSuccess;
+  return bound;
+}
+
 // [rows, cols] row-major, boxes of [box_rows, box_cols]; out-of-bounds
 // elements read as zero and are not written
 static inline bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
                               int box_cols, int bf16, CUtensorMapSwizzle swizzle) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (!encode) return false;
+  if (!encode || !bind_context()) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * (bf16 ? 2 : 4)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -893,15 +1019,17 @@ static inline cudaError_t sm_count(int dev, int* sms) {
 }
 
 // X3: the 3xTF32 kernel, W's hi map tw and lo map *tl, A less a_sub with
-// CENTRE; else bf16 (tl and a_sub null)
-template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false>
+// CENTRE, A transposed with A_T, K in `splits` splits; else bf16 (tl and
+// a_sub null, one split)
+template <bool X3, int BN, typename OutT, typename R1T, typename R2T, bool CENTRE = false,
+          bool A_T = false>
 static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap* tl,
                           void* C, int M, int N, int K, const Epilogue& e, int dev, int sms,
-                          cudaStream_t s, const float* a_sub = nullptr) {
+                          cudaStream_t s, const float* a_sub = nullptr, int splits = 1) {
   constexpr int smem = Tiles<BN, X3 ? 2 : 1>::SMEM;
   const void* kernel;
   if constexpr (X3) {
-    kernel = reinterpret_cast<const void*>(gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE>);
+    kernel = reinterpret_cast<const void*>(gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE, A_T>);
   } else {
     kernel = reinterpret_cast<const void*>(gemm_kernel<BN, OutT, R1T, R2T>);
   }
@@ -912,11 +1040,11 @@ static cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const CU
     if (err != cudaSuccess) return err;
     smem_set[dev].store(true, std::memory_order_relaxed);
   }
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits;
   const int grid = tiles < sms ? tiles : sms;
   if constexpr (X3) {
-    gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE><<<grid, THREADS, smem, s>>>(
-        ta, tw, *tl, static_cast<OutT*>(C), M, N, K, e, a_sub);
+    gemm_tf32x3_kernel<BN, OutT, R1T, R2T, CENTRE, A_T><<<grid, THREADS, smem, s>>>(
+        ta, tw, *tl, static_cast<OutT*>(C), M, N, K, e, a_sub, splits);
   } else {
     gemm_kernel<BN, OutT, R1T, R2T><<<grid, THREADS, smem, s>>>(ta, tw, static_cast<OutT*>(C), M,
                                                                 N, K, e);
@@ -951,20 +1079,26 @@ static cudaError_t launch_bn(const CUtensorMap& ta, const CUtensorMap& tw, void*
 // the 3xTF32 GEMM writes f32 and adds an f32 r1; r2 may be bf16 (the
 // block input x: the double FFN's, the golden proj's residual, the
 // ResiDual's). With a_sub (the ResiDual's first product) both residuals
-// are f32.
+// are f32; with a_t (A transposed, the linear's weight gradient) there is
+// neither, and K may come in splits.
 template <int BN>
 static cudaError_t launch_tf32x3(const CUtensorMap& ta, const CUtensorMap& th,
                                  const CUtensorMap& tl, void* C, int M, int N, int K,
-                                 const Epilogue& e, int r2_bf16, const float* a_sub, int dev,
-                                 int sms, cudaStream_t s) {
+                                 const Epilogue& e, int r2_bf16, const float* a_sub, int a_t,
+                                 int splits, int dev, int sms, cudaStream_t s) {
   using B = __nv_bfloat16;
   if (a_sub) {
     if (r2_bf16) return cudaErrorInvalidValue;
     return launch<true, BN, float, float, float, true>(ta, th, &tl, C, M, N, K, e, dev, sms, s,
                                                        a_sub);
   }
+  if (a_t) {
+    return launch<true, BN, float, float, float, false, true>(ta, th, &tl, C, M, N, K, e, dev,
+                                                              sms, s, nullptr, splits);
+  }
   return r2_bf16 ? launch<true, BN, float, float, B>(ta, th, &tl, C, M, N, K, e, dev, sms, s)
-                 : launch<true, BN, float, float, float>(ta, th, &tl, C, M, N, K, e, dev, sms, s);
+                 : launch<true, BN, float, float, float>(ta, th, &tl, C, M, N, K, e, dev, sms, s,
+                                                         nullptr, splits);
 }
 
 // A 3xTF32 plan is this build's: BN 32, 64, 96 or 128, and the ring depth
@@ -1031,11 +1165,21 @@ struct Tf32x3Weight {
 // says; a_sub [K] or null. K a multiple of 4 (16-byte TMA rows), N of 8; r1
 // f32, r2 f32 or bf16 (r2_bf16; f32 with a_sub); pointers but a_sub 16-byte
 // aligned. Enqueues on `s`.
+// a_t: A arrives transposed, [K, M] row-major (M a multiple of 4; no a_sub).
+// splits > 1: C is [splits, M, N], split s the sum over k-tiles of 32 from
+// s * k_per to (s + 1) * k_per - 1, k_per = ceil(ceil(K / 32) / splits),
+// each split one at least; no epilogue then (the caller sums the splits).
 static inline cudaError_t gemm_tf32x3(const float* A, const Tf32x3Weight& w, float* C, int M,
                                       int N, int K, const Epilogue& e, int r2_bf16,
-                                      cudaStream_t s, const float* a_sub = nullptr) {
+                                      cudaStream_t s, const float* a_sub = nullptr, int a_t = 0,
+                                      int splits = 1) {
   using namespace sm90;
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 8 || !tf32x3_plan_ok(w.bn, w.stages)) {
+  const int k_all = (K + BK_TF32 - 1) / BK_TF32;
+  const bool epilogue = e.bias || e.col_scale || e.gelu || e.r1 || e.r2;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 8 || !tf32x3_plan_ok(w.bn, w.stages) ||
+      (a_t && (M % 4 || a_sub)) || splits < 1 ||
+      (splits - 1) * ((k_all + splits - 1) / splits) >= k_all ||
+      (splits > 1 && (epilogue || a_sub || r2_bf16))) {
     return cudaErrorInvalidValue;
   }
   const void* pointers[8] = {A, w.hi, w.lo, C, e.bias, e.col_scale, e.r1, e.r2};
@@ -1047,20 +1191,25 @@ static inline cudaError_t gemm_tf32x3(const float* A, const Tf32x3Weight& w, flo
   if (err == cudaSuccess) err = sm_count(dev, &sms);
   if (err != cudaSuccess) return err;
   CUtensorMap ta, th, tl;
-  if (!encode_map(&ta, A, M, K, BM, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!(a_t ? encode_map(&ta, A, K, M, 32, 32, 0, CU_TENSOR_MAP_SWIZZLE_128B)
+            : encode_map(&ta, A, M, K, BM, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B)) ||
       !encode_map(&th, w.hi, N, K, w.bn, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_map(&tl, w.lo, N, K, w.bn, BK_TF32, 0, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return cudaErrorInvalidValue;
   }
   switch (w.bn) {
     case 32:
-      return launch_tf32x3<32>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
+      return launch_tf32x3<32>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, a_t, splits, dev, sms,
+                               s);
     case 64:
-      return launch_tf32x3<64>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
+      return launch_tf32x3<64>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, a_t, splits, dev, sms,
+                               s);
     case 96:
-      return launch_tf32x3<96>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
+      return launch_tf32x3<96>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, a_t, splits, dev, sms,
+                               s);
     default:
-      return launch_tf32x3<128>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, dev, sms, s);
+      return launch_tf32x3<128>(ta, th, tl, C, M, N, K, e, r2_bf16, a_sub, a_t, splits, dev, sms,
+                                s);
   }
 }
 

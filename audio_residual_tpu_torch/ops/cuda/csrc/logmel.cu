@@ -9,7 +9,7 @@
 //   * logmel_wgmma_kernel, the AMP route (dft_mode "bf16"): frames and basis
 //     in bf16, wgmma m64n128k16, f32 accumulate.
 //   * logmel_tf32x3_kernel, the golden route (dft_mode "f32"): frames and
-//     basis f32, each product in 3xTF32 (gemm_sm90.cuh::tf32x3_ktile, the
+//     basis f32, each product in 3xTF32 (gemm_sm90.cuh::tf32x3_k_loop, the
 //     product of the golden FFN GEMM): the basis arrives split into hi +
 //     lo (ops/cuda/frontend.py::tf32x3_constants, once per config and
 //     device), the frames are split as the consumers read them; about f32

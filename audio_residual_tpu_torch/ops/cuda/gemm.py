@@ -14,7 +14,10 @@ are one kernel design (TMA loads into a ring of shared-memory stages,
 products are the MXU dots inside the Pallas block kernels. RoBERTa's AMP
 dense products call :func:`gemm` directly; in training, where an input
 requires grad, it takes :func:`gemm_autograd` (the kernel forward, the plain
-version's backward, :mod:`.autograd`).
+version's backward, :mod:`.autograd`). RoBERTa's golden dense products on
+the card run the 3xTF32 GEMM through :mod:`.linear`, forward and both
+gradients (:func:`tf32x3_launch`; the weight gradient reads A transposed
+and splits K).
 """
 
 from __future__ import annotations
@@ -143,11 +146,25 @@ def _tf32x3_kernel(a, w, bias, col_scale, gelu, r1, r2, a_sub) -> torch.Tensor:
                             float_only=("a", "w", "bias", "col_scale", "r1", "a_sub"))
     (w_hi, w_lo), = tf32x3.split_weights(w)
     out = torch.empty(m, n, device=a.device, dtype=torch.float32)
-    fn = build.bind("gemm", "arpu_gemm_tf32x3", "pppp" "iii" "ii" "ppi" "ppi" "p" "p")
-    rc = fn(a.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), out.data_ptr(), m, n, k, plan.bn,
-            plan.stages, build.ptr(bias), build.ptr(col_scale), int(bool(gelu)), build.ptr(r1),
-            build.ptr(r2), int(r2 is not None and r2.dtype == torch.bfloat16),
-            build.ptr(a_sub), build.stream_of(a))
-    build.check("gemm", rc, "gemm_tf32x3")
+    tf32x3_launch(a, w_hi, w_lo, out, plan.bn, plan.stages, bias=bias, col_scale=col_scale,
+                  gelu=gelu, r1=r1, r2=r2, a_sub=a_sub)
     launch_counts["gemm_tf32x3"] += 1
     return out
+
+
+def tf32x3_launch(a, hi, lo, out, bn: int, stages: int, *, bias=None, col_scale=None,
+                  gelu: bool = False, r1=None, r2=None, a_sub=None, a_t: bool = False,
+                  splits: int = 1) -> None:
+    """One launch of ``arpu_gemm_tf32x3`` into ``out``, tensors checked by
+    the caller: ``a [M, K] @ (hi + lo)^T`` with ``hi``/``lo`` ``[N, K]``, at
+    the plan ``(bn, stages)``, then the epilogue; with ``a_t``, ``a`` is
+    ``A^T``, ``[K, M]``; with ``splits`` > 1 ``out`` is ``[splits, M, N]``,
+    one slab of K's k-tiles each, and there is no epilogue."""
+    n, k = hi.shape
+    m = a.shape[1] if a_t else a.shape[0]
+    fn = build.bind("gemm", "arpu_gemm_tf32x3", "pppp" "iii" "ii" "ppi" "ppi" "p" "ii" "p")
+    rc = fn(a.data_ptr(), hi.data_ptr(), lo.data_ptr(), out.data_ptr(), m, n, k, bn, stages,
+            build.ptr(bias), build.ptr(col_scale), int(bool(gelu)), build.ptr(r1),
+            build.ptr(r2), int(r2 is not None and r2.dtype == torch.bfloat16),
+            build.ptr(a_sub), int(a_t), splits, build.stream_of(a))
+    build.check("gemm", rc, "gemm_tf32x3")

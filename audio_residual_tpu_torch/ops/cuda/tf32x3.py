@@ -44,7 +44,14 @@ _KEEP = -(1 << 13)    # 0xffffe000 as int32: clears the 13 f32 bits TF32 drops
 GEMM_BNS = (128, 96, 64, 32)  # N tiles the kernel is built for, the largest first
 ROWS = 128                    # rows of a tile: two consumer warpgroups of 64
 ROW_BYTES = 128               # a K step: 32 f32, one 128-byte swizzle row
+K_STEP = ROW_BYTES // 4       # f32 columns of K a step
 MAX_STAGES = 8
+# A k-step of a tile costs its N tile plus this many columns: the tensor
+# core's three passes scale with the N tile, the A fragment's load and split
+# does not (fitted to the GEMM's times at M = 7392 on the H100,
+# tools/time_linear.py --sweep: at N = 768 and 3072 the 128-column tile is
+# fastest, though the 32-column one has fewer ragged waves)
+KTILE_FIXED_COLUMNS = 32
 
 
 def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -83,7 +90,7 @@ class GemmPlan:
     grid: int
 
 
-def _ring(bn: int) -> tuple[int, int]:
+def ring(bn: int) -> tuple[int, int]:
     """``(stages, shared bytes)`` of the kernel at N tile ``bn``: the ring
     takes what shared memory leaves after 1 KB of alignment slack, the
     epilogue's staging ([64, bn] f32 a consumer warpgroup, rows padded by 8)
@@ -98,9 +105,11 @@ def _ring(bn: int) -> tuple[int, int]:
 def gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> GemmPlan:
     """The plan of ``[m, k] @ [n, k]^T`` on a card of ``sms`` SMs: the N tile
     of ``GEMM_BNS`` whose waves of tiles (``ceil(tiles / sms)``) times its
-    width is least -- the columns an SM computes, ragged waves counted --
-    the larger on a tie; a tile that does not divide ``n`` is masked at the
-    edge. ``ValueError`` for a shape the kernel does not take."""
+    width plus :data:`KTILE_FIXED_COLUMNS` is least -- the columns an SM
+    computes, ragged waves counted, and what each k-step of a tile costs
+    whatever its width -- the larger on a tie; a tile that does not divide
+    ``n`` is masked at the edge. ``ValueError`` for a shape the kernel does
+    not take."""
     if m <= 0 or n <= 0 or k <= 0:
         raise ValueError(f"3xTF32 GEMM: empty shape M={m} N={n} K={k}")
     if k % 4:
@@ -111,11 +120,11 @@ def gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> GemmPlan:
     best = None
     for bn in GEMM_BNS:
         tiles = math.ceil(m / ROWS) * math.ceil(n / bn)
-        cost = math.ceil(tiles / sms) * bn
+        cost = math.ceil(tiles / sms) * (bn + KTILE_FIXED_COLUMNS)
         if best is None or cost < best[0]:
             best = (cost, bn, tiles)
     _, bn, tiles = best
-    stages, smem = _ring(bn)
+    stages, smem = ring(bn)
     return GemmPlan(bn=bn, stages=stages, smem_bytes=smem, tiles=tiles, grid=min(tiles, sms))
 
 

@@ -31,7 +31,13 @@ line):
                K3 and K4 beside their function as a sequence of PyTorch
                calls (cuBLAS, SDPA); the golden 3xTF32 GEMMs of K2, K3 and
                K5 by device time; K4's device time split by CUDA kernel
-               (torch.profiler) at its main-path shapes, AMP and golden.
+               (torch.profiler) at its main-path shapes, AMP and golden;
+               the 3xTF32 linear (RoBERTa's golden dense products,
+               phase_linear) forward and backward at the contrastive
+               cell's M = 96 x 77 = 7392 and RoBERTa-base's three shapes,
+               with and without GELU, against its plain version
+               (F.linear) and float64 (4x), its launches counted, timed
+               beside F.linear; its row of the JSON line is f32.
   2b. gemm   -- the bf16 TMA + wgmma GEMM that K2-K5 run under AMP, alone,
                against its plain version at every GEMM shape of the main
                paths, timed beside its bound and torch.matmul on the same
@@ -330,6 +336,34 @@ RUN_PCA_QR_CALLS = QR_PER_LAYER * len(QR_HEADS)
 # a K3 call)
 TEXT_CONTEXT, CLAP_BATCHES = 77, 2
 TEXT_GEMMS = 6 * 12 + 1
+# golden: q, k and v one product a layer (models/roberta.py::_qkv)
+TEXT_LINEARS = 4 * 12 + 1
+
+
+def text_launches(md, *, train_step: bool = False, remat: bool = False) -> dict:
+    """RoBERTa-base's launches in one forward of weights that require grad:
+    under AMP the bf16 GEMM a dense product (its backward launches nothing);
+    golden the 3xTF32 linear a product (q, k and v one), each with a split
+    of its weight, and with ``train_step`` the backward's dx and dW products
+    and the split of dW's operand (``remat``: the forward twice)."""
+    if md is not None:
+        return {"gemm": TEXT_GEMMS * (2 if remat else 1)}
+    if not train_step:
+        return {"linear_tf32x3": TEXT_LINEARS, "split_tf32": TEXT_LINEARS}
+    forwards = 2 if remat else 1
+    return {"linear_tf32x3": forwards * TEXT_LINEARS,
+            "split_tf32": (forwards + 1) * TEXT_LINEARS,
+            "linear_tf32x3.dx": TEXT_LINEARS, "linear_tf32x3.dw": TEXT_LINEARS}
+
+
+def golden_text_census_ok(census: dict) -> bool:
+    """One golden text forward without a graph: the 3xTF32 linear a product
+    (q, k and v one), a split of each concatenated q, k, v weight and of
+    each other weight that requires grad (a frozen one's is kept for its
+    version), nothing else."""
+    return (census.get("linear_tf32x3") == TEXT_LINEARS
+            and 12 <= census.get("split_tf32", 0) <= TEXT_LINEARS
+            and set(census) <= {"linear_tf32x3", "split_tf32"})
 CLAP_CENSUS = {
     "f32": {"logmel_tf32x3_kernel": 1, "add_layernorm_kernel": 2 * 10 + 2,
             "attention_core_kernel": 12, "gemm_tf32x3_kernel": 2 * 12 + 2 * 12},
@@ -354,11 +388,14 @@ def log(phase: str, **kv) -> None:
 
 class KernelStats:
     """Phase 2's per-kernel numbers. The JSON line holds the bench's AMP mode
-    (bf16), summed over the launches of one forward of each main path, and
-    the QR's one mode (float64), summed over the 28 calls of one
-    ``run_pca`` of the attention tap (phase 6b)."""
+    (bf16), summed over the launches of one forward of each main path, the
+    QR's one mode (float64), summed over the 28 calls of one ``run_pca`` of
+    the attention tap (phase 6b), and the 3xTF32 linear's one mode (f32),
+    summed over phase 2's six forward + backward passes (``phase_linear``)."""
 
     JSON_MODES = ("bf16", "f64")
+    # a kernel with a golden route alone: its row is that mode
+    ONLY_MODE = {"linear_tf32x3": "f32"}
 
     def __init__(self, kernels: dict):
         self.kernels = kernels
@@ -366,6 +403,9 @@ class KernelStats:
                                 bytes_ms=0.0, ops_ms=0.0, library_ms=None) for name in kernels}
         # the golden f32 rows, summed the same way (the training path's mode)
         self.golden = {name: collections.Counter() for name in kernels}
+
+    def in_row(self, name, mode) -> bool:
+        return mode in self.JSON_MODES or self.ONLY_MODE.get(name) == mode
 
     def check(self, name, label, got, ref, mode) -> None:
         import torch
@@ -379,7 +419,7 @@ class KernelStats:
             tol=TOL[mode], ok=ok)
         if not ok:
             raise AssertionError(f"{name} {label} ({mode}) disagrees with its plain version")
-        if mode in self.JSON_MODES:
+        if self.in_row(name, mode):
             self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], err)
 
     def time(self, name, label, mode, kernel_fn, plain_fn, nbytes, flops, launches=1,
@@ -409,7 +449,7 @@ class KernelStats:
                      route_bound_ms=route_ms if route_ms is not None else max(b_ms, o_ms))
             if lib is not None:
                 g["library_ms"] += lib
-        if mode in self.JSON_MODES:
+        if self.in_row(name, mode):
             r = self.rows[name]
             r["ms"] += ms
             r["plain_ms"] += plain
@@ -1169,6 +1209,79 @@ def phase_gemm(dev, specs=None, phase: str = "gemm",
                                  "shapes_without_device_time")})
 
 
+# the 3xTF32 linear at the contrastive cell's text batch: 96 texts of 77
+# tokens; (N, K) of RoBERTa-base's q, k, v and out, fc1, fc2
+LINEAR_M = 96 * TEXT_CONTEXT
+LINEAR_SHAPES = ((768, 768), (3072, 768), (768, 3072))
+
+
+def phase_linear(dev, card: str, stats: KernelStats | None = None) -> int:
+    """Phase 2's 3xTF32 linear (``ops/cuda/linear.py``, RoBERTa's golden
+    dense products on the card): forward and backward at M = 7392 for each
+    of ``LINEAR_SHAPES``, with bias, without and with GELU, so the weight
+    gradients run the split-K plans of the contrastive cell. y, dx, dW and
+    db against ``linear_plain`` (``F.linear`` and its autograd, TF32 off)
+    and against float64 (at most GOLDEN_F64_RATIO times ``linear_plain``'s
+    error); the launches counted as they happen; forward + backward timed
+    beside ``linear_plain`` and ``F.linear`` alone (its library yardstick),
+    bound at the f32 rate and for 3xTF32's arithmetic. Returns the launches
+    of those forward + backward passes."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_residual_tpu_torch.ops.cuda import KERNELS, launch_counts
+    from audio_residual_tpu_torch.ops.cuda import linear as kl
+    from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
+
+    standalone = stats is None
+    stats = stats or KernelStats(KERNELS)
+    name, m = "linear_tf32x3", LINEAR_M
+    rng = np.random.default_rng(24)
+    total = 0
+    with torch.enable_grad():
+        for n, k in LINEAR_SHAPES:
+            def t(*shape, scale=1.0):
+                a = (scale * rng.standard_normal(shape)).astype(np.float32)
+                return torch.from_numpy(a).to(dev)
+
+            x, w, b, dy = t(m, k), t(n, k, scale=k ** -0.5), t(n, scale=0.1), t(m, n)
+            plan = kl.weight_grad_plan(m, n, k, sm_count(dev))
+            for gelu in (False, True):
+                label = f"[{m}x{k}]@[{n}x{k}]^T{' gelu' if gelu else ''}"
+
+                def run(fn, dt=torch.float32, gelu=gelu):
+                    ins = [v.detach().to(dt).requires_grad_() for v in (x, w, b)]
+                    y = fn(*ins, gelu=gelu)
+                    return (y.detach(), *torch.autograd.grad(y, ins, dy.to(dt)))
+
+                launch_counts.clear()
+                got = run(kl.linear_tf32x3)
+                torch.cuda.synchronize()
+                counted = dict(launch_counts)
+                want = {name: 1, f"{name}.dx": 1, f"{name}.dw": 1, "split_tf32": 2}
+                log("kernels", kernel=name, shape=label, launches=json.dumps(counted),
+                    expected=json.dumps(want), weight_grad_plan=json.dumps(
+                        {"bn": plan.bn, "splits": plan.splits, "b_is_x": plan.b_is_x}))
+                if counted != want:
+                    raise AssertionError(f"{name} {label}: launched {counted}, expected {want}")
+                total += sum(counted.values())
+                plain, ref = run(kl.linear_plain), run(kl.linear_plain, torch.float64)
+                for what, g, p_, r in zip(("y", "dx", "dW", "db"), got, plain, ref):
+                    stats.check(name, f"{label} {what}", g, p_, "f32")
+                    stats.check_f64(name, f"{label} {what}", g, p_, r)
+                nbytes = 4 * 2 * (m * k + n * k + n + m * n)
+                ops = 3 * 2.0 * m * n * k
+                stats.time(name, label, "f32", lambda: run(kl.linear_tf32x3),
+                           lambda: run(kl.linear_plain), nbytes, {"f32": ops},
+                           library_fn=lambda: run(lambda *a, gelu: F.linear(*a)),
+                           library_what="F.linear and its autograd, without the GELU",
+                           route_flops={"tf32": 3 * ops})
+    if standalone:
+        print(stats.json_line({name: total}), flush=True)
+        print(card, flush=True)
+    return total
+
+
 def main_inputs(cfg, dev) -> tuple:
     """The main path's ResiDual at layer 0 (an orthonormal basis from a
     seeded QR, K = C), its 50 class-text embeddings and 32 clips, made as
@@ -1300,8 +1413,9 @@ def plain_kernels():
     ``swin_block_plain`` for layers 0-2, and the split
     plan -- layer 3, and every block of a tapped forward -- with K2's (or
     K5's) and K3's plain versions after its LN1; a training block with
-    drop-path K2's plain version; RoBERTa's AMP products ``gemm_plain``. The
-    reference of the gradient and tap checks: the plain versions alone."""
+    drop-path K2's plain version; RoBERTa's AMP products ``gemm_plain``,
+    its golden ones ``F.linear``. The reference of the gradient and tap
+    checks: the plain versions alone."""
     from unittest import mock
 
     from audio_residual_tpu_torch.models import htsat, roberta
@@ -1321,7 +1435,8 @@ def plain_kernels():
             mock.patch.object(htsat, "fused_window_attention", k2.window_attention_plain), \
             mock.patch.object(k4, "fused_window_attention", k2.window_attention_plain), \
             mock.patch.object(k4, "fused_residual_ffn", k3.residual_ffn_plain), \
-            mock.patch.object(roberta, "gemm", kg.gemm_plain):
+            mock.patch.object(roberta, "gemm", kg.gemm_plain), \
+            mock.patch.object(roberta, "takes", lambda x, w: False):
         yield
 
 
@@ -2120,8 +2235,9 @@ def phase_clap(dev, card: str) -> None:
             launch_counts.clear()
             golden_text[b] = encode_text(model, *args)
             torch.cuda.synchronize()
-            if launch_counts:
-                raise AssertionError(f"golden text forward launched {dict(launch_counts)}")
+            if not golden_text_census_ok(dict(launch_counts)):
+                raise AssertionError(f"golden text forward launched {dict(launch_counts)}, "
+                                     f"expected {TEXT_LINEARS} 3xTF32 linears")
             text_check(f"golden text B={b} against float64", golden_text[b],
                        encode_text(ref64, *args), golden=True)
             launch_counts.clear()
@@ -2152,8 +2268,12 @@ def phase_clap(dev, card: str) -> None:
         want = {k: CLAP_BATCHES * v for k, v in EXPECTED_LAUNCHES.items()}
         log("clap", mode=mode, evaluate_zeroshot_launches=json.dumps(got),
             expected=json.dumps(want))
-        if got != want:
-            raise AssertionError(f"evaluate_zeroshot ({mode}) launched {got}, expected {want}")
+        # the classifier: one golden text forward of the prompts (both
+        # modules keep the text side f32)
+        text = {k: got.pop(k) for k in ("linear_tf32x3", "split_tf32") if k in got}
+        if got != want or not golden_text_census_ok(text):
+            raise AssertionError(f"evaluate_zeroshot ({mode}) launched {got} and {text}, "
+                                 f"expected {want} and {TEXT_LINEARS} 3xTF32 linears")
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2456,8 +2576,7 @@ def phase_contrastive(dev, card: str) -> None:
         del grads
 
         # the launch census of one training forward, by the JAX dispatch
-        want = dict(fx.expected_launches(cfg.audio, train=True),
-                    gemm=TEXT_GEMMS if md is not None else 0)
+        want = dict(fx.expected_launches(cfg.audio, train=True), **text_launches(md))
         want = {k: v for k, v in want.items() if v}
         launch_counts.clear()
         with torch.no_grad():
@@ -2499,7 +2618,9 @@ def phase_contrastive(dev, card: str) -> None:
         vals = [float(m["loss"]) for m in losses]
         scales = [float(m["logit_scale_a"]) for m in losses]
         moved = float((model.audio_branch.bn0.running_mean - bn0_before).abs().max())
-        want_loop = {k: v * CONTRASTIVE_STEPS for k, v in want.items()}
+        # a step: the forward's census, with the golden text tower's backward
+        step_want = dict(want, **text_launches(md, train_step=True))
+        want_loop = {k: v * CONTRASTIVE_STEPS for k, v in step_want.items()}
         ok = (all(np.isfinite(vals)) and loss_after < loss_before
               and max(scales) <= tc.MAX_LOGIT_SCALE + 1e-6 and moved > 0
               and loop_launches == want_loop and cache_sizes[-1] == cache_sizes[0])
@@ -2940,8 +3061,10 @@ def phase_shards(dev, card: str, stats: KernelStats | None = None) -> None:
     rng = np.random.default_rng(43)
     tok = HashTokenizer(context_length=TEXT_CONTEXT)
     audio = CLAPConfig().audio
-    train_census = {k: v for k, v in fx.expected_launches(audio, train=True).items() if v}
-    eval_census = {k: v for k, v in fx.expected_launches(audio).items() if v}
+    train_census = {k: v for k, v in dict(fx.expected_launches(audio, train=True),
+                                          **text_launches(None, train_step=True)).items() if v}
+    eval_census = {k: v for k, v in dict(fx.expected_launches(audio),
+                                         **text_launches(None)).items() if v}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         train_shards = write_shards(tmp, rng)
@@ -3330,9 +3453,8 @@ def phase_fsdp(dev, card: str) -> None:
     mesh = fsdp.fsdp_mesh(dev)
     try:
         for mode, md in (("f32", None), ("bf16", torch.bfloat16)):
-            want_census = {k: v for k, v in dict(fx.expected_launches(cfg.audio, train=True),
-                                                  gemm=TEXT_GEMMS if md is not None else 0
-                                                  ).items() if v}
+            want_census = {k: v for k, v in fx.expected_launches(cfg.audio, train=True).items()
+                           if v}
             runs = {}
             for label, sharded, remat in FSDP_RUNS:
                 # the run's own peak: above what was resident before its
@@ -3374,8 +3496,11 @@ def phase_fsdp(dev, card: str) -> None:
                                    sharded=sum(isinstance(p, DTensor)
                                                for p in model.parameters()),
                                    live=(state, step))
-                # the recomputed forward launches the kernels again in the backward
-                want = {k: v * (2 if remat else 1) for k, v in want_census.items()}
+                # the recomputed forward launches the kernels again in the backward;
+                # FSDP gathers whole weights around the forward and the backward,
+                # so the text tower takes the same route sharded or not
+                want = dict({k: v * (2 if remat else 1) for k, v in want_census.items()},
+                            **text_launches(md, train_step=True, remat=remat))
                 ok = all(c == want for c in census)
                 log(phase, run=label, mode=mode, steps=FSDP_STEPS, losses=json.dumps(losses),
                     grad_norms=json.dumps(norms), launches=json.dumps(census),
@@ -3780,6 +3905,7 @@ def main() -> int:
     launches = collections.Counter()
     with torch.no_grad():
         phase_kernels(stats, dev)
+        launches["linear_tf32x3"] = phase_linear(dev, card, stats)
         stats.log_golden()
         phase_gemm(dev)
         launches.update(phase_main(dev, card, "HTSAT-tiny (CLAPConfig defaults)", tiny,

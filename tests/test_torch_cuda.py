@@ -1355,6 +1355,206 @@ def test_roberta_amp_runs_the_bf16_gemm_on_card(dev):
     assert _cos_min(amp, golden) > 0.999
 
 
+# RoBERTa-base's dense products: q, k, v and out; fc1; fc2
+LINEAR_SHAPES = [(768, 768), (3072, 768), (768, 3072)]
+
+
+@pytest.mark.parametrize("gelu,bias", [(False, True), (True, True), (False, False)],
+                         ids=["bias", "bias-gelu", "no-bias"])
+@pytest.mark.parametrize("n,k", LINEAR_SHAPES)
+def test_linear_tf32x3_error_against_float64(dev, n, k, gelu, bias):
+    """The 3xTF32 linear and its autograd at RoBERTa-base's shapes, 96 texts
+    of 77 tokens (M = 7392): the output, dx, dW and db against a float64
+    evaluation, each at most GOLDEN_F64_RATIO times the error of
+    ``F.linear`` and its autograd in f32; one forward product, one split of
+    the weight, and in the backward one product each for dx and dW and one
+    split of dW's operand."""
+    from audio_residual_tpu_torch.ops.cuda import linear as kl
+
+    m = 96 * 77
+    rng = np.random.default_rng(n + 2 * k + gelu)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    leaves = [t(m, k), t(n, k, scale=k ** -0.5)] + ([t(n, scale=0.1)] if bias else [])
+    dy = t(m, n)
+    outs = {}
+    for name, fn, dt in (("x3", kl.linear_tf32x3, torch.float32),
+                         ("f32", kl.linear_plain, torch.float32),
+                         ("f64", kl.linear_plain, torch.float64)):
+        ins = [v.detach().to(dt).requires_grad_() for v in leaves]
+        launch_counts.clear()
+        y = fn(ins[0], ins[1], ins[2] if bias else None, gelu=gelu)
+        outs[name] = (y.detach(), *torch.autograd.grad(y, ins, dy.to(dt)))
+        torch.cuda.synchronize()
+        if name == "x3":
+            assert dict(launch_counts) == {"linear_tf32x3": 1, "linear_tf32x3.dx": 1,
+                                           "linear_tf32x3.dw": 1, "split_tf32": 2}
+    for what, got, plain, ref in zip(("y", "dx", "dW", "db"), *outs.values()):
+        assert got.shape == ref.shape, what
+        assert f64.error_ratio(got, plain, ref)[2] <= GOLDEN_F64_RATIO, what
+
+
+@pytest.mark.parametrize("r,c,ld", [(7392, 768, 7392), (77, 40, 80), (33, 96, 36), (1, 8, 4)])
+def test_split_kernel_gives_split_tf32s_bits(dev, r, c, ld):
+    """``arpu_split_tf32`` (the linear's one-pass split, plain and
+    transposed with zero columns up to ``ld``) gives the bits of
+    ``tf32x3.split_tf32``, magnitudes from 1e-30 to 1e30, an infinity, a
+    NaN and the largest f32 among them."""
+    from audio_residual_tpu_torch.ops.cuda import linear as kl
+    from audio_residual_tpu_torch.ops.cuda import tf32x3
+
+    rng = np.random.default_rng(r + c)
+    t = rng.standard_normal((r, c)) * 10.0 ** rng.integers(-30, 30, (r, c))
+    t.reshape(-1)[:3] = (np.inf, np.nan, -3.4028235e38)
+    t = torch.from_numpy(t.astype(np.float32)).to(dev)
+    got = kl._split_kernel(t, transposed=True, straight=True, ld=ld)
+    padded = torch.cat([t, t.new_zeros(ld - r, c)])
+    want = (*tf32x3.split_tf32(t), *tf32x3.split_tf32(padded.t().contiguous()))
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,cols,red,bn,splits", [(768, 768, 7392, 128, 11),
+                                                     (200, 40, 100, 32, 2), (136, 96, 68, 64, 2),
+                                                     (3072, 768, 7392, 96, 5),
+                                                     (128, 128, 4, 128, 1)])
+def test_weight_grad_kernel_matches_its_decomposition(dev, rows, cols, red, bn, splits):
+    """The weight gradient's GEMM (A read transposed, K in splits) at
+    RoBERTa's shapes and at ragged ones: each slab within 1e-4 of the plain
+    decomposition's on the CPU, and their sum against float64 at most
+    GOLDEN_F64_RATIO times the f32 matmul's error (at K = 4 the f32 sum is
+    all but exact: there the limit is 3xTF32's own, 1e-6)."""
+    from audio_residual_tpu_torch.ops.cuda import linear as kl
+    from audio_residual_tpu_torch.ops.cuda import tf32x3
+
+    rng = np.random.default_rng(rows + cols)
+    a = torch.from_numpy(rng.standard_normal((red, rows)).astype(np.float32)).to(dev)
+    b = torch.from_numpy((rng.standard_normal((cols, red)) * red ** -0.5)
+                         .astype(np.float32)).to(dev)
+    hi, lo = tf32x3.split_tf32(b)
+    plan = kl.WeightGradPlan(True, rows, cols, red, bn, tf32x3.ring(bn)[0], splits)
+    got = kl._parts(a, hi, lo, plan)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), kl._parts(a.cpu(), hi.cpu(), lo.cpu(), plan)) <= 1e-4
+    ref = a.double().t() @ b.double().t()
+    total = got.sum(0) if splits > 1 else got
+    err = float((total.double() - ref).abs().max())
+    plain_err = float(((a.t() @ b.t()).double() - ref).abs().max())
+    assert err <= max(GOLDEN_F64_RATIO * plain_err, 1e-6 * float(ref.abs().max()))
+
+
+def _roberta_batch(dev, cfg, b: int, seed: int):
+    """``b`` texts of 77 tokens, 12-28 real ones each, and the dropout masks
+    of one training forward."""
+    from audio_residual_tpu_torch.models import roberta as t_roberta
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(3, cfg.vocab_size, (b, 77), device=dev, generator=gen)
+    lengths = torch.randint(12, 29, (b, 1), device=dev, generator=gen)
+    ids = torch.where(torch.arange(77, device=dev) < lengths, ids, cfg.pad_token_id)
+    return ids, t_roberta.sample_dropout(gen, cfg, b, 77)
+
+
+def test_roberta_golden_training_runs_the_3xtf32_linear_on_card(dev):
+    """A seeded RoBERTa-base's golden training forward (32 texts, dropout)
+    and its backward: the 3xTF32 linear for all 73 dense products (12 layers
+    of q, k and v as one product, out, fc1, fc2, and the pooler: 49 calls)
+    and never ``F.linear``; each backward one dx and one dW product; in a
+    profile of both, the port's GEMM kernel 3 x 49 times and PyTorch's f32
+    GEMMs no more than the attention's 6 a layer (2 forward, 4 backward);
+    the pooled output and every gradient within 1e-4 of the ``F.linear``
+    route's (max |difference| over max |value|, a tensor)."""
+    from audio_residual_tpu_torch.models import roberta as t_roberta
+    from audio_residual_tpu_torch.utils.profiling import device_profile
+
+    cfg = t_roberta.RobertaConfig()
+    model = t_roberta.Roberta(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    ids, masks = _roberta_batch(dev, cfg, 32, 1)
+    params = list(model.parameters())
+    n_dense = 4 * cfg.num_layers + 1
+
+    def step():
+        out = t_roberta.roberta_apply(model, ids, dropout=masks)["pooler_output"]
+        return out, torch.autograd.grad(out.square().sum(), params)
+
+    with mock.patch.object(t_roberta, "linear_plain", side_effect=AssertionError("F.linear")):
+        launch_counts.clear()
+        out = t_roberta.roberta_apply(model, ids, dropout=masks)["pooler_output"]
+        torch.cuda.synchronize()
+        assert dict(launch_counts) == {"linear_tf32x3": n_dense, "split_tf32": n_dense}
+        torch.autograd.grad(out.square().sum(), params)
+        torch.cuda.synchronize()
+        assert dict(launch_counts) == {"linear_tf32x3": n_dense, "split_tf32": 2 * n_dense,
+                                       "linear_tf32x3.dx": n_dense,
+                                       "linear_tf32x3.dw": n_dense}
+        got, got_grads = step()
+        prof = device_profile(step)
+    assert prof is not None
+    names = prof[4]
+    assert sum(c for k, c in names.items() if "gemm_tf32x3_kernel" in k) == 3 * n_dense
+    assert sum(c for k, c in names.items()
+               if "gemm" in k.lower() and "gemm_tf32x3_kernel" not in k) <= 6 * cfg.num_layers
+    with mock.patch.object(t_roberta, "takes", lambda x, w: False):
+        ref, ref_grads = step()
+    assert _rel(got, ref) <= 1e-4
+    # a gradient that is 0 but for rounding (the key bias's: softmax ignores
+    # a shift along the keys) is held against the largest gradient's scale
+    top = max(float(r.abs().max()) for r in ref_grads)
+    for p, g, r in zip(params, got_grads, ref_grads):
+        scale = max(float(r.abs().max()), 1e-3 * top)
+        assert float((g - r).abs().max()) <= 1e-4 * scale, tuple(p.shape)
+
+
+def test_training_steps_read_the_updated_text_weights_on_card(dev):
+    """Two ``make_train_step`` steps (golden, AdamW's foreach update) of
+    CLAPModule's model: after each, the text features on the 3xTF32 linear
+    equal the ``F.linear`` route's on the same weights within 1e-4, and
+    differ from the features before the step. Then, with the text weights
+    frozen (split once a weight version), an in-place foreach update moves
+    the features the same way: no split outlives its weight."""
+    from audio_residual_tpu_torch.models import clap as t_clap
+    from audio_residual_tpu_torch.models import roberta as t_roberta
+    from audio_residual_tpu_torch.module import CLAPModule
+    from audio_residual_tpu_torch.training import train_clap as tc
+    from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
+
+    module = CLAPModule(device=dev, seed=0, tokenizer=HashTokenizer())
+    model = module.model
+    enc = _texts(4, module.cfg.text.vocab_size)
+    ids, mask = (torch.as_tensor(enc[k]).to(dev) for k in ("input_ids", "attention_mask"))
+    wav = torch.from_numpy((np.random.default_rng(5).standard_normal((4, 480000)) * 0.1)
+                           .astype(np.float32)).to(dev)
+    optimizer = tc.make_optimizer(model, lr=1e-3, warmup=1, total_steps=10)
+    assert all(g.get("foreach") is not False and not g.get("fused") for g in optimizer.param_groups)
+    state = tc.init_train_state(model, optimizer)
+    step = tc.make_train_step(model, optimizer, compute_dtype=None)
+    gen = torch.Generator().manual_seed(3)
+
+    def features():
+        with torch.no_grad():
+            got = t_clap.encode_text(model, ids, mask)
+            with mock.patch.object(t_roberta, "takes", lambda x, w: False):
+                ref = t_clap.encode_text(model, ids, mask)
+        assert _rel(got, ref) <= 1e-4
+        return got
+
+    before = features()
+    for _ in range(2):
+        state, _ = step(state, {"waveform": wav, "input_ids": ids, "attention_mask": mask}, gen)
+        after = features()
+        assert _rel(after, before) > 1e-3
+        before = after
+    text = [p for p in model.text_branch.parameters() if p.ndim == 2]
+    for p in text:
+        p.requires_grad_(False)
+    features()  # the frozen weights' splits, kept for their versions
+    with torch.no_grad():
+        torch._foreach_add_(text, [torch.randn_like(p) * 0.01 for p in text])
+    assert _rel(features(), before) > 1e-3
+
+
 @pytest.mark.parametrize("tmodel", TEXT_MODELS)
 def test_clap_fixture_on_card(dev, tmodel):
     """The JAX CLAP fixture through the port on the card, golden:

@@ -262,9 +262,10 @@ def test_the_test_widths_have_a_plan(c):
 
 
 def test_plan_picks_the_tile_that_fills_the_card():
-    """HTSAT-tiny layer 3 at B=32: fc1 (N = 3072) ties at every tile and
-    takes 128; fc2 (N = 768) takes 96, 128 tiles in one wave, where 128
-    would leave 36 SMs idle and 64 would take two waves."""
+    """HTSAT-tiny layer 3 at B=32: fc1 (N = 3072) takes 128, whose k-steps
+    pay the fixed cost least often; fc2 (N = 768) takes 96, 128 tiles in
+    one wave, where 128 would leave 36 SMs idle and 64 would take two
+    waves."""
     assert tf32x3.gemm_plan(2048, 3072, 768).bn == 128
     assert tf32x3.gemm_plan(2048, 768, 3072).bn == 96
     assert tf32x3.gemm_plan(2048, 40, 64).bn == 32  # masked edge: 40 = 32 + 8
@@ -275,7 +276,7 @@ def test_ring_depth_mirrors_the_build(bn, stages):
     """``Tiles<BN, 2>`` of csrc/gemm_sm90.cuh: a stage is A [128, 32] and
     W's hi and lo [BN, 32] f32; the epilogue's staging [2, 64, BN + 8] f32;
     at most 8 stages."""
-    got, smem = tf32x3._ring(bn)
+    got, smem = tf32x3.ring(bn)
     stage = 128 * 128 + 2 * bn * 128
     assert got == stages
     assert smem == 1024 + stages * stage + 2 * 64 * (bn + 8) * 4 + 16 * stages <= SMEM_LIMIT
