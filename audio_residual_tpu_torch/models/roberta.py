@@ -50,7 +50,7 @@ from torch import nn
 from audio_residual_tpu_torch.ops.common import dropout as _drop, layer_norm
 from audio_residual_tpu_torch.ops.cuda.gemm import gemm
 from audio_residual_tpu_torch.ops.cuda.linear import linear_plain, linear_tf32x3, takes
-from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights
+from audio_residual_tpu_torch.ops.cuda.build import mxu_weights
 from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["RobertaConfig", "Roberta", "roberta_apply", "position_ids_from_input_ids",

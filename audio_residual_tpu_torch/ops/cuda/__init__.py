@@ -4,11 +4,19 @@ golden dense products and their gradients on the 3xTF32 GEMM, and ``qr``,
 the blocked float64 Householder QR of the PCA finalize.
 
 Each kernel module holds the wrapper (checks, allocation, launch on the
-current stream), its plain PyTorch version and, for K2-K5, its autograd
-entry (:mod:`.autograd`: the kernel forward, the plain version's backward).
-A wrapper runs the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises, through the autograd entry when an
-input requires grad in grad mode.
+current stream), its plain PyTorch version and, for K2-K5 and the bf16
+GEMM, the ``Op`` of its autograd (:mod:`.autograd`: the kernel forward, the
+plain version's backward). A wrapper runs the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises,
+through :class:`.autograd.Recompute` when an input requires grad in grad
+mode (for K2-K5 and the bf16 GEMM one function makes that choice,
+:func:`.autograd.route`).
+
+The modules import one way: :mod:`.build` and :mod:`.autograd` at the
+bottom, then :mod:`.tf32x3`, then :mod:`.gemm`, then the kernels (K1
+``frontend``, K2 ``window_attention``, K3 ``ln_mlp``, ``linear``, ``qr``),
+with K4 ``swin_block`` and K5 ``wide_attention`` above K2 and K3. K2 sends
+C >= ``WIDE_MIN_C`` to K5 by an import inside the call.
 
 ``launch_counts`` counts, per kernel, the launches made on the card; a run
 clears it and reads it afterwards to show which kernels a path went

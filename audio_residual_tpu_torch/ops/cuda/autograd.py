@@ -11,12 +11,13 @@ asked). The cotangent reaches the plain version's f32 arithmetic in f32 (its
 final cast to the store dtype passes it up), and each grad comes back in its
 input's dtype, as ``_fsb_bwd`` casts ``dx``. The backward launches no kernel.
 
-Each wrapper's ``*_autograd`` entry builds the :class:`Op` of its kernel and
-applies :class:`Recompute`, whose backward runs in the span
-``recompute.<kernel>`` (``utils/profiling.py::annotate``); the wrapper
-takes that entry for CUDA tensors only when :func:`needs_graph` holds, so a
-forward without a tensor that requires grad launches the kernels directly
-and builds no graph.
+:func:`route` is the one choice between the plain version, :class:`Recompute`
+and the kernel, which K2-K5 and the bf16 GEMM make through it: CPU tensors
+take the plain version; CUDA tensors take :class:`Recompute` on the
+wrapper's :class:`Op` only when :func:`needs_graph` holds, so a forward
+without a tensor that requires grad launches the kernel directly and builds
+no graph (no :class:`Op` either). The backward runs in the span
+``recompute.<kernel>`` (``utils/profiling.py::annotate``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from audio_residual_tpu_torch.utils.profiling import annotate
 
-__all__ = ["Op", "Recompute", "needs_graph"]
+__all__ = ["Op", "Recompute", "needs_graph", "route"]
 
 
 class Op(NamedTuple):
@@ -46,14 +47,14 @@ def needs_graph(*tensors) -> bool:
 
 
 class Recompute(torch.autograd.Function):
-    """Forward ``op.kernel(*tensors)``; backward through ``op.plain`` re-run
-    on the saved inputs."""
+    """Forward ``op.kernel(*tensors)`` (``op.plain`` when the first tensor is
+    on the CPU); backward through ``op.plain`` re-run on the saved inputs."""
 
     @staticmethod
     def forward(ctx, op: Op, *tensors):
         ctx.op = op
         ctx.save_for_backward(*tensors)
-        return op.kernel(*tensors)
+        return (op.plain if tensors[0].device.type == "cpu" else op.kernel)(*tensors)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -65,3 +66,19 @@ class Recompute(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n],
                                              grad_out.to(out.dtype)))
         return (None, *(next(grads) if n else None for n in need))
+
+
+def route(span: str, tensors: tuple, plain: Callable, kernel: Callable, make_op: Callable,
+          *args):
+    """A kernel wrapper's call, inside the span ``span`` (``kernel.<wrapper>``):
+    ``plain(*args)`` when ``tensors[0]`` is on the CPU; ``Recompute`` on
+    ``make_op(*args)`` and ``tensors`` when :func:`needs_graph` holds for
+    ``tensors``; otherwise ``kernel(*args)``. ``args`` are the wrapper's
+    arguments, ``tensors`` those of them the graph tracks, in the order of
+    the :class:`Op`'s functions."""
+    with annotate(span):
+        if tensors[0].device.type == "cpu":
+            return plain(*args)
+        if needs_graph(*tensors):
+            return Recompute.apply(make_op(*args), *tensors)
+        return kernel(*args)

@@ -1,4 +1,5 @@
-"""Build the CUDA sources with ``nvcc`` at first use and bind them with ctypes.
+"""Build the CUDA sources with ``nvcc`` at first use and bind them with
+ctypes; the card-facing helpers every kernel wrapper shares.
 
 Each ``csrc/*.cu`` becomes its own shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), compiled for ``sm_90a``;
@@ -6,6 +7,13 @@ Each ``csrc/*.cu`` becomes its own shared library with a plain C interface
 All sources build in parallel, one ``nvcc`` each, into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``); a library is named by
 the hash of its sources and flags, so an unchanged source is not rebuilt.
+
+Beside the build: the card's facts (:data:`SMEM_LIMIT`, :data:`H100_SMS`,
+:func:`sm_count`), the launch helpers (:func:`stream_of`, :func:`ptr`,
+:func:`check_cuda_inputs`) and the per-weight cache of derived tensors
+(:func:`derived`: the bf16 copies of :func:`mxu_weights`, the TMA maps of
+:func:`weight_map`, the 3xTF32 splits, the padded biases). This module is
+the bottom of ``ops/cuda``: it imports none of the kernel modules.
 """
 
 from __future__ import annotations
@@ -18,17 +26,22 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import torch
 from torch.distributed.tensor import DTensor
 
 __all__ = ["build_all", "library", "bind", "check", "stream_of", "ptr",
-           "check_cuda_inputs", "set_build_dir"]
+           "check_cuda_inputs", "set_build_dir", "SMEM_LIMIT", "H100_SMS", "sm_count",
+           "store_dtype", "derived", "mxu_weights", "weight_map"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
+
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+H100_SMS = 132
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -175,5 +188,77 @@ def check_cuda_inputs(what: str, tensors: dict, float_only: tuple[str, ...] = ()
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError(
                 f"{what}: {name} requires grad; a kernel entry builds no graph (the wrappers "
-                "of K2-K5 take their autograd entry for such inputs; K1 has no backward)"
+                "of K2-K5 and the bf16 GEMM route such inputs through Recompute; K1 has no "
+                "backward)"
             )
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def store_dtype(x: torch.Tensor, mxu_dtype) -> torch.dtype:
+    if mxu_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"mxu_dtype must be None or torch.bfloat16, got {mxu_dtype}")
+    return x.dtype if mxu_dtype is not None else torch.float32
+
+
+# (id(tensor), what) -> (weakref to the tensor, its stamp, the derived value)
+_derived: dict = {}
+
+
+def _stamp(t: torch.Tensor) -> tuple:
+    return (t._version, t.data_ptr(), t.device, t.dtype, tuple(t.shape), t.stride())
+
+
+def derived(t: torch.Tensor, what, make):
+    """``make(t)``, made once per state of ``t`` and kept while ``t`` lives:
+    the kernels' bf16 weight copies and gathered relative-position biases,
+    which would otherwise cost every call host time and launches.
+
+    The state is ``t``'s version counter (an in-place update of ``t`` bumps
+    it) with its storage address, device, dtype, shape and strides (a
+    ``p.data = new`` swap or a move changes them). Not seen: an in-place
+    write through ``p.data`` (``p.data.copy_(...)``), which bumps the
+    counter of a separate view only. An inference tensor tracks no version,
+    and a tensor that requires grad is a weight in training: for both the
+    value is made at every call. (In grad mode such a value carries its
+    graph; outside it, an optimizer may still update the weight without a
+    version bump: ``torch.optim.AdamW(fused=True)`` bumps none, where the
+    foreach update does.)"""
+    if t.is_inference() or t.requires_grad:
+        return make(t)
+    key = (id(t), what)
+    stamp = _stamp(t)
+    hit = _derived.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == stamp:
+        return hit[2]
+    # the entry goes when the tensor does, so a reused id never finds it
+    ref = weakref.ref(t, lambda _, key=key, cache=_derived: cache.pop(key, None))
+    value = make(t)
+    _derived[key] = (ref, stamp, value)
+    return value
+
+
+def mxu_weights(mxu_dtype, *weights) -> tuple:
+    """The GEMM weights as the kernels take them: under AMP bf16 copies, made
+    once per weight version, so no kernel converts a weight tile and no call
+    casts again; otherwise the f32 tensors. (The JAX wrappers cast once per
+    call, ``swin_block.py:264-266``.)"""
+    if mxu_dtype is None:
+        return weights
+    return tuple(derived(w, mxu_dtype, lambda t: t.to(mxu_dtype)) for w in weights)
+
+
+def weight_map(w: torch.Tensor, box_rows: int) -> ctypes.Array:
+    """The TMA map of the bf16 weight ``w`` in boxes of ``[box_rows, 64]``,
+    made once per state of ``w`` (kept beside it, as :func:`mxu_weights`
+    keeps the copy): the AMP kernels of K2-K5 read their weights by TMA."""
+    def make(t):
+        m = ctypes.create_string_buffer(128)  # a CUtensorMap
+        fn = bind("gemm", "arpu_weight_map", "piiip")
+        check("gemm", fn(t.data_ptr(), t.shape[0], t.shape[1], box_rows, m), "TMA weight map")
+        return m
+
+    return derived(w, ("tma_map", box_rows), make)

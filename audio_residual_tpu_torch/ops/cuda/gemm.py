@@ -13,8 +13,8 @@ are one kernel design (TMA loads into a ring of shared-memory stages,
 ``chip_smoke.py``. It replaces no TPU kernel by itself: on the TPU the same
 products are the MXU dots inside the Pallas block kernels. RoBERTa's AMP
 dense products call :func:`gemm` directly; in training, where an input
-requires grad, it takes :func:`gemm_autograd` (the kernel forward, the plain
-version's backward, :mod:`.autograd`). RoBERTa's golden dense products on
+requires grad, it takes :class:`.autograd.Recompute` on :func:`gemm_op` (the
+kernel forward, the plain version's backward). RoBERTa's golden dense products on
 the card run the 3xTF32 GEMM through :mod:`.linear`, forward and both
 gradients (:func:`tf32x3_launch`; the weight gradient reads A transposed
 and splits K).
@@ -26,11 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
-from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
-from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, route
 from audio_residual_tpu_torch.utils.profiling import annotate
 
-__all__ = ["gemm", "gemm_plain", "gemm_autograd", "gemm_tf32x3", "gemm_tf32x3_plain"]
+__all__ = ["gemm", "gemm_plain", "gemm_op", "gemm_tf32x3", "gemm_tf32x3_plain"]
 
 
 def gemm_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
@@ -52,26 +51,17 @@ def gemm_plain(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=
 
 def gemm(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
          out_dtype=torch.float32) -> torch.Tensor:
-    """``a [M, K]``, ``w [N, K]`` bf16 -> ``[M, N]`` in ``out_dtype``. CPU
-    tensors take :func:`gemm_plain`; CUDA tensors with an input that
-    requires grad (in grad mode) :func:`gemm_autograd`; on the card K and N
-    must be multiples of 8."""
-    with annotate("kernel.gemm"):
-        if a.device.type == "cpu":
-            return gemm_plain(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
-        if needs_graph(a, w, bias, col_scale, r1, r2):
-            return gemm_autograd(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
-        return _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype)
+    """``a [M, K]``, ``w [N, K]`` bf16 -> ``[M, N]`` in ``out_dtype``, routed
+    by :func:`.autograd.route`; on the card K and N must be multiples of 8."""
+    return route("kernel.gemm", (a, w, bias, col_scale, r1, r2), gemm_plain, _kernel, gemm_op,
+                 a, w, bias, col_scale, gelu, r1, r2, out_dtype)
 
 
-def gemm_autograd(a, w, bias=None, col_scale=None, gelu: bool = False, r1=None, r2=None,
-                  out_dtype=torch.float32) -> torch.Tensor:
-    """:func:`gemm` under autograd: the kernel forward (the plain version for
-    CPU tensors), :func:`gemm_plain`'s backward."""
-    kernel = gemm_plain if a.device.type == "cpu" else _kernel
-    op = Op("recompute.gemm", lambda *t: kernel(*t[:4], gelu, *t[4:], out_dtype),
-            lambda *t: gemm_plain(*t[:4], gelu, *t[4:], out_dtype))
-    return Recompute.apply(op, a, w, bias, col_scale, r1, r2)
+def gemm_op(a, w, bias, col_scale, gelu, r1, r2, out_dtype) -> Op:
+    """:func:`gemm`'s :class:`.autograd.Op` on ``(a, w, bias, col_scale, r1,
+    r2)``."""
+    return Op("recompute.gemm", lambda *t: _kernel(*t[:4], gelu, *t[4:], out_dtype),
+              lambda *t: gemm_plain(*t[:4], gelu, *t[4:], out_dtype))
 
 
 def _kernel(a, w, bias, col_scale, gelu, r1, r2, out_dtype) -> torch.Tensor:
@@ -135,7 +125,7 @@ def _tf32x3_kernel(a, w, bias, col_scale, gelu, r1, r2, a_sub) -> torch.Tensor:
                          f"{tuple(w.shape)}")
     m, k = a.shape
     n = w.shape[0]
-    plan = tf32x3.gemm_plan(m, n, k, sm_count(a.device))
+    plan = tf32x3.gemm_plan(m, n, k, build.sm_count(a.device))
     for name, t, shape in (("bias", bias, (n,)), ("col_scale", col_scale, (n,)),
                            ("r1", r1, (m, n)), ("r2", r2, (m, n)), ("a_sub", a_sub, (k,))):
         if t is not None and tuple(t.shape) != shape:

@@ -51,8 +51,8 @@ from torch.distributed.tensor import DTensor
 
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
 from audio_residual_tpu_torch.ops.cuda.autograd import needs_graph
+from audio_residual_tpu_torch.ops.cuda.build import H100_SMS, derived, sm_count
 from audio_residual_tpu_torch.ops.cuda.gemm import tf32x3_launch
-from audio_residual_tpu_torch.ops.cuda.window_attention import H100_SMS, derived, sm_count
 from audio_residual_tpu_torch.utils.profiling import annotate
 
 __all__ = ["linear_tf32x3", "linear_plain", "takes", "WeightGradPlan", "weight_grad_plan",
@@ -181,7 +181,7 @@ def _split_kernel(t, *, transposed: bool, straight: bool, ld: int = 0) -> tuple:
 def _weight_operands(weight, transposed: bool) -> tuple:
     """``(hi, lo, hi_t, lo_t)`` of ``W [N, K]`` (``hi_t``/``lo_t``: W^T's
     split, ``[K, N]``, None unless ``transposed``), made in one pass once
-    per weight version (:func:`.window_attention.derived`: at every call for
+    per weight version (:func:`.build.derived`: at every call for
     a weight that requires grad)."""
     if weight.device.type == "cpu":
         w = weight.detach()

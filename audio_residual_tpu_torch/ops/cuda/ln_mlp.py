@@ -29,19 +29,18 @@ import torch
 import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops.common import layer_norm, linear
-from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda import tf32x3
-from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
-from audio_residual_tpu_torch.ops.cuda.window_attention import (
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, route
+from audio_residual_tpu_torch.ops.cuda.build import (
+    SMEM_LIMIT,
     mxu_weights,
     sm_count,
     store_dtype,
     weight_map,
 )
 from audio_residual_tpu_torch.residual.module import residual_apply
-from audio_residual_tpu_torch.utils.profiling import annotate
 
-__all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_autograd", "amp_plan",
+__all__ = ["fused_residual_ffn", "residual_ffn_plain", "residual_ffn_op", "amp_plan",
            "FfnPlan", "residual_operands", "residual_inputs"]
 
 # the AMP kernel's constants (csrc/ln_mlp.cu, namespace ffn)
@@ -55,7 +54,6 @@ OUT_WIDTHS = (64, 96, 128, 256)  # output columns a block (its wgmma N)
 CLUSTER_SIZES = (6, 8, 4, 2, 1)
 MAX_STAGES = 6
 MAX_C = 2048                # LN2's row in registers: 8 chunks of 8 a lane
-SMEM_LIMIT = 232448         # shared memory a block may use on the H100
 _Z_W1_BYTES = ROWS * BK * 2 + PART * BK * 2
 
 
@@ -142,7 +140,7 @@ def residual_ffn_f32(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
     return y
 
 
-def residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
+def residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None,
                        double_ffn=False, mxu_dtype=None) -> torch.Tensor:
     """Plain version of the kernel (the formula of ``ln_mlp.py::_kernel``)."""
     store = store_dtype(x, mxu_dtype)
@@ -172,18 +170,13 @@ def residual_operands(rparams, c: int, rows: int, sms: int) -> tf32x3.Residual |
 
 def fused_residual_ffn(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams: dict | None = None, *,
                        double_ffn: bool = False, mxu_dtype=None) -> torch.Tensor:
-    """``x, a [R, C]`` -> post-block rows ``[R, C]``. CPU tensors take
-    :func:`residual_ffn_plain`; CUDA tensors with an input that requires
-    grad (in grad mode) take :func:`residual_ffn_autograd`."""
-    with annotate("kernel.fused_residual_ffn"):
-        if x.device.type == "cpu":
-            return residual_ffn_plain(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
-                                      double_ffn=double_ffn, mxu_dtype=mxu_dtype)
-        if needs_graph(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, *_residual_tensors(rparams)):
-            return residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams,
-                                         double_ffn=double_ffn, mxu_dtype=mxu_dtype)
-        return _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams, double_ffn=double_ffn,
-                       mxu_dtype=mxu_dtype)
+    """``x, a [R, C]`` -> post-block rows ``[R, C]``, routed by
+    :func:`.autograd.route` (grads for ``x``, ``a`` and the ResiDual
+    params)."""
+    return route("kernel.fused_residual_ffn",
+                 (x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, *_residual_tensors(rparams)),
+                 residual_ffn_plain, _kernel, residual_ffn_op, x, a, n2s, n2b, wfc1, bfc1, wfc2,
+                 bfc2, rparams, double_ffn, mxu_dtype)
 
 
 def _residual_tensors(rparams) -> tuple:
@@ -196,23 +189,18 @@ def _residual_dict(basis, mean, lam) -> dict | None:
     return None if basis is None else {"basis": basis, "mean": mean, "lam": lam}
 
 
-def residual_ffn_autograd(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *,
-                          double_ffn=False, mxu_dtype=None) -> torch.Tensor:
-    """K3 under autograd (:mod:`.autograd`): the kernel forward (the plain
-    version for CPU tensors), the plain version's backward, with grads for
-    ``x``, ``a`` and the ResiDual params."""
+def residual_ffn_op(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, double_ffn=False,
+                    mxu_dtype=None) -> Op:
+    """K3's :class:`.autograd.Op` on its eight tensors and the ResiDual's
+    three (None without one)."""
     def call(fn):
-        return lambda *t: fn(*t[:8], _residual_dict(*t[8:]), double_ffn=double_ffn,
-                             mxu_dtype=mxu_dtype)
+        return lambda *t: fn(*t[:8], _residual_dict(*t[8:]), double_ffn, mxu_dtype)
 
-    kernel = residual_ffn_plain if x.device.type == "cpu" else _kernel
-    op = Op("recompute.fused_residual_ffn", call(kernel), call(residual_ffn_plain))
-    return Recompute.apply(op, x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2,
-                           *_residual_tensors(rparams))
+    return Op("recompute.fused_residual_ffn", call(_kernel), call(residual_ffn_plain))
 
 
-def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams=None, *, double_ffn=False,
-            mxu_dtype=None) -> torch.Tensor:
+def _kernel(x, a, n2s, n2b, wfc1, bfc1, wfc2, bfc2, rparams, double_ffn,
+            mxu_dtype) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, one call, its count."""
     store = store_dtype(x, mxu_dtype)
     if x.ndim != 2 or a.shape != x.shape:

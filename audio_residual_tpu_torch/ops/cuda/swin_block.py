@@ -37,7 +37,8 @@ import torch
 
 from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
-from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, route
+from audio_residual_tpu_torch.ops.cuda.build import mxu_weights, sm_count, store_dtype
 from audio_residual_tpu_torch.ops.cuda.ln_mlp import (
     fused_residual_ffn,
     residual_ffn_f32,
@@ -52,13 +53,9 @@ from audio_residual_tpu_torch.ops.cuda.window_attention import (
     bias_and_mask,
     check_window_shapes,
     fused_window_attention,
-    mxu_weights,
-    sm_count,
-    store_dtype,
 )
-from audio_residual_tpu_torch.utils.profiling import annotate
 
-__all__ = ["fused_swin_block", "swin_block_plain", "swin_block_autograd", "split_block"]
+__all__ = ["fused_swin_block", "swin_block_plain", "swin_block_op", "split_block"]
 
 
 def _unpack(flat_params, use_residual: bool):
@@ -128,32 +125,22 @@ def fused_swin_block(x, flat_params, nh: int, window: int, num_windows_per_image
                      shift: int, resolution, use_residual: bool, double_ffn: bool,
                      mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` pre-norm windows -> post-block windows, in the store
-    dtype. C >= ``WIDE_MIN_C`` runs :func:`split_block`; other CPU tensors
-    take :func:`swin_block_plain`; CUDA tensors with an input that requires
-    grad (in grad mode) take :func:`swin_block_autograd`."""
-    args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
-            mxu_dtype)
+    dtype. C >= ``WIDE_MIN_C`` runs :func:`split_block`; the rest is routed
+    by :func:`.autograd.route` (the backward :func:`swin_block_plain`'s,
+    ``swin_block.py::_fsb_bwd``)."""
     if x.shape[-1] >= WIDE_MIN_C:
-        return split_block(x, flat_params, *args)[0]
-    with annotate("kernel.fused_swin_block"):
-        if x.device.type == "cpu":
-            return swin_block_plain(x, flat_params, *args)
-        if needs_graph(x, *flat_params):
-            return swin_block_autograd(x, flat_params, *args)
-        return _kernel(x, flat_params, *args)
+        return split_block(x, flat_params, nh, window, num_windows_per_image, shift, resolution,
+                           use_residual, double_ffn, mxu_dtype)[0]
+    return route("kernel.fused_swin_block", (x, *flat_params), swin_block_plain, _kernel,
+                 swin_block_op, x, flat_params, nh, window, num_windows_per_image, shift,
+                 resolution, use_residual, double_ffn, mxu_dtype)
 
 
-def swin_block_autograd(x, flat_params, nh, window, num_windows_per_image, shift, resolution,
-                        use_residual, double_ffn, mxu_dtype=None) -> torch.Tensor:
-    """K4 under autograd (:mod:`.autograd`): the kernel forward (the plain
-    version for CPU tensors), :func:`swin_block_plain`'s backward
-    (``swin_block.py::_fsb_bwd``)."""
-    args = (nh, window, num_windows_per_image, shift, resolution, use_residual, double_ffn,
-            mxu_dtype)
-    kernel = swin_block_plain if x.device.type == "cpu" else _kernel
-    op = Op("recompute.fused_swin_block", lambda x_, *fp: kernel(x_, fp, *args),
-            lambda x_, *fp: swin_block_plain(x_, fp, *args))
-    return Recompute.apply(op, x, *flat_params)
+def swin_block_op(x, flat_params, *meta) -> Op:
+    """K4's :class:`.autograd.Op` on ``x`` and ``flat_params``; ``meta``, the
+    rest of :func:`fused_swin_block`'s arguments."""
+    return Op("recompute.fused_swin_block", lambda x_, *fp: _kernel(x_, fp, *meta),
+              lambda x_, *fp: swin_block_plain(x_, fp, *meta))
 
 
 def _kernel(x, flat_params, nh, window, num_windows_per_image, shift, resolution, use_residual,

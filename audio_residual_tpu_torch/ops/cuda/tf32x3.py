@@ -13,7 +13,7 @@ form of the TPU's ``Precision.HIGHEST`` (a split into bf16 passes on the
 MXU), not PyTorch's TF32 mode, which stays off. The kernels split the
 activations as they read them; the weights and the DFT basis are split here,
 once per weight version (:func:`split_weights`, kept beside the weight as
-:func:`.window_attention.mxu_weights` keeps the bf16 copies).
+:func:`.build.mxu_weights` keeps the bf16 copies).
 
 :func:`gemm_plan` is the launch plan of the 3xTF32 GEMM: the N tile and the
 ring depth, which the C entries check against their build. :func:`operand`
@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from audio_residual_tpu_torch.ops.cuda.window_attention import H100_SMS, SMEM_LIMIT, derived
+from audio_residual_tpu_torch.ops.cuda.build import H100_SMS, SMEM_LIMIT, derived
 
 __all__ = ["split_tf32", "split_weights", "gemm_plan", "GemmPlan", "GEMM_BNS", "Operand",
            "operand", "Residual", "residual_operands", "padded_components",

@@ -32,21 +32,19 @@ import torch
 
 from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
-from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, route
+from audio_residual_tpu_torch.ops.cuda.build import sm_count
 from audio_residual_tpu_torch.ops.cuda.window_attention import (
-    SMEM_LIMIT,
     AmpPlan,
     bias_and_mask,
     check_window_shapes,
     padded_bias_and_mask,
-    sm_count,
     window_attention_call,
     window_attention_plain,
 )
-from audio_residual_tpu_torch.utils.profiling import annotate
 
-__all__ = ["wide_window_attention", "wide_attention_plain", "wide_attention_autograd",
-           "amp_plan", "AmpPlan", "padded_bias_and_mask", "SMEM_LIMIT"]
+__all__ = ["wide_window_attention", "wide_attention_plain", "wide_attention_op",
+           "amp_plan", "AmpPlan", "padded_bias_and_mask"]
 
 HEAD_DIMS = (32, 64)  # K5's, those of every shipped wide layer; the AMP kernel takes others too
 
@@ -73,28 +71,17 @@ def wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int, 
                           num_windows_per_image: int, shift: int, resolution,
                           mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` -> attention output, same shape, in the store
-    dtype. CPU tensors take :func:`wide_attention_plain`; CUDA tensors with
-    an input that requires grad (in grad mode) take
-    :func:`wide_attention_autograd`."""
-    args = (x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
-            shift, resolution, mxu_dtype)
-    with annotate("kernel.wide_window_attention"):
-        if x.device.type == "cpu":
-            return wide_attention_plain(*args)
-        if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
-            return wide_attention_autograd(*args)
-        return _kernel(*args)
+    dtype, routed by :func:`.autograd.route`."""
+    return route("kernel.wide_window_attention", (x, wqkv, bqkv, wproj, bproj, rel_bias_table),
+                 wide_attention_plain, _kernel, wide_attention_op, x, wqkv, bqkv, wproj, bproj,
+                 rel_bias_table, nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
 
 
-def wide_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                            num_windows_per_image, shift, resolution, mxu_dtype=None):
-    """K5 under autograd (:mod:`.autograd`): the kernel forward (the plain
-    version for CPU tensors), the plain version's backward."""
-    meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
-    kernel = wide_attention_plain if x.device.type == "cpu" else _kernel
-    op = Op("recompute.wide_window_attention", lambda *t: kernel(*t, *meta),
-            lambda *t: wide_attention_plain(*t, *meta))
-    return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
+def wide_attention_op(x, wqkv, bqkv, wproj, bproj, rel_bias_table, *meta) -> Op:
+    """K5's :class:`.autograd.Op` on its six tensors; ``meta``, the rest of
+    :func:`wide_window_attention`'s arguments."""
+    return Op("recompute.wide_window_attention", lambda *t: _kernel(*t, *meta),
+              lambda *t: wide_attention_plain(*t, *meta))
 
 
 def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 from dataclasses import dataclass
 
 import torch
@@ -39,12 +38,11 @@ import torch.nn.functional as F
 
 from audio_residual_tpu_torch.ops import windows as win_ops
 from audio_residual_tpu_torch.ops.common import attention_core, linear
-from audio_residual_tpu_torch.ops.cuda import build, launch_counts
-from audio_residual_tpu_torch.ops.cuda.autograd import Op, Recompute, needs_graph
-from audio_residual_tpu_torch.utils.profiling import annotate
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts, tf32x3
+from audio_residual_tpu_torch.ops.cuda.autograd import Op, route
 
-__all__ = ["fused_window_attention", "window_attention_plain", "window_attention_autograd",
-           "WIDE_MIN_C", "mxu_weights", "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
+__all__ = ["fused_window_attention", "window_attention_plain", "window_attention_op",
+           "WIDE_MIN_C", "q_scale", "amp_plan", "AmpPlan", "padded_bias_and_mask"]
 
 WIDE_MIN_C = 1024
 """From this width a window attention runs K5: the port's explicit rule for
@@ -57,61 +55,6 @@ AMP_HEAD_DIMS = (16, 24, 32, 64)  # two heads a group, one at 64
 TC_TOKENS = 64    # rows of a window tile: n <= 64, zero-filled past n
 TC_WINDOWS = 2    # windows a unit, one per consumer warpgroup
 TC_BK = 64        # K step: 64 bf16, one 128-byte swizzle row
-SMEM_LIMIT = 232448  # shared memory a block may use on the H100
-H100_SMS = 132
-
-
-def store_dtype(x: torch.Tensor, mxu_dtype) -> torch.dtype:
-    if mxu_dtype not in (None, torch.bfloat16):
-        raise ValueError(f"mxu_dtype must be None or torch.bfloat16, got {mxu_dtype}")
-    return x.dtype if mxu_dtype is not None else torch.float32
-
-
-# (id(tensor), what) -> (weakref to the tensor, its stamp, the derived value)
-_derived: dict = {}
-
-
-def _stamp(t: torch.Tensor) -> tuple:
-    return (t._version, t.data_ptr(), t.device, t.dtype, tuple(t.shape), t.stride())
-
-
-def derived(t: torch.Tensor, what, make):
-    """``make(t)``, made once per state of ``t`` and kept while ``t`` lives:
-    the kernels' bf16 weight copies and gathered relative-position biases,
-    which would otherwise cost every call host time and launches.
-
-    The state is ``t``'s version counter (an in-place update of ``t`` bumps
-    it) with its storage address, device, dtype, shape and strides (a
-    ``p.data = new`` swap or a move changes them). Not seen: an in-place
-    write through ``p.data`` (``p.data.copy_(...)``), which bumps the
-    counter of a separate view only. An inference tensor tracks no version,
-    and a tensor that requires grad is a weight in training: for both the
-    value is made at every call. (In grad mode such a value carries its
-    graph; outside it, an optimizer may still update the weight without a
-    version bump: ``torch.optim.AdamW(fused=True)`` bumps none, where the
-    foreach update does.)"""
-    if t.is_inference() or t.requires_grad:
-        return make(t)
-    key = (id(t), what)
-    stamp = _stamp(t)
-    hit = _derived.get(key)
-    if hit is not None and hit[0]() is t and hit[1] == stamp:
-        return hit[2]
-    # the entry goes when the tensor does, so a reused id never finds it
-    ref = weakref.ref(t, lambda _, key=key, cache=_derived: cache.pop(key, None))
-    value = make(t)
-    _derived[key] = (ref, stamp, value)
-    return value
-
-
-def mxu_weights(mxu_dtype, *weights) -> tuple:
-    """The GEMM weights as the kernels take them: under AMP bf16 copies, made
-    once per weight version, so no kernel converts a weight tile and no call
-    casts again; otherwise the f32 tensors. (The JAX wrappers cast once per
-    call, ``swin_block.py:264-266``.)"""
-    if mxu_dtype is None:
-        return weights
-    return tuple(derived(w, mxu_dtype, lambda t: t.to(mxu_dtype)) for w in weights)
 
 
 @functools.lru_cache(maxsize=32)
@@ -146,7 +89,7 @@ class AmpPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def amp_plan(windows: int, n: int, c: int, nh: int, sms: int = H100_SMS) -> AmpPlan:
+def amp_plan(windows: int, n: int, c: int, nh: int, sms: int = build.H100_SMS) -> AmpPlan:
     """The launch plan of the AMP qkv + attention kernel for ``windows``
     windows of ``n`` tokens at width ``c`` with ``nh`` heads on a card of
     ``sms`` SMs: two heads a unit (one at hd 64), as many ring stages as
@@ -171,16 +114,11 @@ def amp_plan(windows: int, n: int, c: int, nh: int, sms: int = H100_SMS) -> AmpP
     qkv_bytes = TC_WINDOWS * TC_TOKENS * (n_cols + 8) * 2
     stage = TC_WINDOWS * TC_TOKENS * TC_BK * 2 + n_cols * TC_BK * 2 + 16
     fixed = 1024 + qkv_bytes
-    stages = (SMEM_LIMIT - fixed) // stage
+    stages = (build.SMEM_LIMIT - fixed) // stage
     pairs = -(-windows // TC_WINDOWS)
     return AmpPlan(heads_per_block=heads, windows_per_block=TC_WINDOWS, stages=stages,
                    smem_bytes=fixed + stages * stage, grid=(pairs, c // nq), n_cols=n_cols,
                    blocks=min(pairs * (c // nq), sms))
-
-
-@functools.lru_cache(maxsize=8)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _pad_tile(t: torch.Tensor, n: int, key_fill: float) -> torch.Tensor:
@@ -201,24 +139,10 @@ def padded_bias_and_mask(table: torch.Tensor, window: int, shift: int, resolutio
     the window's tokens, so they drop out of the softmax) and ``mask [nW,
     64, 64]`` (None without a shift)."""
     n = window * window
-    bias = derived(table, ("bias64", window), lambda t: _pad_tile(
+    bias = build.derived(table, ("bias64", window), lambda t: _pad_tile(
         win_ops.gather_relative_bias(t.float(), window, window), n, float("-inf")))
     mask = _mask64(*resolution, window, shift, table.device) if shift > 0 else None
     return bias, mask
-
-
-def weight_map(w: torch.Tensor, box_rows: int) -> ctypes.Array:
-    """The TMA map of the bf16 weight ``w`` in boxes of ``[box_rows, 64]``,
-    made once per state of ``w`` (kept beside it, as :func:`mxu_weights`
-    keeps the copy): the AMP kernels of K2-K5 read their weights by TMA."""
-    def make(t):
-        m = ctypes.create_string_buffer(128)  # a CUtensorMap
-        fn = build.bind("gemm", "arpu_weight_map", "piiip")
-        build.check("gemm", fn(t.data_ptr(), t.shape[0], t.shape[1], box_rows, m),
-                    "TMA weight map")
-        return m
-
-    return derived(w, ("tma_map", box_rows), make)
 
 
 def amp_attention_args(x, wqkv, table, nh, window, shift, resolution) -> tuple:
@@ -228,9 +152,9 @@ def amp_attention_args(x, wqkv, table, nh, window, shift, resolution) -> tuple:
     a unit, stages, shared bytes and blocks, in the order the C entries
     take them."""
     wn, n, c = x.shape
-    plan = amp_plan(wn, n, c, nh, sm_count(x.device))
+    plan = amp_plan(wn, n, c, nh, build.sm_count(x.device))
     bias, mask = padded_bias_and_mask(table, window, shift, resolution)
-    w_map = weight_map(wqkv, plan.n_cols // 3)
+    w_map = build.weight_map(wqkv, plan.n_cols // 3)
     return bias, mask, (ctypes.addressof(w_map), plan.heads_per_block, plan.windows_per_block,
                         plan.stages, plan.smem_bytes, plan.blocks)
 
@@ -240,8 +164,8 @@ NO_PLAN = (None, 0, 0, 0, 0, 0)  # the golden route reads no attention plan
 
 def bias_and_mask(table: torch.Tensor, window: int, shift: int, resolution) -> tuple:
     """``bias [nh, n, n]`` and ``mask [nW, n, n]`` (None without a shift)."""
-    bias = derived(table, ("bias", window),
-                   lambda t: win_ops.gather_relative_bias(t.float(), window, window))
+    bias = build.derived(table, ("bias", window),
+                         lambda t: win_ops.gather_relative_bias(t.float(), window, window))
     mask = _mask(*resolution, window, shift, table.device) if shift > 0 else None
     return bias, mask
 
@@ -257,7 +181,7 @@ def attention_f32(y, wqkv, bqkv, wproj, bproj, bias, mask, nh, mxu_dtype=None) -
 def window_attention_plain(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                            num_windows_per_image, shift, resolution, mxu_dtype=None):
     """Plain version of the kernel (``window_attention.py::_xla_reference``)."""
-    store = store_dtype(x, mxu_dtype)
+    store = build.store_dtype(x, mxu_dtype)
     bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
     return attention_f32(x, wqkv, bqkv, wproj, bproj, bias, mask, nh, mxu_dtype).to(store)
 
@@ -278,34 +202,25 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh: int,
                            num_windows_per_image: int, shift: int, resolution,
                            mxu_dtype=None) -> torch.Tensor:
     """``x [B*nW, n, C]`` -> attention output, same shape, in the store dtype.
-    C >= ``WIDE_MIN_C`` goes to K5; other CPU tensors take
-    :func:`window_attention_plain`; CUDA tensors with an input that requires
-    grad (in grad mode) take :func:`window_attention_autograd`."""
+    C >= ``WIDE_MIN_C`` goes to K5; the rest is routed by
+    :func:`.autograd.route`."""
     if x.shape[-1] >= WIDE_MIN_C:
         # imported here: wide_attention builds on this module's helpers
         from audio_residual_tpu_torch.ops.cuda.wide_attention import wide_window_attention
 
         return wide_window_attention(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
                                      num_windows_per_image, shift, resolution, mxu_dtype)
-    args = (x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
-            shift, resolution, mxu_dtype)
-    with annotate("kernel.fused_window_attention"):
-        if x.device.type == "cpu":
-            return window_attention_plain(*args)
-        if needs_graph(x, wqkv, bqkv, wproj, bproj, rel_bias_table):
-            return window_attention_autograd(*args)
-        return _kernel(*args)
+    return route("kernel.fused_window_attention", (x, wqkv, bqkv, wproj, bproj, rel_bias_table),
+                 window_attention_plain, _kernel, window_attention_op, x, wqkv, bqkv, wproj,
+                 bproj, rel_bias_table, nh, window, num_windows_per_image, shift, resolution,
+                 mxu_dtype)
 
 
-def window_attention_autograd(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window,
-                              num_windows_per_image, shift, resolution, mxu_dtype=None):
-    """K2 under autograd (:mod:`.autograd`): the kernel forward (the plain
-    version for CPU tensors), the plain version's backward."""
-    meta = (nh, window, num_windows_per_image, shift, resolution, mxu_dtype)
-    kernel = window_attention_plain if x.device.type == "cpu" else _kernel
-    op = Op("recompute.fused_window_attention", lambda *t: kernel(*t, *meta),
-            lambda *t: window_attention_plain(*t, *meta))
-    return Recompute.apply(op, x, wqkv, bqkv, wproj, bproj, rel_bias_table)
+def window_attention_op(x, wqkv, bqkv, wproj, bproj, rel_bias_table, *meta) -> Op:
+    """K2's :class:`.autograd.Op` on its six tensors; ``meta``, the rest of
+    :func:`fused_window_attention`'s arguments."""
+    return Op("recompute.fused_window_attention", lambda *t: _kernel(*t, *meta),
+              lambda *t: window_attention_plain(*t, *meta))
 
 
 def _kernel(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, window, num_windows_per_image,
@@ -332,24 +247,22 @@ def window_attention_call(x, wqkv, bqkv, wproj, bproj, rel_bias_table, nh, windo
     """One call of ``csrc/window_attention.cu`` on checked CUDA inputs: the
     golden sequence, or under AMP the qkv + attention kernel and the proj
     GEMM (K5's AMP route comes here too)."""
-    store = store_dtype(x, mxu_dtype)
+    store = build.store_dtype(x, mxu_dtype)
     wn, n, c = x.shape
     r = wn * n
     amp = mxu_dtype is not None
     if amp:
-        wqkv, wproj = mxu_weights(mxu_dtype, wqkv, wproj)
+        wqkv, wproj = build.mxu_weights(mxu_dtype, wqkv, wproj)
         x = x.to(mxu_dtype)  # the kernel's TMA reads bf16 rows; its products round x so anyway
         bias, mask, plan = amp_attention_args(x, wqkv, rel_bias_table, nh, window, shift,
                                               resolution)
         weights = (wqkv.data_ptr(), None, 0, 0, bqkv.data_ptr(),
                    wproj.data_ptr(), None, 0, 0, bproj.data_ptr())
     else:
-        from audio_residual_tpu_torch.ops.cuda import tf32x3  # it builds on this module
-
         x = x.float()  # the qkv product's A operand is f32: widening bf16 is exact
         bias, mask = bias_and_mask(rel_bias_table, window, shift, resolution)
         plan = NO_PLAN
-        sms = sm_count(x.device)
+        sms = build.sm_count(x.device)
         qkv, proj = tf32x3.operand(wqkv, r, sms), tf32x3.operand(wproj, r, sms)
         weights = (*qkv.args(), bqkv.data_ptr(), *proj.args(), bproj.data_ptr())
     out = torch.empty(wn, n, c, device=x.device, dtype=store)

@@ -36,7 +36,7 @@ import torch
 
 from audio_residual_tpu_torch.ops.cuda import linear as L
 from audio_residual_tpu_torch.ops.cuda import tf32x3
-from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
+from audio_residual_tpu_torch.ops.cuda.build import sm_count
 from audio_residual_tpu_torch.utils.profiling import time_ms
 
 M = 96 * 77

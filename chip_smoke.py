@@ -1231,7 +1231,7 @@ def phase_linear(dev, card: str, stats: KernelStats | None = None) -> int:
 
     from audio_residual_tpu_torch.ops.cuda import KERNELS, launch_counts
     from audio_residual_tpu_torch.ops.cuda import linear as kl
-    from audio_residual_tpu_torch.ops.cuda.window_attention import sm_count
+    from audio_residual_tpu_torch.ops.cuda.build import sm_count
 
     standalone = stats is None
     stats = stats or KernelStats(KERNELS)
@@ -2542,8 +2542,7 @@ def phase_contrastive(dev, card: str) -> None:
     import torch
 
     from audio_residual_tpu_torch.module import CLAPModule
-    from audio_residual_tpu_torch.ops.cuda import launch_counts
-    from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+    from audio_residual_tpu_torch.ops.cuda import build, launch_counts
     from audio_residual_tpu_torch.parallel.mesh import data_parallel_mesh
     from audio_residual_tpu_torch.training import checkpoints
     from audio_residual_tpu_torch.training import train_clap as tc
@@ -2596,7 +2595,7 @@ def phase_contrastive(dev, card: str) -> None:
         def logged_step(st, b, g):
             st, m = step_fn(st, b, g)
             losses.append(m)
-            cache_sizes.append(len(k2._derived))
+            cache_sizes.append(len(build._derived))
             return st, m
 
         def fixed_loss():  # the fixed batch's training loss without randomness

@@ -1,8 +1,9 @@
-"""The backward of the kernels' autograd entries (``ops/cuda/autograd.py``)
-on the CPU, where each entry's forward is the plain version.
+"""The backward of the kernels' autograd route (``ops/cuda/autograd.py``:
+:class:`Recompute` on each wrapper's ``Op``) on the CPU, where its forward
+is the plain version.
 
 On the card the forward is the kernel and the backward re-runs the plain
-version; here both are the plain version, so the entry's grads must equal
+version; here both are the plain version, so the route's grads must equal
 autograd through the plain version exactly (the same operations on the
 same inputs): for x, K3's ``a`` and λ, ResiDual on and off, the double FFN
 on and off, golden and AMP. This is the only run of the backward's wiring
@@ -20,6 +21,8 @@ from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
+
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 MODES = {"golden": None, "amp": torch.bfloat16}
 VARIANTS = {"plain": (False, False), "residual": (True, False), "double-ffn": (True, True)}
@@ -52,6 +55,11 @@ def _grads(fn, inputs, cotangent):
     return out, grads
 
 
+def _recompute(op, *tensors):
+    """What a wrapper's route takes for CUDA tensors under a graph."""
+    return autograd.Recompute.apply(op, *tensors)
+
+
 def _leaf(t):
     return t.detach().clone().requires_grad_(True)
 
@@ -79,7 +87,8 @@ def test_swin_block_autograd_equals_plain(mode, shift, variant):
     inputs = [x, lam] if use_res else [x]
     args = (2, 4, 4, shift, (8, 8), use_res, dffn, md)
     cot = _t(rng, 8, 16, 32)
-    _assert_same(_grads(lambda: k4.swin_block_autograd(x, params, *args), inputs, cot),
+    _assert_same(_grads(lambda: _recompute(k4.swin_block_op(x, params, *args), x, *params),
+                        inputs, cot),
                  _grads(lambda: k4.swin_block_plain(x, params, *args), inputs, cot))
 
 
@@ -92,12 +101,14 @@ def test_residual_ffn_autograd_equals_plain(mode, variant):
     x = _leaf(_t(rng, 64, 32, scale=0.5))
     a = _leaf(_t(rng, 64, 32, scale=0.1))
     lam = _leaf(res[2])
-    rp = {"basis": res[0], "mean": res[1], "lam": lam} if use_res else None
+    rt = (res[0], res[1], lam) if use_res else (None, None, None)
+    rp = dict(zip(("basis", "mean", "lam"), rt)) if use_res else None
     inputs = [x, a, lam] if use_res else [x, a]
     cot = _t(rng, 64, 32)
     kw = dict(double_ffn=dffn, mxu_dtype=md)
+    op = k3.residual_ffn_op(x, a, *flat[6:12], rp, **kw)
     _assert_same(
-        _grads(lambda: k3.residual_ffn_autograd(x, a, *flat[6:12], rp, **kw), inputs, cot),
+        _grads(lambda: _recompute(op, x, a, *flat[6:12], *rt), inputs, cot),
         _grads(lambda: k3.residual_ffn_plain(x, a, *flat[6:12], rp, **kw), inputs, cot))
 
 
@@ -109,7 +120,8 @@ def test_window_attention_autograd_equals_plain(mode, shift):
     x = _leaf(_t(rng, 8, 16, 32, scale=0.5))
     args = (*flat[2:6], flat[12], 2, 4, 4, shift, (8, 8), md)
     cot = _t(rng, 8, 16, 32)
-    _assert_same(_grads(lambda: k2.window_attention_autograd(x, *args), [x], cot),
+    _assert_same(_grads(lambda: _recompute(k2.window_attention_op(x, *args), x, *args[:5]),
+                        [x], cot),
                  _grads(lambda: k2.window_attention_plain(x, *args), [x], cot))
 
 
@@ -121,7 +133,8 @@ def test_wide_attention_autograd_equals_plain(mode):
     x = _leaf(_t(rng, 2, 16, 1024, scale=0.5))
     args = (*flat[2:6], flat[12], 32, 4, 1, 0, (4, 4), md)
     cot = _t(rng, 2, 16, 1024)
-    _assert_same(_grads(lambda: k5.wide_attention_autograd(x, *args), [x], cot),
+    _assert_same(_grads(lambda: _recompute(k5.wide_attention_op(x, *args), x, *args[:5]),
+                        [x], cot),
                  _grads(lambda: k5.wide_attention_plain(x, *args), [x], cot))
 
 
@@ -134,7 +147,8 @@ def test_frozen_weights_get_grads_when_asked():
     args = (2, 4, 4, 2, (8, 8), True, True, None)
     cot = _t(rng, 8, 16, 32)
     inputs = [x, *params]
-    _assert_same(_grads(lambda: k4.swin_block_autograd(x, params, *args), inputs, cot),
+    _assert_same(_grads(lambda: _recompute(k4.swin_block_op(x, params, *args), x, *params),
+                        inputs, cot),
                  _grads(lambda: k4.swin_block_plain(x, params, *args), inputs, cot))
 
 
@@ -180,3 +194,77 @@ def test_encode_audio_gives_lambda_a_grad(model):
     g = residual[0]["lam"].grad
     assert g is not None and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     assert all(p.grad is None for p in model.parameters())
+
+
+def _toy(calls):
+    """A toy wrapper's plain version, kernel and ``Op`` constructor on
+    ``(x, w)`` and a scale, each recording its calls; the kernel computes
+    what the plain version does."""
+    def plain(x, w, scale):
+        calls.append("plain")
+        return (x * w).sin() * scale
+
+    def kernel(x, w, scale):
+        calls.append("kernel")
+        return (x * w).sin() * scale
+
+    def make_op(x, w, scale):
+        calls.append("op")
+        return autograd.Op("recompute.toy", lambda *t: kernel(*t, scale),
+                           lambda *t: plain(*t, scale))
+
+    return plain, kernel, make_op
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU profiler: the result and the names of the
+    spans it entered."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [e.name for e in prof.events() if e.name.startswith(("kernel.", "recompute."))]
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_takes_the_plain_version_for_cpu_tensors(grad):
+    """CPU tensors take the plain version, in grad mode too, with no ``Op``
+    built; the span is entered once."""
+    calls = []
+    x, w = torch.linspace(-1, 1, 6).requires_grad_(grad), torch.full((6,), 0.5)
+    out, spans = _profiled(lambda: autograd.route("kernel.toy", (x, w), *_toy(calls), x, w,
+                                                  2.0))
+    assert calls == ["plain"] and spans == ["kernel.toy"]
+    assert torch.equal(out, (x * w).sin() * 2.0)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_on_another_device(grad):
+    """On a device that is not the CPU (meta, which computes shapes only):
+    without a graph the kernel, no ``Op``; with one, :class:`Recompute` on
+    the ``Op``, whose forward runs the kernel. One span either way."""
+    calls = []
+    x = torch.empty(6, device="meta").requires_grad_(grad)
+    w = torch.empty(6, device="meta")
+    out, spans = _profiled(lambda: autograd.route("kernel.toy", (x, w), *_toy(calls), x, w,
+                                                  2.0))
+    assert spans == ["kernel.toy"] and out.shape == (6,)
+    if grad:
+        assert calls == ["op", "kernel"] and type(out.grad_fn).__name__ == "RecomputeBackward"
+    else:
+        assert calls == ["kernel"] and out.grad_fn is None
+
+
+def test_recompute_on_the_cpu_gives_the_plain_gradient():
+    """:class:`Recompute` on the toy ``Op`` with CPU tensors: the forward is
+    the plain version, the backward re-runs it inside ``recompute.toy``; its
+    grads equal autograd's through the plain version exactly."""
+    calls = []
+    plain, _, make_op = _toy(calls)
+    x, w = _leaf(torch.linspace(-1, 1, 6)), _leaf(torch.full((6,), 0.5))
+    cot = torch.linspace(0.5, 1.5, 6)
+    out, grads = _grads(lambda: autograd.Recompute.apply(make_op(x, w, 2.0), x, w), [x, w],
+                        cot)
+    assert calls == ["op", "plain", "plain"]  # the forward, then the backward's re-run
+    _, spans = _profiled(lambda: torch.autograd.grad(
+        (autograd.Recompute.apply(make_op(x, w, 2.0), x, w) * cot).sum(), [x, w]))
+    assert spans == ["recompute.toy"]
+    _assert_same((out, grads), _grads(lambda: plain(x, w, 2.0), [x, w], cot))

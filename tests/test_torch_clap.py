@@ -27,6 +27,7 @@ from audio_residual_tpu_torch.models.convert import (clap_state_dict, load_clap_
                                                      load_jax_params)
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 F32 = dict(atol=1e-5, rtol=1e-4)
 TMODELS = tuple(fx.CLAP_TEXT_KW)

@@ -50,6 +50,8 @@ from benchmark.reference import htsat as ref
 from benchmark.reference import roberta as ref_roberta
 from benchmark.tests import bench_tiny
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 B, CONTEXT, STEPS = 4, 12, 2
 TEXT = dict(vocab_size=100, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
             intermediate_size=64, max_position_embeddings=40, type_vocab_size=1, pad_token_id=1,

@@ -17,7 +17,7 @@ import torch
 
 from audio_residual_tpu_torch.models import htsat as t_htsat
 from audio_residual_tpu_torch.ops import frontend as fe
-from audio_residual_tpu_torch.ops.cuda import launch_counts
+from audio_residual_tpu_torch.ops.cuda import build, launch_counts
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
 from audio_residual_tpu_torch.ops.cuda import gemm as kg
 from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
@@ -28,6 +28,7 @@ from audio_residual_tpu_torch.utils.profiling import annotate, device_events
 
 from . import torch_f64_reference as f64
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -734,6 +735,39 @@ def test_gemm_autograd_gives_the_plain_gradients_on_card(dev, m, n, k, gelu, out
         assert gr.dtype == rg.dtype and _rel(gr, rg) < 1e-6
 
 
+@pytest.mark.parametrize("wrapper", ["fused_window_attention", "wide_window_attention",
+                                     "fused_residual_ffn", "fused_swin_block", "gemm"])
+def test_a_graph_request_goes_through_recompute_on_card(dev, wrapper):
+    """Each wrapper that ``autograd.route`` routes, golden (the bf16 GEMM in
+    bf16): with an input that requires grad, in grad mode, its output comes
+    from :class:`Recompute`, whose forward launches the kernel once; without
+    one, from the kernel directly, with no graph."""
+    flat, res, x, _ = _inputs(dev)
+    wide, xw = _wide_inputs(dev, 1024, 32, 2)
+    rows = x.reshape(-1, x.shape[-1])
+    rp = dict(zip(("basis", "mean", "lam"), res))
+    calls = {  # the input that requires grad or not, and the call on it
+        "fused_window_attention": (x, lambda t: k2.fused_window_attention(
+            t, *flat[2:6], flat[12], 4, 8, 4, 4, (16, 16))),
+        "wide_window_attention": (xw, lambda t: k5.wide_window_attention(
+            t, *wide, 32, 8, 1, 0, (8, 8))),
+        "fused_residual_ffn": (rows, lambda t: k3.fused_residual_ffn(
+            t, rows * 0.1, *flat[6:12], rp)),
+        "fused_swin_block": (x, lambda t: k4.fused_swin_block(
+            t, flat, 4, 8, 4, 4, (16, 16), False, False)),
+        "gemm": (rows.to(torch.bfloat16), lambda t: kg.gemm(t, flat[2].to(torch.bfloat16))),
+    }
+    t, call = calls[wrapper]
+    for grad in (False, True):
+        launch_counts.clear()
+        out = call(t.clone().requires_grad_(True) if grad else t)
+        assert dict(launch_counts) == {wrapper: 1}
+        if grad:
+            assert type(out.grad_fn).__name__ == "RecomputeBackward"
+        else:
+            assert out.grad_fn is None
+
+
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("mode,md,tol", [("f32", None, 1e-4), ("bf16", torch.bfloat16, 2e-2)])
 def test_derived_copies_follow_optimizer_steps_on_card(dev, fused, mode, md, tol):
@@ -743,7 +777,7 @@ def test_derived_copies_follow_optimizer_steps_on_card(dev, fused, mode, md, tol
     plain versions at the new weights, and the derived-copy cache keeps its
     size. The foreach update bumps each weight's version; the fused one
     bumps none, which is why a weight that requires grad is never kept
-    (``window_attention.derived``)."""
+    (``build.derived``)."""
     c, nh, nw, res = WEIGHT_GRAD_LAYERS["tiny-0"]
     flat, _, _, _ = _inputs(dev, c=c, nh=nh)
     weights = [torch.nn.Parameter(w.clone()) for w in flat]
@@ -760,7 +794,7 @@ def test_derived_copies_follow_optimizer_steps_on_card(dev, fused, mode, md, tol
                         k4.swin_block_plain(x, tuple(weights), *args4)) < tol
             assert _rel(k2.fused_window_attention(x, *weights[2:6], weights[12], *args2),
                         k2.window_attention_plain(x, *weights[2:6], weights[12], *args2)) < tol
-        sizes.append(len(k2._derived))
+        sizes.append(len(build._derived))
         versions = [w._version for w in weights]
         opt.zero_grad()
         (k4.fused_swin_block(x, tuple(weights), *args4).float() * cot).sum().backward()

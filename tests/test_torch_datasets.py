@@ -38,6 +38,7 @@ from audio_residual_tpu_torch.training import lp_main as t_lp_main
 from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 # (sr_in, sr_out, seconds): the direct form costs ~0.03 s of CPU a
 # millisecond of 44.1 kHz input, so that rate takes the shorter inputs

@@ -16,6 +16,7 @@ from audio_residual_tpu.models import htsat as j_htsat
 from audio_residual_tpu_torch.models import htsat as t_htsat
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 CFG = t_htsat.HTSATConfig(**fx.AUDIO_KW)
 BF16 = torch.bfloat16

@@ -20,6 +20,7 @@ from audio_residual_tpu_torch.training import train_clap as t_tc
 
 from . import torch_dist_workers as dw
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 LAUNCHERS = {
     "slurm": {"SLURM_PROCID": "3", "SLURM_NTASKS": "8", "SLURM_LOCALID": "1"},

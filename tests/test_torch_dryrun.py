@@ -13,6 +13,7 @@ import torch
 from audio_residual_tpu_torch import dryrun
 
 from . import torch_dist_workers as dw
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 
 def _records(out: str):

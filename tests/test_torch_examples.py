@@ -68,6 +68,7 @@ from audio_residual_tpu_torch.training import train_residual as t_tr
 from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

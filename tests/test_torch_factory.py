@@ -27,6 +27,7 @@ from audio_residual_tpu_torch.models import htsat as t_htsat
 from audio_residual_tpu_torch.models.convert import load_audio_checkpoint
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 HTSAT_NAMES = ["HTSAT-tiny", "HTSAT-base", "HTSAT-large", "HTSAT-tiny-win-1536"]
 

@@ -22,6 +22,8 @@ from audio_residual_tpu_torch.ops.common import layer_norm
 from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.residual.module import residual_apply
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 BF16 = torch.bfloat16
 SMEM_LIMIT = 232448

@@ -25,6 +25,7 @@ from audio_residual_tpu_torch.training import train_clap as t_tc
 
 from . import torch_dist_workers as dw
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 SPEC_CASES = [
     # tests/test_fsdp.py:46-60's shapes at n = 8

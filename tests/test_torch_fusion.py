@@ -39,6 +39,7 @@ from audio_residual_tpu_torch.ops import interpolate as t_interp
 from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 GOLDEN = dict(atol=2e-3, rtol=1e-3)
 AUDIO_CFG = dict(sample_rate=48000, window_size=1024, hop_size=480, mel_bins=64, fmin=50,

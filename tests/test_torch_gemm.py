@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from audio_residual_tpu_torch.ops.common import linear
 from audio_residual_tpu_torch.ops.cuda import gemm as g
 from audio_residual_tpu_torch.ops.cuda import launch_counts
-from audio_residual_tpu_torch.ops.cuda.window_attention import mxu_weights
+from audio_residual_tpu_torch.ops.cuda.build import mxu_weights
+
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 M, N, K = 77, 288, 96  # ragged M (no tile divides it), N = HTSAT-tiny's 3C
 

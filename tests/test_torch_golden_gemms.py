@@ -37,6 +37,7 @@ from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 from audio_residual_tpu_torch.residual.module import residual_apply
 
 from .torch_tf32x3_replay import attention_replay, block_replay, layer_gemms, residual_replay
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 JAX_TOL = dict(atol=2e-3, rtol=1e-3)

@@ -20,6 +20,7 @@ from audio_residual_tpu_torch.evaluate import harness as t_h
 from audio_residual_tpu_torch.training import linear_probe as t_lp
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 N_CLASSES, FOLDS = 6, 3
 

@@ -24,6 +24,7 @@ from audio_residual_tpu_torch.models.convert import load_jax_params
 from audio_residual_tpu_torch.residual.module import init_residual_params
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

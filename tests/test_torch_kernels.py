@@ -32,6 +32,8 @@ from audio_residual_tpu_torch.ops.cuda import ln_mlp as t_k3
 from audio_residual_tpu_torch.ops.cuda import swin_block as t_k4
 from audio_residual_tpu_torch.ops.cuda import window_attention as t_k2
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 TOL = dict(atol=5e-5, rtol=1e-3)
 

@@ -21,6 +21,8 @@ from audio_residual_tpu_torch.models import roberta as t_roberta
 from audio_residual_tpu_torch.ops.cuda import linear as L
 from audio_residual_tpu_torch.ops.cuda import tf32x3
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 TOL = 2e-6
 # (m, n, k): RoBERTa's q/k/v/out, fc1 and fc2 at 32 texts of 77 tokens; one
 # text of 77 (M padded to 80); N < K (dW^T, transposed back); ragged k-tiles

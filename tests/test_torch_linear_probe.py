@@ -27,6 +27,7 @@ from audio_residual_tpu_torch.utils.misc import do_mixup as t_do_mixup
 from audio_residual_tpu_torch.utils.misc import get_mix_lambda as t_get_mix_lambda
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 ACTS = ["None", "relu", "elu", "softmax", "sigmoid"]
 

@@ -28,6 +28,8 @@ from audio_residual_tpu_torch.models.clap import CLAPConfig
 from audio_residual_tpu_torch.ops import frontend as t_fe
 from audio_residual_tpu_torch.ops.cuda import frontend as k1
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs" / "model_configs"
 CPU = torch.device("cpu")

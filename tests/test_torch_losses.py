@@ -17,6 +17,7 @@ from audio_residual_tpu.training import losses as j_losses
 from audio_residual_tpu_torch.training import losses as t_losses
 
 from . import torch_dist_workers as dw
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 WORLD = 2
 

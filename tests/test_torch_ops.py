@@ -26,6 +26,8 @@ from audio_residual_tpu_torch.ops import quantize as t_quant
 from audio_residual_tpu_torch.ops import windows as t_win
 from audio_residual_tpu_torch.residual import module as t_res
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 HTK = dict(mel_scale="htk", mel_norm=None)
 
 

@@ -26,6 +26,7 @@ from audio_residual_tpu_torch.models import factory as t_factory
 from audio_residual_tpu_torch.models import pann as t_pann
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 GOLDEN = dict(atol=2e-3, rtol=1e-3)
 KEYS = ("clipwise_output", "embedding", "fine_grained_embedding")

@@ -34,6 +34,7 @@ from audio_residual_tpu_torch.residual.module import load_residual_params as t_l
 from audio_residual_tpu_torch.training import train_residual as t_tr
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 KEYS = ("components", "mean", "explained_variance", "explained_variance_ratio",
         "total_variance", "num_samples")

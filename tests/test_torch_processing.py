@@ -17,6 +17,8 @@ import torch
 from audio_residual_tpu.data.processing import AudioProcessing as J
 from audio_residual_tpu_torch.data.processing import AudioProcessing as T
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 DB = 2e-3
 
 

@@ -22,6 +22,8 @@ from torch.profiler import ProfilerActivity, profile
 from audio_residual_tpu_torch.ops.cuda import launch_counts
 from audio_residual_tpu_torch.ops.cuda import qr
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 
 def _replay_panel(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor) -> None:
     """The kernel's column steps (``csrc/householder_qr.cu``) on one panel

@@ -37,6 +37,7 @@ from audio_residual_tpu_torch.utils import check_tars as t_check
 from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 SR = 8000
 AUDIO_CFG = dict(sample_rate=SR, window_size=256, hop_size=128, mel_bins=16, fmin=10,

@@ -25,6 +25,7 @@ from audio_residual_tpu_torch.models.convert import load_jax_params
 
 from . import torch_port_fixture as fx
 from .tiny import TINY_CLAP
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 CONFIGS = {"tiny": TINY_CLAP, "depth2": fx.jax_config()}
 MODES = {"golden": None, "amp": torch.bfloat16}

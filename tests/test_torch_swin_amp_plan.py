@@ -38,6 +38,8 @@ from audio_residual_tpu_torch.ops.cuda import swin_block as t_k4
 from audio_residual_tpu_torch.ops.cuda.window_attention import bias_and_mask, q_scale
 from audio_residual_tpu_torch.residual.module import residual_apply
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 BF16 = torch.bfloat16
 C, NH, WINDOW, NW, RES = 96, 4, 8, 4, (16, 16)  # HTSAT-tiny layer 0 width, 2x2 windows of 64
 

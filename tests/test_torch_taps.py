@@ -28,6 +28,7 @@ from audio_residual_tpu_torch.models import htsat as t_htsat
 from audio_residual_tpu_torch.ops.cuda import swin_block as t_k4
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 TAPS = {"residual": ("residual",), "attention": ("attention",),
         "both": ("attention", "residual")}

@@ -30,6 +30,7 @@ from audio_residual_tpu_torch.models.convert import (bart_state_dict, clip_text_
                                                      roberta_state_dict)
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 F32 = dict(atol=1e-5, rtol=1e-4)
 

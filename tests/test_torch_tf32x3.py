@@ -39,6 +39,7 @@ from audio_residual_tpu_torch.ops.cuda import ln_mlp as k3
 from audio_residual_tpu_torch.ops.cuda import tf32x3
 
 from .torch_tf32x3_replay import ffn_replay, layer_gemms, tf32x3_matmul
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs" / "model_configs"

@@ -17,6 +17,8 @@ import pytest
 from audio_residual_tpu.utils import tokenizer as j_tok
 from audio_residual_tpu_torch.utils import tokenizer as t_tok
 
+from .torch_threads import one_cpu_thread  # noqa: F401
+
 TEXTS = ["hello dog", "This is a sound of dog.", "hello hello world 42!", "café crème",
          "  spaces   and\ttabs ", "", "a b c d e f g h i j k l m n o p"]
 MERGES = [("h", "e"), ("he", "l"), ("hel", "l"), ("hell", "o"), ("Ġ", "d"), ("Ġd", "o"),

@@ -28,9 +28,12 @@ from audio_residual_tpu_torch.data.featurize import featurize_batch
 from audio_residual_tpu_torch.models import clap as t_clap
 from audio_residual_tpu_torch.models import htsat as t_htsat
 from audio_residual_tpu_torch.ops.cuda import swin_block as k4
+from audio_residual_tpu_torch.ops.cuda.autograd import Recompute
 from audio_residual_tpu_torch.ops.quantize import quantize_roundtrip
 from audio_residual_tpu_torch.residual.analyze import run_pca
 from audio_residual_tpu_torch.training import train_residual as tr
+
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 AUDIO = t_htsat.HTSATConfig(spec_size=64, mel_bins=16, embed_dim=16, depths=(2, 2, 2),
                             num_heads=(2, 2, 4), window_size=4, clip_samples=9600,
@@ -95,11 +98,11 @@ def _pca(model, batches: int = 3) -> dict:
 
 
 def _on_the_card_route(monkeypatch):
-    """Route K4 through its autograd entry, as the wrapper does for a CUDA
-    tensor that requires grad (on the CPU it runs the plain version), so
-    the backward runs :class:`Recompute`."""
+    """Route K4 through :class:`Recompute` on its ``Op``, as the wrapper does
+    for a CUDA tensor that requires grad (on the CPU its forward runs the
+    plain version), so the backward runs :class:`Recompute`."""
     def routed(x, flat_params, *args):
-        return k4.swin_block_autograd(x, flat_params, *args)
+        return Recompute.apply(k4.swin_block_op(x, flat_params, *args), x, *flat_params)
 
     monkeypatch.setattr(t_htsat, "fused_swin_block", routed)
 

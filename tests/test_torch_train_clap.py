@@ -31,6 +31,7 @@ from audio_residual_tpu_torch.training import scheduler as t_sched
 from audio_residual_tpu_torch.training import train_clap as t_tc
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 B = 4
 STEPS = 3

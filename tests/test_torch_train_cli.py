@@ -34,6 +34,7 @@ from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_dist_workers as dw
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 CLIP = fx.AUDIO_KW["clip_samples"]
 

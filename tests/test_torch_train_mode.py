@@ -32,6 +32,7 @@ from audio_residual_tpu_torch.ops import frontend as t_fe
 from audio_residual_tpu_torch.ops import spec_augment as t_sa
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 F32 = dict(atol=1e-4, rtol=1e-3)
 HTSAT_KEYS = ("embedding", "clipwise_output", "framewise_output", "fine_grained_embedding")

@@ -28,6 +28,7 @@ from audio_residual_tpu_torch.residual.module import load_residual_params
 from audio_residual_tpu_torch.training import train_residual as t_tr
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 MAX_LEN = fx.AUDIO_KW["clip_samples"]
 TOL = {"loss": dict(rtol=1e-4, atol=0), "step_loss": dict(rtol=1e-4, atol=0),

@@ -28,6 +28,7 @@ from audio_residual_tpu_torch.utils import profiling as t_prof
 
 from . import torch_dist_workers as dw
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

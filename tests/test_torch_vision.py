@@ -35,6 +35,7 @@ from audio_residual_tpu_torch.models.convert import clip_state_dict, load_jax_pa
     vision_state_dict
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 REL = 1e-5
 NARROW_TRUNKS = {  # the registry's names, narrow widths

@@ -29,6 +29,7 @@ from audio_residual_tpu_torch.ops.cuda import wide_attention as t_k5
 from audio_residual_tpu_torch.ops.cuda import window_attention as t_k2
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 TOL = dict(atol=2e-4, rtol=1e-3)

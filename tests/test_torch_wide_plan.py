@@ -23,8 +23,11 @@ from jax.experimental import pallas as pl
 
 from audio_residual_tpu.ops.pallas import window_attention as j_fwa
 from audio_residual_tpu_torch.models import factory
+from audio_residual_tpu_torch.ops.cuda import build
 from audio_residual_tpu_torch.ops.cuda import wide_attention as k5
 from audio_residual_tpu_torch.ops.cuda.window_attention import WIDE_MIN_C, q_scale
+
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 BF16 = torch.bfloat16
@@ -71,7 +74,7 @@ def test_plan_of_every_shipped_wide_layer(layer, batch):
     assert c % 64 == 0 and plan.grid[1] * 64 == c
     assert plan.heads_per_block * (c // nh) == 64
     assert (2 * c) % 16 == 0 and (2 * n * c) % 16 == 0  # x rows, x windows, wqkv rows in bf16
-    assert plan.smem_bytes <= k5.SMEM_LIMIT
+    assert plan.smem_bytes <= build.SMEM_LIMIT
     covered = plan.grid[0] * plan.windows_per_block
     assert covered >= windows > covered - plan.windows_per_block
 

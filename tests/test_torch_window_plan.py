@@ -26,9 +26,12 @@ from jax.experimental import pallas as pl
 from audio_residual_tpu.ops.pallas import swin_block as j_k4
 from audio_residual_tpu.ops.pallas import window_attention as j_k2
 from audio_residual_tpu_torch.models import factory
+from audio_residual_tpu_torch.ops.cuda import build
 from audio_residual_tpu_torch.ops.cuda import swin_block as t_k4
 from audio_residual_tpu_torch.ops.cuda import window_attention as k2
 from audio_residual_tpu_torch.ops.cuda.window_attention import WIDE_MIN_C, q_scale
+
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 INTERPRET = functools.partial(pl.pallas_call, interpret=True)
 BF16 = torch.bfloat16
@@ -82,9 +85,9 @@ def test_plan_of_every_shipped_window_layer(layer, batch):
     assert plan.grid[1] * nq == c and (nq * 64 * 2) % 1024 == 0
     assert (2 * c) % 16 == 0 and (2 * n * c) % 16 == 0
     assert plan.stages == {144: 5, 192: 4}[plan.n_cols]
-    assert plan.smem_bytes <= k2.SMEM_LIMIT
+    assert plan.smem_bytes <= build.SMEM_LIMIT
     # no room for one more stage (x box, weight box, two barriers)
-    assert plan.smem_bytes + 16 * 1024 + plan.n_cols * 64 * 2 + 16 > k2.SMEM_LIMIT
+    assert plan.smem_bytes + 16 * 1024 + plan.n_cols * 64 * 2 + 16 > build.SMEM_LIMIT
     covered = plan.grid[0] * plan.windows_per_block
     assert covered >= windows > covered - plan.windows_per_block
     assert plan.blocks == min(plan.grid[0] * plan.grid[1], 132)

@@ -32,6 +32,7 @@ from audio_residual_tpu_torch.models import pretrained as t_pretrained
 from audio_residual_tpu_torch.utils.tokenizer import HashTokenizer
 
 from . import torch_port_fixture as fx
+from .torch_threads import one_cpu_thread  # noqa: F401
 
 F32 = dict(atol=1e-5, rtol=1e-4)
 SLICE = dict(atol=2e-3, rtol=1e-3)
